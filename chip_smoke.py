@@ -12,8 +12,9 @@ Phases, one JSON line each:
               100 queries, k = 10, the default SchedulePolicy) for
               PDScanning+ (dco_scan) and DDCopq (pq_lookup), with the
               kernels' launch counts over one batch, QPS, recall against a
-              float64 brute-force ground truth, and the device-busy share
-              from torch.profiler;
+              float64 brute-force ground truth, the device memory held,
+              and one profiled batch: device operations, CUDA runtime
+              calls and the device-busy share;
   5. rules    all 8 methods at 100k x 960 with the same queries;
   6. kernels  each kernel's time at the main path's real inputs beside its
               bound, its plain version and, where one exists, a single
@@ -167,15 +168,20 @@ def phase_parity(dev):
                 check(torch.allclose(gp[both], wp[both], rtol=1e-4, atol=1e-3),
                       f"dco_scan partial differs (nq={nq} d1={d1} {kind})")
                 cases += 1
-    codes = torch.as_tensor(rng.integers(0, 256, (n, 16)), dtype=torch.int32,
-                            device=dev)
-    lut = torch.rand(16, 16, 256, device=dev) * 10
-    got, want = ops.pq_lookup_op(codes, lut), pq_lookup_plain(codes, lut)
-    check(torch.allclose(got, want, rtol=1e-4, atol=1e-3),
-          "pq_lookup differs from its plain version")
+    pq_err = 0.0
+    # the main path's shape, and one whose block stages more queries than
+    # the kernel accumulates in registers at once
+    for nq, m, k in ((16, 16, 256), (21, 4, 16)):
+        codes = torch.as_tensor(rng.integers(0, k, (n, m)),
+                                dtype=torch.int32, device=dev)
+        lut = torch.rand(nq, m, k, device=dev) * 10
+        got, want = ops.pq_lookup_op(codes, lut), pq_lookup_plain(codes, lut)
+        check(torch.allclose(got, want, rtol=1e-4, atol=1e-3),
+              f"pq_lookup differs from its plain version (nq={nq} m={m})")
+        pq_err = max(pq_err, float((got - want).abs().max()))
     torch.cuda.synchronize()
-    log("parity", dco_scan_cases=cases, pq_lookup_cases=1,
-        pq_lookup_max_abs_err=float((got - want).abs().max()))
+    log("parity", dco_scan_cases=cases, pq_lookup_cases=2,
+        pq_lookup_max_abs_err=pq_err)
 
 
 def run_method(X, Q, gt, method, dev, *, count_launches=False,
@@ -190,6 +196,7 @@ def run_method(X, Q, gt, method, dev, *, count_launches=False,
     from repro_torch.kernels import pq_lookup as pq_mod
     from repro_torch.vecdata import recall_at_k
 
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     sess = open_index(X, method=method, device=dev)
     fit_s = time.perf_counter() - t0
@@ -206,9 +213,6 @@ def run_method(X, Q, gt, method, dev, *, count_launches=False,
         t0 = time.perf_counter()
         res = sess.search(Q, K)
         walls.append(time.perf_counter() - t0)
-    busy = None
-    if profile:
-        busy = device_busy_share(sess, Q)
     ex = res.stats.extra
     rec = {
         "method": method, "n": int(X.shape[0]), "dim": int(X.shape[1]),
@@ -219,29 +223,61 @@ def run_method(X, Q, gt, method, dev, *, count_launches=False,
         "dims_read_mean": ex["dims_read_mean"],
         "survivors_mean": ex.get("survivors_mean"),
         "uncertified_queries": ex.get("uncertified_queries"),
-        "device_busy_share": busy,
+        # the corpus layout's footprint on the card, and the peak while
+        # it was built and searched
+        "device_bytes_held": torch.cuda.memory_allocated(dev),
+        "device_bytes_peak": torch.cuda.max_memory_allocated(dev),
     }
+    if profile:
+        rec["profile"] = profile_batch(sess, Q, float(np.median(walls)))
     if count_launches:
         rec["launches_per_batch"] = launches
     return sess, res, rec
 
 
-def device_busy_share(sess, Q):
-    """Sum of device kernel time over one batch's wall, from
-    torch.profiler; None when the profiler records no device time."""
+def profile_batch(sess, Q, wall_s: float) -> dict:
+    """One more batch under torch.profiler: the device operations it ran
+    (kernels apart from copies and fills), the CUDA runtime calls the host
+    made, and the device time.  The busy share divides the device time by
+    ``wall_s``, the median wall of the unprofiled batches, since the
+    profiler's own overhead stretches the profiled batch's wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sess.search(Q, K)
-        wall_us = (time.perf_counter() - t0) * 1e6
+        torch.cuda.synchronize()
+        profiled_wall_s = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
-    dev_us = sum(getattr(e, "self_device_time_total",
+    kernels = memops = runtime = 0
+    dev_us = 0.0
+    top = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == cuda:
+            us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0))
-                 for e in prof.key_averages()
-                 if getattr(e, "device_type", None) == cuda)
-    return dev_us / wall_us if dev_us > 0 else None
+            dev_us += us
+            if e.key.startswith(("Memcpy", "Memset")):
+                memops += e.count
+            else:
+                kernels += e.count
+            top.append((us, e.count, e.key[:60]))
+        elif e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel",
+                               "cudaMemcpy", "cudaMemset")):
+            runtime += e.count
+    top.sort(reverse=True)
+    return {
+        "device_kernels": kernels, "device_copies_fills": memops,
+        "runtime_launch_calls": runtime, "device_ms": dev_us / 1e3,
+        "unprofiled_wall_ms": wall_s * 1e3,
+        "profiled_wall_ms": profiled_wall_s * 1e3,
+        "device_busy_share": (dev_us / 1e6) / wall_s if dev_us > 0 else None,
+        "host_us_per_device_op": (wall_s * 1e6 / (kernels + memops)
+                                  if kernels + memops else None),
+        "top_device_ops": [{"name": n, "count": c, "ms": us / 1e3}
+                           for us, c, n in top[:12]],
+    }
 
 
 def inline_agreement(sess, Q, res, dev):
@@ -411,8 +447,12 @@ def main() -> int:
     log("main", **rec, phase_s=time.perf_counter() - t0)
     check(rec["launches_per_batch"]["pq_lookup"] > 0,
           "the main path launched no pq_lookup kernel")
-    # DDCopq is an estimator: its recall is the method's, so the check is
-    # that the kernel screens as the plain gather does on the same state
+    # DDCopq is an estimator whose recall falls with corpus size (the
+    # reference package's does too: scripts/ddcopq_recall_scaling.py), so
+    # the 0.9 bar is reported, met or not, and the check is that the
+    # kernel screens as the plain gather does on the same fitted state
+    log("recall_bar", method="DDCopq", required_recall_at_10=0.9,
+        recall_at_10=rec["recall_at_10"], met=rec["recall_at_10"] >= 0.9)
     agree, inline_ids = inline_agreement(sess, Q, res, dev)
     inline_recall = recall_at_k(inline_ids, gt)
     log("kernel_vs_inline", method="DDCopq", id_agreement=agree,

@@ -22,6 +22,10 @@ from repro_torch.core.stream_engine import build_stream_blocks, stream_topk
 from repro_torch.core.torch_engine import DcoEngineConfig, build_device_state
 
 
+#: per-row device tensors that build_stream_blocks turns into the blocks
+_ROW_KEYS = ("x_lead", "x_tail", "lead_sq", "tail_sq", "row_ids", "codes")
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means the CUDA card; a CUDA device without a card raises
     instead of quietly running on the CPU."""
@@ -64,12 +68,30 @@ class TorchBackend:
                 "stage-2 completion")
         self._dstate = dstate
         self._d1 = min(self.policy.d1, D)
-        self._state = build_device_state(dstate, self._d1, self.device)
+        # pad the rows to whole row blocks on the host, so the one copy to
+        # the device is already the blocked layout: build_stream_blocks
+        # then only reshapes, and the corpus lies on the device once
+        n = xr.shape[0]
+        pad = (-n) % min(self.policy.row_block, n)
+        rows = {"Xrot": xr}
         if dstate["kind"] == "opq":
-            self._state["codes"] = torch.from_numpy(
-                np.asarray(dstate["codes"], np.int32)).to(self.device)
-        # pad + reshape of the whole corpus happens once per materialization
-        self._blocks = build_stream_blocks(self._state, self.policy.row_block)
+            rows["codes"] = np.asarray(dstate["codes"], np.int32)
+        if pad:
+            rows = {key: np.pad(a, ((0, pad), (0, 0)))
+                    for key, a in rows.items()}
+        state = build_device_state(dict(dstate, Xrot=rows["Xrot"]), self._d1,
+                                   self.device)
+        state["row_ids"] = torch.cat([
+            torch.arange(n, dtype=torch.int32),
+            torch.full((pad,), -1, dtype=torch.int32)]).to(self.device)
+        if "codes" in rows:
+            state["codes"] = torch.from_numpy(rows["codes"]).to(self.device)
+        self._blocks = build_stream_blocks(state, self.policy.row_block)
+        # the engine reads the corpus through the blocks only; keep the
+        # per-rule scalars and the real rows' least tail energy (ddcres)
+        self._state = {key: v for key, v in state.items()
+                       if key not in _ROW_KEYS}
+        self._state["tail_min"] = state["tail_sq"][:n].min()
 
     def _config(self, k: int) -> DcoEngineConfig:
         if k in self._cfg_cache:

@@ -49,16 +49,6 @@ def _round8(v: int) -> int:
     return max(8, -(-v // 8) * 8)
 
 
-def _group_plan(d1: int, groups: int):
-    """Resolve a requested ``dim_groups`` against the screening width:
-    (G, dg, widths) with ``widths`` the logical dim count per group."""
-    G = max(1, min(int(groups), int(d1)))
-    dg = -(-d1 // G)
-    G = -(-d1 // dg)
-    widths = tuple(min(dg, d1 - g * dg) for g in range(G))
-    return G, dg, widths
-
-
 def _effective_groups(cfg: DcoEngineConfig) -> int:
     """PDX group count the engine would honor: ``fdscan`` has no screen to
     stage and ``opq`` screens on the PQ adist, so both force G=1."""
@@ -98,22 +88,22 @@ def _merge_topk(best_d, best_i, new_d, new_i, k: int):
     return vals, torch.gather(i, 1, pos)
 
 
-def build_stream_blocks(state: dict, row_block: int,
-                        full_width: bool = False) -> dict:
+def build_stream_blocks(state: dict, row_block: int) -> dict:
     """Pad the corpus to a whole number of row blocks and reshape every
     per-row tensor to (n_blocks, block, ...).  Pad rows carry id -1.
     Callers that search repeatedly build this once per materialization.
-    ``full_width=True`` keeps the block width at ``row_block`` even when
-    the corpus has fewer rows."""
+    When the row count is already a whole number of blocks the layout is
+    a view of ``state``'s tensors, so the corpus is not copied."""
     x_lead = state["x_lead"]
     n = x_lead.shape[0]
-    B = row_block if full_width else min(row_block, n)
+    B = min(row_block, n)
     nb = -(-n // B)
     pad = nb * B - n
 
     def rows(a, value=0):
-        widths = (0, 0) * (a.dim() - 1) + (0, pad)
-        a = torch.nn.functional.pad(a, widths, value=value)
+        if pad:
+            widths = (0, 0) * (a.dim() - 1) + (0, pad)
+            a = torch.nn.functional.pad(a, widths, value=value)
         return a.reshape(nb, B, *a.shape[1:])
 
     ids = state.get("row_ids")
@@ -149,7 +139,8 @@ def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, B, D):
     qt_sq = (qt ** 2).sum(1)
     if cfg.kind == "ddcres":
         slack = 2.0 * cfg.m * torch.sqrt(torch.clamp_min(qe["var_d1"], 0.0))
-        tail_min = state.get("tail_min", state["tail_sq"]).min()
+        tail_min = (state["tail_min"] if "tail_min" in state
+                    else state["tail_sq"].min())
     rows = torch.arange(c, device=dev)[:, None]
     col = torch.arange(Cp, device=dev)[None, :]
 
@@ -277,7 +268,9 @@ def stream_topk(state: dict, q_lead, q_tail, cfg: DcoEngineConfig,
     q_lead (Q, d1), q_tail (Q, D - d1) tensors on the state's device.
     ``state`` is a ``torch_engine.build_device_state`` export, optionally
     with ``row_ids`` and (opq rule) ``codes``.  ``blocks`` is an optional
-    pre-built :func:`build_stream_blocks` layout.  Ragged batches pad to a
+    pre-built :func:`build_stream_blocks` layout; with it, ``state`` needs
+    only the per-rule scalars and, for ddcres, ``tail_min`` (the least
+    tail energy of the real rows).  Ragged batches pad to a
     whole number of query chunks; N need not divide ``cfg.row_block``.
 
     Returns (dists_sq (Q, k), ids (Q, k) int32, survivors (Q,), passed

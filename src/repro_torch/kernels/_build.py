@@ -81,8 +81,6 @@ def _bind(lib):
     lib.dco_scan_launch.restype = i32
     lib.pq_lookup_launch.argtypes = [vp] * 3 + [i32] * 5 + [vp]
     lib.pq_lookup_launch.restype = i32
-    lib.pq_lookup_max_queries.argtypes = []
-    lib.pq_lookup_max_queries.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -5,10 +5,11 @@
 // (body _kernel), which turned the gather into a one-hot x LUT matmul
 // because the TPU has no fast gather.  Hopper gathers from shared memory,
 // so this is the direct form: each CUDA block stages the (M, K) LUTs of
-// `bq` queries in shared memory (16 KB per query at M = 16, K = 256; above
-// 48 KB the launcher opts in to dynamic shared memory), and each thread
-// takes one row, reads its M codes and accumulates the gathered entries
-// for every staged query.  A code outside [0, K) adds nothing, as a one-hot
+// `bq` queries in shared memory (16 KB per query at M = 16, K = 256; the
+// Python launcher picks bq from its shared-memory budget, and above 48 KB
+// this launcher opts in to dynamic shared memory), and each thread takes
+// one row, reads its M codes and accumulates the gathered entries for the
+// staged queries, TQ of them at a time in registers.  A code outside [0, K) adds nothing, as a one-hot
 // row of zeros does in the TPU kernel.
 //
 // Bound.  At the main path's shape (4096 rows x 16 codes, 16 queries) one
@@ -21,7 +22,7 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAXQ = 8;       // queries staged per block, at most
+constexpr int TQ = 8;         // staged queries accumulated in registers at once
 
 __global__ void __launch_bounds__(THREADS)
 pq_lookup_kernel(const int32_t* __restrict__ codes,
@@ -37,29 +38,31 @@ pq_lookup_kernel(const int32_t* __restrict__ codes,
 
   const int row = blockIdx.x * THREADS + threadIdx.x;
   if (row >= n) return;
-  float acc[MAXQ];
-#pragma unroll
-  for (int t = 0; t < MAXQ; ++t) acc[t] = 0.0f;
   const int32_t* cr = codes + (size_t)row * m;
-  for (int j = 0; j < m; ++j) {
-    const int c = cr[j];
-    if ((unsigned)c >= (unsigned)k) continue;
-    const float* base = lut_s + j * k + c;
-#pragma unroll
-    for (int t = 0; t < MAXQ; ++t)
-      if (t < nqb) acc[t] += base[t * per_q];
-  }
   float* o = out + (size_t)row * nq + qbase;
+  for (int q0 = 0; q0 < nqb; q0 += TQ) {
+    const int nt = min(TQ, nqb - q0);
+    float acc[TQ];
 #pragma unroll
-  for (int t = 0; t < MAXQ; ++t)
-    if (t < nqb) o[t] = acc[t];
+    for (int t = 0; t < TQ; ++t) acc[t] = 0.0f;
+    for (int j = 0; j < m; ++j) {
+      const int c = cr[j];
+      if ((unsigned)c >= (unsigned)k) continue;
+      const float* base = lut_s + (size_t)q0 * per_q + j * k + c;
+#pragma unroll
+      for (int t = 0; t < TQ; ++t)
+        if (t < nt) acc[t] += base[t * per_q];
+    }
+#pragma unroll
+    for (int t = 0; t < TQ; ++t)
+      if (t < nt) o[q0 + t] = acc[t];
+  }
 }
 
 }  // namespace
 
-extern "C" int pq_lookup_max_queries() { return MAXQ; }
-
-// Launch on `stream` with `bq` queries (1 <= bq <= MAXQ) per block.
+// Launch on `stream` with `bq` queries staged per block; the caller sizes
+// bq so that bq * m * k floats fit in one block's shared memory.
 // Returns the cudaError_t of the attribute call or the launch.
 extern "C" int pq_lookup_launch(const int32_t* codes, const float* lut,
                                 float* out, int n, int nq, int m, int k,

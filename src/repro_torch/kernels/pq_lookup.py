@@ -14,8 +14,9 @@ from repro_torch.kernels import _build
 #: kernel launches since the last reset (the plain version never counts)
 launches = 0
 
-#: shared memory one block may stage, in bytes (leaves room for a second
-#: block on the SM); the hardware cap per block is 227 KB
+#: shared memory one block stages, in bytes: the LUTs of as many queries as
+#: fit (at least one), leaving room for a second block on the SM.  The
+#: hardware cap per block is 227 KB.
 _SMEM_TARGET = 96 * 1024
 _SMEM_MAX = 232_448
 
@@ -46,7 +47,7 @@ def pq_lookup_cuda(codes, lut):
         raise ValueError(f"pq_lookup: one query's LUT ({per_q} B) exceeds "
                          "the shared memory of a block")
     lib = _build.load_library()
-    bq = max(1, min(nq, lib.pq_lookup_max_queries(), _SMEM_TARGET // per_q))
+    bq = max(1, min(nq, _SMEM_TARGET // per_q))
     out = torch.empty((n, nq), dtype=torch.float32, device=dev)
     err = lib.pq_lookup_launch(
         codes.data_ptr(), lut.data_ptr(), out.data_ptr(), n, nq, m, k, bq,

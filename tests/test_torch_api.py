@@ -84,6 +84,26 @@ def test_add_rebuilds_and_serves_new_rows(sift_small):
         sess.add(np.zeros((1, 3), np.float32))
 
 
+@pytest.mark.parametrize("name", ["DDCres", "DDCopq"])
+def test_backend_holds_the_corpus_once(name, sift_small):
+    """The backend pads the rows on the host and keeps only the blocked
+    layout: no per-row tensor stays in its state, the blocks are whole,
+    pad rows carry id -1, and ddcres reads the real rows' tail minimum."""
+    X = sift_small.X[:1300]                 # not a multiple of row_block
+    sess = open_index(X, method=name, device="cpu",
+                      schedule=SchedulePolicy(**POLICY))
+    sess.search(sift_small.Q[:2], K)
+    be = sess.backend
+    assert not set(be._state) & {"x_lead", "x_tail", "lead_sq", "tail_sq",
+                                 "row_ids", "codes"}
+    ids = be._blocks["ids"].reshape(-1).numpy()
+    assert be._blocks["xl"].shape[:2] == (3, POLICY["row_block"])
+    np.testing.assert_array_equal(ids[:1300], np.arange(1300))
+    assert (ids[1300:] == -1).all()
+    assert float(be._state["tail_min"]) == float(
+        be._blocks["tsq"].reshape(-1)[:1300].min())
+
+
 @pytest.mark.parametrize("kwargs,item", [
     (dict(index="ivf"), "A5"), (dict(index="hnsw"), "A4"),
     (dict(backend="host"), "A4"), (dict(mesh=object()), "A12"),

@@ -17,7 +17,7 @@ from repro_torch.kernels import pq_lookup as pq_mod
 DCO_CASES = [(256, 128, 128), (300, 17, 130), (64, 8, 96), (1000, 5, 256),
              (128, 1, 32), (4096, 16, 128)]
 PQ_CASES = [(300, 9, 16, 256), (128, 8, 8, 64), (65, 3, 4, 16),
-            (4096, 16, 16, 256)]
+            (4096, 16, 16, 256), (1000, 21, 4, 16)]
 
 
 def _seed(*parts) -> int:
