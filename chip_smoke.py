@@ -7,18 +7,30 @@ Phases, one JSON line each:
   1. device   the card, and its name and power limit from nvidia-smi;
   2. build    nvcc builds the kernels from src/repro_torch/kernels/csrc;
   3. parity   each kernel against its plain PyTorch version on the card,
-              at the main path's launch shapes;
+              at the main path's launch shapes, and the grouped kernel at
+              G = 1 against the flat one;
   4. main     the flat streaming search at GIST1M shape (1M x 960 f32,
               100 queries, k = 10, the default SchedulePolicy) for
               PDScanning+ (dco_scan) and DDCopq (pq_lookup), with the
               kernels' launch counts over one batch, QPS, recall against a
-              float64 brute-force ground truth, the device memory held,
-              and one profiled batch: device operations, CUDA runtime
-              calls and the device-busy share;
-  5. rules    all 8 methods at 100k x 960 with the same queries;
-  6. kernels  each kernel's time at the main path's real inputs beside its
-              bound, its plain version and, where one exists, a single
-              PyTorch call computing the same function.
+              float64 brute-force ground truth and the device memory held;
+  5. pdx      the same PDScanning+ method, unrefitted, served from the PDX
+              layout (SchedulePolicy(dim_groups=4), dco_scan_grouped) with
+              the same record, its ids held against the flat path's;
+  6. rules    all 8 methods at 100k x 960 with the same queries, and each
+              method that groups again at dim_groups = 4 (and PDScanning+
+              on the inline R-cut path);
+  7. profile  for each 1M session (flat, PDX, DDCopq), served again from
+              its fitted method: one batch under torch.profiler (device
+              operations, CUDA runtime calls, device-busy share against
+              the phase's unprofiled wall), then its kernel's time at the
+              main path's real inputs beside its bound, its plain version
+              and, where one exists, a single PyTorch call computing the
+              same function (dco_scan_grouped beside dco_scan on the same
+              rows and queries).  This comes last because a profiler
+              session and CUDA graphs leave every later launch slower on
+              the host for the rest of the process (scripts/pdx_ab.py
+              measures it), which would bias the QPS of later phases.
 Then the kernel table, the nvidia-smi line and the result line.  Every
 check raises on failure, so the script exits nonzero; without a CUDA card,
 or without the repo beside it, it prints no result and exits nonzero.
@@ -168,6 +180,11 @@ def phase_parity(dev):
                 check(torch.allclose(gp[both], wp[both], rtol=1e-4, atol=1e-3),
                       f"dco_scan partial differs (nq={nq} d1={d1} {kind})")
                 cases += 1
+    grouped = 0
+    for nq in (16, 128):
+        for G in (1, 4, 5):
+            for dg in (32, 10, 33):
+                grouped += parity_grouped(rng, dev, n, n_valid, nq, G, dg)
     pq_err = 0.0
     # the main path's shape, and one whose block stages more queries than
     # the kernel accumulates in registers at once
@@ -180,42 +197,120 @@ def phase_parity(dev):
               f"pq_lookup differs from its plain version (nq={nq} m={m})")
         pq_err = max(pq_err, float((got - want).abs().max()))
     torch.cuda.synchronize()
-    log("parity", dco_scan_cases=cases, pq_lookup_cases=2,
-        pq_lookup_max_abs_err=pq_err)
+    log("parity", dco_scan_cases=cases, dco_scan_grouped_cases=grouped,
+        pq_lookup_cases=2, pq_lookup_max_abs_err=pq_err)
 
 
-def run_method(X, Q, gt, method, dev, *, count_launches=False,
-               profile=False):
-    """Fit on the host, then search Q on the card: a first (materializing)
-    batch and three timed batches.  Returns the session, last result and a
+def parity_grouped(rng, dev, n, n_valid, nq, G, dg) -> int:
+    """dco_scan_grouped against its plain version on x (G, n, dg), with a
+    ragged last group when G > 1; at G = 1 also against the flat kernel
+    with block_d == dg.  Returns the number of cases checked."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dco_scan import dco_scan_grouped_plain
+
+    d1 = G * dg - (dg // 3 if G > 1 else 0)
+    widths = torch.tensor([min(dg, d1 - g * dg) for g in range(G)],
+                          dtype=torch.float32, device=dev)
+    pad = (torch.arange(G * dg, device=dev) >= d1).reshape(G, 1, dg)
+    sc = torch.ones(G, device=dev)
+    nr = torch.tensor([n_valid], dtype=torch.int32, device=dev)
+    # (a) integer-valued inputs: all four outputs must agree bit for bit
+    x = torch.as_tensor(rng.integers(-4, 5, (G, n, dg)), dtype=torch.float32,
+                        device=dev).masked_fill(pad, 0.0)
+    q = torch.as_tensor(rng.integers(-4, 5, (G, nq, dg)), dtype=torch.float32,
+                        device=dev).masked_fill(pad, 0.0)
+    tau = torch.as_tensor(rng.uniform(2 * d1, 10 * d1, nq),
+                          dtype=torch.float32, device=dev)
+    tau[::5] = -1.0                           # padded queries prune all
+    got = ops.dco_scan_grouped_op(x, q, tau, sc, widths, nr)
+    want = dco_scan_grouped_plain(x, q, tau, sc, widths, nr, block_n=256)
+    for name, g, w in zip(("partial", "keep", "counts", "dims"), got, want):
+        check(torch.equal(g, w), f"dco_scan_grouped {name} differs "
+              f"(nq={nq} G={G} dg={dg})")
+    # (b) Gaussian inputs: keep exact away from tau, partials allclose
+    x = torch.randn(G, n, dg, device=dev).masked_fill(pad, 0.0)
+    q = torch.randn(G, nq, dg, device=dev).masked_fill(pad, 0.0)
+    tau = torch.as_tensor(rng.uniform(0.5 * d1, 2.5 * d1, nq),
+                          dtype=torch.float32, device=dev)
+    gout = ops.dco_scan_grouped_op(x, q, tau, sc, widths, nr)
+    gp, gk = gout[0], gout[1]
+    wp, wk, _, _ = dco_scan_grouped_plain(x, q, tau, sc, widths, nr,
+                                          block_n=256)
+    near = (wp - tau[None, :]).abs() <= 1e-4 * tau.abs()[None, :]
+    check(not bool(((gk != wk) & ~near).any()),
+          f"dco_scan_grouped keep differs away from tau (G={G} dg={dg})")
+    both = (gk == 1) & (wk == 1)
+    check(torch.allclose(gp[both], wp[both], rtol=1e-4, atol=1e-3),
+          f"dco_scan_grouped partial differs (nq={nq} G={G} dg={dg})")
+    if G > 1:
+        return 2
+    # (c) one group of width block_d is the flat kernel, bit for bit
+    flat = ops.dco_scan_op(x[0], q[0], tau, sc, nr, block_n=256, block_d=dg)
+    for name, f, g in zip(("partial", "keep", "counts", "dims"), flat, gout):
+        check(torch.equal(f, g), f"dco_scan_grouped at G = 1 differs from "
+              f"dco_scan in {name} (nq={nq} dg={dg})")
+    return 3
+
+
+def check_rule(method, res, rec, fd_ids, gt) -> None:
+    """Exact methods return FDScanning's ids and the ground truth;
+    estimators reach recall@10 0.9; every result is well formed."""
+    import numpy as np
+    from repro_torch.vecdata import recall_at_k
+    name = f"{rec['method']} (dim_groups={rec['dim_groups']})"
+    if method.exact:
+        check(np.array_equal(np.sort(res.ids, 1), fd_ids),
+              f"{name} ids differ from FDScanning")
+        check(recall_at_k(res.ids, gt) == 1.0,
+              f"{name} ids differ from the ground truth")
+    else:
+        check(rec["recall_at_10"] >= 0.9, f"{name} recall below 0.9")
+    check(np.isfinite(res.dists).all() and res.ids.shape == (
+        gt.shape[0], K), f"{name} returned malformed results")
+
+
+def run_method(X, Q, gt, method, dev, *, fitted=None, schedule=None):
+    """Fit ``method`` on the host (or serve the already ``fitted`` one
+    under ``schedule``), then search Q on the card: a first
+    (materializing) batch and three timed batches, the first of which
+    counts each kernel's launches.  Returns the session, last result and a
     record of the run."""
     import numpy as np
     import torch
-    from repro_torch.api import open_index
+    from repro_torch.api import SearchSession, open_index
     from repro_torch.kernels import dco_scan as dco_mod
     from repro_torch.kernels import pq_lookup as pq_mod
     from repro_torch.vecdata import recall_at_k
 
     torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
-    sess = open_index(X, method=method, device=dev)
+    if fitted is None:
+        sess = open_index(X, method=method, device=dev, schedule=schedule)
+    else:
+        sess = SearchSession(fitted, schedule, device=dev)
     fit_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     sess.search(Q, K)                           # materializes the layout
     first_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    dco_mod.launches = pq_mod.launches = 0
+    dco_mod.launches = dco_mod.grouped_launches = pq_mod.launches = 0
     t0 = time.perf_counter()
     res = sess.search(Q, K)                     # ends in a device->host copy
     walls = [time.perf_counter() - t0]
-    launches = {"dco_scan": dco_mod.launches, "pq_lookup": pq_mod.launches}
+    launches = {"dco_scan": dco_mod.launches,
+                "dco_scan_grouped": dco_mod.grouped_launches,
+                "pq_lookup": pq_mod.launches}
     for _ in range(2):
         t0 = time.perf_counter()
         res = sess.search(Q, K)
         walls.append(time.perf_counter() - t0)
     ex = res.stats.extra
     rec = {
-        "method": method, "n": int(X.shape[0]), "dim": int(X.shape[1]),
+        "method": method, "dim_groups": sess.policy.dim_groups,
+        "use_kernel": sess.policy.use_kernel,
+        "n": int(X.shape[0]), "dim": int(X.shape[1]),
         "nq": int(Q.shape[0]), "fit_s": fit_s, "first_search_s": first_s,
         "search_walls_s": walls,
         "qps": float(Q.shape[0] / np.median(walls)),
@@ -223,15 +318,18 @@ def run_method(X, Q, gt, method, dev, *, count_launches=False,
         "dims_read_mean": ex["dims_read_mean"],
         "survivors_mean": ex.get("survivors_mean"),
         "uncertified_queries": ex.get("uncertified_queries"),
-        # the corpus layout's footprint on the card, and the peak while
-        # it was built and searched
+        # the corpus layout's footprint on the card (its tensors alone, and
+        # all that is allocated), what was allocated before the session
+        # (leftovers of earlier phases), and the peak while it was built
+        # and searched
+        "layout_bytes": sum(v.nbytes for t in (sess.backend._blocks,
+                                               sess.backend._state)
+                            for v in t.values()),
         "device_bytes_held": torch.cuda.memory_allocated(dev),
+        "device_bytes_before": before,
         "device_bytes_peak": torch.cuda.max_memory_allocated(dev),
+        "launches_per_batch": launches,
     }
-    if profile:
-        rec["profile"] = profile_batch(sess, Q, float(np.median(walls)))
-    if count_launches:
-        rec["launches_per_batch"] = launches
     return sess, res, rec
 
 
@@ -341,6 +439,73 @@ def time_dco_scan(sess, Q, res, dev):
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
+def time_dco_scan_grouped(sess, Q, res, dev):
+    """dco_scan_grouped at the PDX path's real inputs: the first row block
+    (G, 4096, dg), the first query chunk split the same way and the tau
+    the scan ends with; beside it, in the same call, the flat dco_scan on
+    the same rows and queries."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dco_scan import dco_scan_grouped_plain
+
+    be = sess.backend
+    cfg = be._config(K)
+    ql, _, _ = be._prep_queries(Q[:cfg.query_chunk])
+    xg = be._blocks["xl"][0]                            # (G, B, dg)
+    G, n, dg = xg.shape
+    nq, d1 = ql.shape
+    q = torch.as_tensor(np.ascontiguousarray(ql), device=dev)
+    qg = torch.nn.functional.pad(q, (0, G * dg - d1)).reshape(
+        nq, G, dg).transpose(0, 1).contiguous()
+    tau = torch.as_tensor(res.dists[:cfg.query_chunk, -1], device=dev)
+    sc = torch.ones(G, device=dev)
+    widths = ops._widths(d1, dg, dev)
+    nr = torch.tensor([n], dtype=torch.int32, device=dev)
+
+    def grouped():
+        return ops.dco_scan_grouped_op(xg, qg, tau, sc, widths, nr,
+                                       block_n=256)
+
+    got = grouped()
+    want = dco_scan_grouped_plain(xg, qg, tau, sc, widths, nr, block_n=256)
+    near = (want[0] - tau[None, :]).abs() <= 1e-4 * tau.abs()[None, :]
+    check(not bool(((got[1] != want[1]) & ~near).any()),
+          "dco_scan_grouped keep differs at the PDX path's inputs")
+    err = float((got[0] - want[0]).abs().max())
+    # the same rows in the flat layout, for the flat kernel
+    xf = xg.transpose(0, 1).reshape(n, G * dg)[:, :d1].contiguous()
+    block_d = min(128, max(8, -(-d1 // 8) * 8))
+    scf = torch.ones(-(-d1 // block_d), device=dev)
+
+    def flat():
+        return ops.dco_scan_op(xf, q, tau, scf, nr, block_n=256,
+                               block_d=block_d)
+
+    fl = flat()
+    check(not bool(((fl[1] != got[1]) & ~near).any()),
+          "dco_scan and dco_scan_grouped keep differ away from tau")
+    entered = float(got[3].sum())               # (row, query, dim) triples
+    nb = -(-n // 256)
+    nbytes = 4 * (G * n * dg + G * nq * dg + nq + 2 * G + 1) \
+        + n * nq * (4 + 1) + nb * nq * (4 + 4)
+    flops = 2.0 * entered + 2.0 * (n + nq) * d1
+    bms, by = bound_ms(nbytes, flops)
+    ms = cuda_ms(grouped)
+    flat_ms = cuda_ms(flat)
+    plain = cuda_ms(lambda: dco_scan_grouped_plain(
+        xg, qg, tau, sc, widths, nr, block_n=256))
+    call = eager_ms(grouped)
+    log("kernel_timing", kernel="dco_scan_grouped", shape=[G, n, nq, dg],
+        ms=ms, flat_dco_scan_same_inputs_ms=flat_ms, plain_ms=plain,
+        eager_call_ms=call, bound_ms=bms, bound_by=by, bytes=nbytes,
+        flops=flops, max_abs_err=err, dims_entered=entered,
+        flat_dims_entered=float(fl[3].sum()),
+        keep_pairs=int(got[1].sum()))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
 def time_pq_lookup(sess, Q, dev):
     """pq_lookup at the main path's real inputs: the first row block's
     codes and the first query chunk's LUTs."""
@@ -387,6 +552,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
+    from repro_torch.api import SchedulePolicy, SearchSession
     from repro_torch.kernels import _build
     from repro_torch.vecdata import load_dataset, recall_at_k
 
@@ -423,8 +589,7 @@ def main() -> int:
         ground_truth_s=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    sess, res, rec = run_method(X, Q, gt, "PDScanning+", dev,
-                                count_launches=True, profile=True)
+    sess, res, rec = run_method(X, Q, gt, "PDScanning+", dev)
     log("main", **rec, phase_s=time.perf_counter() - t0)
     check(rec["recall_at_10"] == 1.0, "PDScanning+ recall@10 below 1.0")
     check(rec["uncertified_queries"] == 0.0, "PDScanning+ left queries "
@@ -436,14 +601,33 @@ def main() -> int:
         inline_recall_at_10=recall_at_k(inline_ids, gt))
     check(agree == 1.0, "PDScanning+ ids differ between the kernel and the "
           "inline screen")
-    dco_launches = rec["launches_per_batch"]["dco_scan"]
-    dco_row = time_dco_scan(sess, Q, res, dev)
+    # the PDX layout serves the same fitted method: hold one layout at a
+    # time, so the flat session goes first
+    pdsp, flat_ids, flat_rec = sess.method, res.ids, rec
     del sess, res
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    sess, res, rec = run_method(X, Q, gt, "DDCopq", dev,
-                                count_launches=True, profile=True)
+    sess, res, rec = run_method(X, Q, gt, "PDScanning+", dev, fitted=pdsp,
+                                schedule=SchedulePolicy(dim_groups=4))
+    log("pdx", **rec, flat_dims_read_mean=flat_rec["dims_read_mean"],
+        flat_device_bytes_held=flat_rec["device_bytes_held"],
+        flat_layout_bytes=flat_rec["layout_bytes"],
+        flat_qps=flat_rec["qps"], phase_s=time.perf_counter() - t0)
+    check(rec["recall_at_10"] == 1.0, "PDX PDScanning+ recall@10 below 1.0")
+    check(rec["uncertified_queries"] == 0.0,
+          "PDX PDScanning+ left queries uncertified")
+    check(rec["launches_per_batch"]["dco_scan_grouped"] > 0
+          and rec["launches_per_batch"]["dco_scan"] == 0,
+          "the PDX path did not run through dco_scan_grouped alone")
+    check(np.array_equal(np.sort(res.ids, 1), np.sort(flat_ids, 1)),
+          "PDX PDScanning+ ids differ from the flat path's")
+    pdx_rec = rec
+    del sess, res
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    sess, res, rec = run_method(X, Q, gt, "DDCopq", dev)
     log("main", **rec, phase_s=time.perf_counter() - t0)
     check(rec["launches_per_batch"]["pq_lookup"] > 0,
           "the main path launched no pq_lookup kernel")
@@ -459,8 +643,7 @@ def main() -> int:
         inline_recall_at_10=inline_recall)
     check(agree >= 0.99 and abs(inline_recall - rec["recall_at_10"]) <= 0.01,
           "DDCopq results differ between pq_lookup and the plain gather")
-    pq_launches = rec["launches_per_batch"]["pq_lookup"]
-    pq_row = time_pq_lookup(sess, Q, dev)
+    opq, opq_rec = sess.method, rec
     del sess, res, ds
     torch.cuda.empty_cache()
 
@@ -475,27 +658,67 @@ def main() -> int:
         log("rules", **rec)
         if method == "FDScanning":
             fd_ids = np.sort(res.ids, 1)
-        if sess.method.exact:
-            check(np.array_equal(np.sort(res.ids, 1), fd_ids),
-                  f"{method} ids differ from FDScanning")
-            check(recall_at_k(res.ids, gt_r) == 1.0,
-                  f"{method} ids differ from the ground truth")
-        else:
-            check(rec["recall_at_10"] >= 0.9, f"{method} recall below 0.9")
-        check(np.isfinite(res.dists).all() and res.ids.shape == (
-            Q.shape[0], K), f"{method} returned malformed results")
+        check_rule(sess.method, res, rec, fd_ids, gt_r)
+        if method in ("FDScanning", "DDCopq"):      # no PDX layout
+            del sess, res
+            continue
+        fitted = sess.method
         del sess, res
+        sess, res, rec = run_method(Xr, Q, gt_r, method, dev, fitted=fitted,
+                                    schedule=SchedulePolicy(dim_groups=4))
+        log("rules", **rec)
+        check_rule(fitted, res, rec, fd_ids, gt_r)
+        check(rec["launches_per_batch"]["dco_scan_grouped"] > 0
+              and rec["launches_per_batch"]["dco_scan"] == 0,
+              f"{method} at dim_groups=4 did not run dco_scan_grouped alone")
+        if method == "PDScanning+":
+            # the inline R-cut path on the card: its certified queries
+            # return the kernel path's ids
+            kernel_ids = res.ids
+            del sess, res
+            sess, res, rec = run_method(
+                Xr, Q, gt_r, method, dev, fitted=fitted,
+                schedule=SchedulePolicy(dim_groups=4, use_kernel=False))
+            log("rules", **rec)
+            check_rule(fitted, res, rec, fd_ids, gt_r)
+            ok = ~res.stats.extra["uncertified_mask"]
+            check(np.array_equal(res.ids[ok], kernel_ids[ok]),
+                  "PDX R-cut ids differ from the kernel path's on certified "
+                  "queries")
+        del sess, res, fitted
     log("rules_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    rows = {}
+    for kernel, fitted, schedule, rec, timer in (
+            ("dco_scan", pdsp, SchedulePolicy(), flat_rec, time_dco_scan),
+            ("dco_scan_grouped", pdsp, SchedulePolicy(dim_groups=4), pdx_rec,
+             time_dco_scan_grouped),
+            ("pq_lookup", opq, SchedulePolicy(), opq_rec,
+             lambda sess, Q, res, dev: time_pq_lookup(sess, Q, dev))):
+        sess = SearchSession(fitted, schedule, device=dev)
+        res = sess.search(Q, K)                 # materializes the layout
+        log("profile", method=rec["method"], dim_groups=rec["dim_groups"],
+            **profile_batch(sess, Q, float(np.median(rec["search_walls_s"]))))
+        rows[kernel] = dict(launches=rec["launches_per_batch"][kernel],
+                            **timer(sess, Q, res, dev))
+        del sess, res
+        torch.cuda.empty_cache()
+    log("profile_done", seconds=time.perf_counter() - t0)
 
     kernels = [
         dict(name="dco_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/dco_scan.cu",
              replaces="src/repro/kernels/dco_scan.py:111",
-             launches=dco_launches, **dco_row),
+             **rows["dco_scan"]),
         dict(name="pq_lookup", route="cuda",
              source="src/repro_torch/kernels/csrc/pq_lookup.cu",
              replaces="src/repro/kernels/pq_lookup.py:36",
-             launches=pq_launches, **pq_row),
+             **rows["pq_lookup"]),
+        dict(name="dco_scan_grouped", route="cuda",
+             source="src/repro_torch/kernels/csrc/dco_scan.cu",
+             replaces="src/repro/kernels/dco_scan.py:144",
+             **rows["dco_scan_grouped"]),
     ]
     log("done", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}))

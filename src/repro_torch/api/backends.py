@@ -3,9 +3,10 @@
 ``TorchBackend`` is the counterpart of the reference package's
 ``JaxBackend`` for a flat corpus: it lays the fitted method's uniform
 ``device_state()`` export out on one device (a CUDA card unless the caller
-asks for the CPU) and serves batched searches through the streaming engine
-(``core.stream_engine``).  IVF probing, the delta write path, the adaptive
-policy, guardrails, deadlines and the mesh are not ported yet.
+asks for the CPU), row-blocked or in the PDX dim-group layout, and serves
+batched searches through the streaming engine (``core.stream_engine``).
+IVF probing, the delta write path, the adaptive policy, guardrails,
+deadlines and the mesh are not ported yet.
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ class TorchBackend:
         self._state = None          # device tensors
         self._blocks = None         # cached stream-engine corpus layout
         self._d1 = None
+        self._groups = 1            # PDX dim groups of that layout
         self._cfg_cache: dict = {}  # k -> DcoEngineConfig
 
     def invalidate(self):
@@ -68,9 +70,16 @@ class TorchBackend:
                 "stage-2 completion")
         self._dstate = dstate
         self._d1 = min(self.policy.d1, D)
-        # pad the rows to whole row blocks on the host, so the one copy to
-        # the device is already the blocked layout: build_stream_blocks
-        # then only reshapes, and the corpus lies on the device once
+        # PDX layout (DESIGN.md §8): the group count the scan runs with,
+        # forced to 1 for rules with no partial-distance screen (what
+        # stream_engine._effective_groups resolves)
+        self._groups = 1
+        if dstate["kind"] not in ("fdscan", "opq"):
+            self._groups = max(1, int(self.policy.dim_groups))
+        # lay the corpus out on the host: pad the rows to whole row blocks
+        # and build the blocks (for PDX, the dim-group-major lead) from CPU
+        # tensors, so the one copy to the device is the final layout and
+        # the corpus lies on the device once
         n = xr.shape[0]
         pad = (-n) % min(self.policy.row_block, n)
         rows = {"Xrot": xr}
@@ -80,18 +89,20 @@ class TorchBackend:
             rows = {key: np.pad(a, ((0, pad), (0, 0)))
                     for key, a in rows.items()}
         state = build_device_state(dict(dstate, Xrot=rows["Xrot"]), self._d1,
-                                   self.device)
+                                   "cpu")
         state["row_ids"] = torch.cat([
             torch.arange(n, dtype=torch.int32),
-            torch.full((pad,), -1, dtype=torch.int32)]).to(self.device)
+            torch.full((pad,), -1, dtype=torch.int32)])
         if "codes" in rows:
-            state["codes"] = torch.from_numpy(rows["codes"]).to(self.device)
-        self._blocks = build_stream_blocks(state, self.policy.row_block)
+            state["codes"] = torch.from_numpy(rows["codes"])
+        blocks = build_stream_blocks(state, self.policy.row_block,
+                                     dim_groups=self._groups)
+        self._blocks = {key: v.to(self.device) for key, v in blocks.items()}
         # the engine reads the corpus through the blocks only; keep the
         # per-rule scalars and the real rows' least tail energy (ddcres)
-        self._state = {key: v for key, v in state.items()
+        state["tail_min"] = state["tail_sq"][:n].min()
+        self._state = {key: v.to(self.device) for key, v in state.items()
                        if key not in _ROW_KEYS}
-        self._state["tail_min"] = state["tail_sq"][:n].min()
 
     def _config(self, k: int) -> DcoEngineConfig:
         if k in self._cfg_cache:
@@ -100,7 +111,8 @@ class TorchBackend:
         kw = dict(kind=ds["kind"], d1=self._d1, k=k, capacity=p.capacity,
                   query_chunk=p.query_chunk, tau_slack=p.tau_slack,
                   row_block=p.row_block, block_capacity=p.block_capacity,
-                  use_kernel=p.use_kernel)
+                  use_kernel=p.use_kernel, dim_groups=self._groups,
+                  group_capacity=p.group_capacity)
         if ds["kind"] == "adsampling":
             kw["eps0"] = float(ds.get("eps0", 2.1))
         elif ds["kind"] == "ddcres":

@@ -6,6 +6,8 @@ streaming search on a torch device:
     sess = open_index(X, method="PDScanning+")       # fits, runs on CUDA
     res = sess.search(Q, k=10)                       # res.ids (nq, k)
     sess.add(X_new)                                  # re-materializes
+    pdx = open_index(X, method="PDScanning+",        # the PDX layout
+                     schedule=SchedulePolicy(dim_groups=4))
 
 Options the port does not serve yet raise ``NotImplementedError`` naming
 their ROADMAP item.
@@ -26,16 +28,12 @@ METHODS = tuple(ALL_METHODS)
 
 def _unsupported(policy: SchedulePolicy) -> None:
     """Refuse schedule options whose engine paths are not ported yet."""
-    if policy.adaptive:
+    if policy.adaptive:     # with dim_groups > 1 too: the adaptive PDX escape
         raise NotImplementedError(
             "SchedulePolicy(adaptive=True) is not ported yet (ROADMAP A7)")
     if policy.guardrails is not None and policy.guardrails is not False:
         raise NotImplementedError(
             "SchedulePolicy(guardrails=...) is not ported yet (ROADMAP A10)")
-    if policy.dim_groups > 1:
-        raise NotImplementedError(
-            "SchedulePolicy(dim_groups > 1), the PDX layout, is not ported "
-            "yet (ROADMAP A9)")
     if policy.engine != "stream":
         raise NotImplementedError(
             f"SchedulePolicy(engine={policy.engine!r}) is not ported yet; "

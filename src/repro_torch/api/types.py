@@ -2,9 +2,10 @@
 
 A copy of the reference package's ``api/types.py`` with the same fields and
 defaults, so one ``SchedulePolicy`` reads the same in both packages.  The
-torch backend serves the flat fixed-path streaming search; the options it
-does not serve yet (adaptive, guardrails, dim_groups > 1, engine="two_stage",
-faults) are refused by ``repro_torch.api.open_index``.
+torch backend serves the flat fixed-path streaming search, row-blocked or
+in the PDX layout (``dim_groups`` > 1); the options it does not serve yet
+(adaptive, guardrails, engine="two_stage", faults) are refused by
+``repro_torch.api.open_index``.
 """
 from __future__ import annotations
 
@@ -126,7 +127,9 @@ class SchedulePolicy:
     step (bigger = fewer merges, more VMEM/HBM per tile), ``block_capacity``
     survivors tail-completed per block per query (must comfortably exceed k;
     the per-block analogue of ``capacity``), ``use_kernel`` routes stage 1
-    through the kernels (None = only on a CUDA device).  See DESIGN.md §4.
+    through the CUDA kernels, ``dco_scan_grouped`` on the PDX layout (None
+    = only on a CUDA device; False runs the inline torch screen, with the
+    R-cut on the PDX layout).  See DESIGN.md §4.
 
     ``dim_groups`` > 1 selects the PDX vertical layout (DESIGN.md §8): each
     row block stores its lead dims in that many contiguous groups and the
@@ -139,8 +142,10 @@ class SchedulePolicy:
     automatically: lower-bound methods screen via incremental
     ``partial_range`` group reads whenever stages are staged.
     ``group_capacity`` bounds the candidates each query carries past group 0
-    on the jnp path (0 = auto: max(4*block_capacity, 512)); raise it if
-    ``uncertified_queries`` reports R-cut drops.
+    on the inline (``use_kernel=False``) path (0 = auto:
+    max(4*block_capacity, 512)); raise it if ``uncertified_queries``
+    reports R-cut drops.  The torch backend serves PDX on the fixed path;
+    PDX with ``adaptive=True`` is refused with the adaptive policy.
 
     ``delta_merge_threshold`` governs the jax backend's LSM-style write path
     (DESIGN.md §6): ``add()`` appends rows to a small delta segment that is

@@ -7,7 +7,8 @@ order:
 
   screen      stage-1 partial distances over the lead ``d1`` dims against
               the chunk's RUNNING tau — the ``dco_scan`` CUDA kernel (or
-              ``pq_lookup`` for DDCopq's ``opq`` rule) when
+              ``pq_lookup`` for DDCopq's ``opq`` rule, or
+              ``dco_scan_grouped`` on the PDX layout) when
               ``cfg.use_kernel``, else an inline torch block;
   compaction  survivors are compacted to ``block_capacity`` by estimate;
               one extra "observer" column records the best estimate that
@@ -27,9 +28,17 @@ stable ascending sort here (:func:`_smallest`).  A full sort of a
 (chunk, row_block) tile costs more than a top-k selection; that cost is a
 later performance item.
 
+PDX vertical layout (``dim_groups`` > 1, DESIGN.md §8): the lead dims of a
+block are split into contiguous dim groups, ``xl`` (n_blocks, G, block, dg)
+with one unit-stride (block, dg) plane per group.  On the kernel path
+``dco_scan_grouped`` freezes pairs group by group; on the inline path
+group 0 prices every row, survivors compact to the per-query top-R (the
+R-cut, with its own observer column in the certificate) and the later
+groups refine only those candidates (:func:`_scan_blocks`).
+
 Not ported yet (each raises ``NotImplementedError``): IVF probing (ROADMAP
-A5), anytime deadlines (A8), the adaptive policy (A7) and the PDX grouped
-layout (A9).
+A5), anytime deadlines (A8) and the adaptive policy (A7), with it the
+adaptive PDX escape.  The PDX delta segment waits for the delta path (A6).
 """
 from __future__ import annotations
 
@@ -40,13 +49,28 @@ import torch
 
 from repro_torch.core.torch_engine import DcoEngineConfig
 from repro_torch.kernels import ref
-from repro_torch.kernels.ops import dco_scan_op, pq_lookup_op
+from repro_torch.kernels.ops import (_widths, dco_scan_grouped_op,
+                                     dco_scan_op, pq_lookup_op)
 
 _INF = float("inf")
 
 
 def _round8(v: int) -> int:
     return max(8, -(-v // 8) * 8)
+
+
+def _group_plan(d1: int, groups: int):
+    """Resolve a requested ``dim_groups`` against the screening width: the
+    lead dims split into contiguous groups of ``ceil(d1/G)`` dims (the last
+    group may be ragged; the layout zero-pads it, which adds 0 to every
+    squared-distance partial).  Returns (G, dg, widths) with ``widths`` the
+    logical dim count per group; idempotent, so a layout rebuilt from its
+    own group count reproduces the same split."""
+    G = max(1, min(int(groups), int(d1)))
+    dg = -(-d1 // G)
+    G = -(-d1 // dg)
+    widths = tuple(min(dg, d1 - g * dg) for g in range(G))
+    return G, dg, widths
 
 
 def _effective_groups(cfg: DcoEngineConfig) -> int:
@@ -88,12 +112,19 @@ def _merge_topk(best_d, best_i, new_d, new_i, k: int):
     return vals, torch.gather(i, 1, pos)
 
 
-def build_stream_blocks(state: dict, row_block: int) -> dict:
+def build_stream_blocks(state: dict, row_block: int,
+                        dim_groups: int = 1) -> dict:
     """Pad the corpus to a whole number of row blocks and reshape every
     per-row tensor to (n_blocks, block, ...).  Pad rows carry id -1.
     Callers that search repeatedly build this once per materialization.
     When the row count is already a whole number of blocks the layout is
-    a view of ``state``'s tensors, so the corpus is not copied."""
+    a view of ``state``'s tensors, so the corpus is not copied.
+
+    ``dim_groups`` > 1 selects the PDX vertical layout: the lead dims split
+    per :func:`_group_plan` and ``xl`` becomes (n_blocks, G, block, dg),
+    dim-group-major and contiguous (a copy), with per-group squared norms
+    under ``lsg`` (n_blocks, G, block).  A ragged last group is
+    zero-padded."""
     x_lead = state["x_lead"]
     n = x_lead.shape[0]
     B = min(row_block, n)
@@ -118,6 +149,16 @@ def build_stream_blocks(state: dict, row_block: int) -> dict:
     }
     if "codes" in state:        # PQ codes for the opq rule
         xs["codes"] = rows(state["codes"].to(torch.int32))
+    if dim_groups > 1:
+        d1 = x_lead.shape[1]
+        G, dg, _ = _group_plan(d1, dim_groups)
+        if G > 1:
+            xl = xs["xl"]
+            if G * dg > d1:
+                xl = torch.nn.functional.pad(xl, (0, G * dg - d1))
+            xg = xl.reshape(nb, B, G, dg).transpose(1, 2).contiguous()
+            xs["xl"] = xg                                   # (nb, G, B, dg)
+            xs["lsg"] = (xg ** 2).sum(-1)                   # (nb, G, B)
     return xs
 
 
@@ -142,19 +183,42 @@ def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, B, D):
         tail_min = (state["tail_min"] if "tail_min" in state
                     else state["tail_sq"].min())
     rows = torch.arange(c, device=dev)[:, None]
-    col = torch.arange(Cp, device=dev)[None, :]
+    iota = torch.arange(B, device=dev)[None, :]
+
+    # ---- PDX vertical layout (DESIGN.md §8) -------------------------------
+    grouped = xs["xl"].dim() == 4
+    if grouped:
+        Gr, dgp, gw = _group_plan(d1, xs["xl"].shape[1])    # gw: logical dims
+        qlg = torch.nn.functional.pad(ql, (0, Gr * dgp - d1)).reshape(
+            c, Gr, dgp).transpose(0, 1).contiguous()           # (Gr, c, dgp)
+        qgsq = (qlg ** 2).sum(-1)                              # (Gr, c)
+        # inline path: survivors of the group-0 screen compact to the
+        # per-query top-R by estimate before the later groups are gathered;
+        # R >= C, and the R-cut has its own observer slot (certificate)
+        R = cfg.group_capacity if cfg.group_capacity > 0 else max(4 * C, 512)
+        R = max(min(R, B), C)
+        Rp = min(R + 1, B)
+        # device tensors built once per chunk: the block loop copies nothing
+        scales_g = scale.reshape(1).expand(Gr).contiguous()
+        widths_g = _widths(d1, dgp, dev)
+
+    def observed(score, n_keep: int, width: int):
+        """The ``width`` smallest scores, masked-observer style: returns
+        (idx, alive, dropped) where ``alive`` marks the first ``n_keep``
+        finite columns and ``dropped`` is column ``n_keep`` (the best
+        estimate the cut dropped), +inf when there is no such column."""
+        s, idx = _smallest(score, width)
+        if width > n_keep:
+            dropped = s[:, n_keep]
+        else:
+            dropped = torch.full((c,), _INF, device=dev)
+        return idx, (s < _INF) & (iota[:, :width] < n_keep), dropped
 
     def complete_screened(best_d, best_i, tau, keep, est, partial, blk):
         # on-device compaction: top-C survivors by estimate; column C (when
         # present) is the best estimate the budget DROPPED — no true
         # neighbor was lost iff the final k-th distance stays below it
-        score = torch.where(keep, est, _INF)
-        s, cand = _smallest(score, Cp)                        # (c, C [+1])
-        if Cp > C:
-            dropped = s[:, C]
-        else:
-            dropped = torch.full((c,), _INF, device=dev)
-        alive = (s < _INF) & (col < C)
+        cand, alive, dropped = observed(torch.where(keep, est, _INF), C, Cp)
         c_tail = blk["xt"][cand]                              # (c, Cp, Dt)
         tail = torch.clamp_min(((c_tail - qt[:, None, :]) ** 2).sum(-1), 0.0)
         if cfg.kind == "opq":
@@ -168,6 +232,67 @@ def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, B, D):
         new_tau = torch.minimum(tau, new_d[:, -1] * cfg.tau_slack)
         return (new_d, new_i, new_tau,
                 alive.sum(-1, dtype=torch.int32), dropped)
+
+    def pdx_screen(blk, tau, tau_k, valid):
+        """Grouped progressive screen on the inline path (the reference's
+        ``_pdx_screen``): group 0 prices every row, survivors compact to
+        the per-query top-R with an observer of the best estimate the R-cut
+        dropped, and the later groups refine only the candidates, freezing
+        each whose running partial crosses tau.  A partial over any dim
+        prefix is a lower bound, so a frozen row needs no certificate."""
+        xg, lsg = blk["xl"], blk["lsg"]               # (G, B, dg), (G, B)
+        enter = valid[None, :] & (tau_k >= 0.0)[:, None]     # (c, B)
+        contrib0 = torch.clamp_min(
+            lsg[0][None, :] - 2.0 * (qlg[0] @ xg[0].T)
+            + qgsq[0][:, None], 0.0)                          # (c, B)
+        dims_b = enter.sum(-1, dtype=torch.int32).to(torch.float32) * gw[0]
+        if cfg.kind == "ddcres":
+            rank = (contrib0 + blk["tsq"][None, :]
+                    + qe["qtail_sq"][:, None] - slack[:, None])
+            alive = (enter & (contrib0 <= tau_k[:, None])
+                     & (rank <= tau[:, None]))
+        else:
+            rank = contrib0 * scale
+            alive = enter & (rank <= tau_k[:, None])
+        cand, aliveR, dropped0 = observed(
+            torch.where(alive, rank, _INF), R, Rp)            # (c, Rp)
+        acc = torch.gather(contrib0, 1, cand)
+        for g in range(1, Gr):
+            if g > 1:   # re-test the partial accumulated through group g-1
+                est_g = acc if cfg.kind == "ddcres" else acc * scale
+                aliveR = aliveR & (est_g <= tau_k[:, None])
+            dims_b = dims_b + aliveR.sum(
+                -1, dtype=torch.int32).to(torch.float32) * gw[g]
+            xc = xg[g][cand]                                  # (c, Rp, dg)
+            contrib = torch.clamp_min(
+                lsg[g][cand] - 2.0 * torch.einsum("cd,crd->cr", qlg[g], xc)
+                + qgsq[g][:, None], 0.0)
+            acc = torch.where(aliveR, acc + contrib, acc)
+        if cfg.kind == "ddcres":
+            est = (acc + blk["tsq"][cand] + qe["qtail_sq"][:, None]
+                   - slack[:, None])
+            keep = aliveR & (acc <= tau_k[:, None]) & (est <= tau[:, None])
+        else:
+            est = acc * scale
+            keep = aliveR & (est <= tau_k[:, None])
+        return cand, acc, keep, est, dropped0, dims_b
+
+    def complete_compacted(best_d, best_i, tau, keep, est, acc, cand,
+                           dropped0, blk):
+        """Exact tail completion over the R-cut's candidate axis: the same
+        top-C observer compaction as ``complete_screened``, gathering block
+        rows through ``cand``; the R-cut's drop folds into the returned
+        certificate value."""
+        sel, alive, droppedC = observed(torch.where(keep, est, _INF), C,
+                                        min(C + 1, Rp))
+        rsel = torch.gather(cand, 1, sel)                     # (c, C [+1])
+        c_tail = blk["xt"][rsel]
+        tail = torch.clamp_min(((c_tail - qt[:, None, :]) ** 2).sum(-1), 0.0)
+        exact = torch.where(alive, torch.gather(acc, 1, sel) + tail, _INF)
+        new_d, new_i = _merge_topk(best_d, best_i, exact, blk["ids"][rsel], k)
+        new_tau = torch.minimum(tau, new_d[:, -1] * cfg.tau_slack)
+        return (new_d, new_i, new_tau, alive.sum(-1, dtype=torch.int32),
+                torch.minimum(dropped0, droppedC))
 
     best_d = torch.full((c, k), _INF, dtype=torch.float32, device=dev)
     best_i = torch.full((c, k), -1, dtype=torch.int32, device=dev)
@@ -187,6 +312,17 @@ def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, B, D):
             # partial <= tau_k is implied by the Eq. 7 estimate test below
             tau_k = tau + slack - qe["qtail_sq"] - tail_min
 
+        if grouped and not cfg.use_kernel:
+            cand, acc, keep, est, dropped0, dims_scr = pdx_screen(
+                blk, tau, tau_k, valid)
+            passed = passed + keep.sum(-1, dtype=torch.int32)
+            best_d, best_i, tau, completed, dropped = complete_compacted(
+                best_d, best_i, tau, keep, est, acc, cand, dropped0, blk)
+            surv = surv + completed
+            dims = dims + dims_scr + completed.to(torch.float32) * (D - d1)
+            dmin = torch.minimum(dmin, dropped)
+            continue
+
         passed_b = None
         if cfg.kind == "opq":
             if cfg.use_kernel:
@@ -198,9 +334,14 @@ def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, B, D):
             partial = None
             dims_scr = n_okf * float(qe["lut"].shape[1])
         elif cfg.use_kernel:
-            p, kp, cnt, ad = dco_scan_op(blk["xl"], ql, tau_k, scales_arr,
-                                         n_ok, block_n=block_n,
-                                         block_d=block_d)
+            if grouped:
+                p, kp, cnt, ad = dco_scan_grouped_op(
+                    blk["xl"], qlg, tau_k, scales_g, widths_g, n_ok,
+                    block_n=block_n)
+            else:
+                p, kp, cnt, ad = dco_scan_op(blk["xl"], ql, tau_k, scales_arr,
+                                             n_ok, block_n=block_n,
+                                             block_d=block_d)
             partial, keep = p.T, kp.T.bool()                  # (c, B)
             est = partial * scale
             passed_b = cnt.sum(0, dtype=torch.int32)  # kernel keep counts
@@ -277,7 +418,12 @@ def stream_topk(state: dict, q_lead, q_tail, cfg: DcoEngineConfig,
     (Q,), dropped_min_est (Q,), dims_read (Q,)).  ``dropped_min_est[q] >
     dists_sq[q, k-1]`` certifies exactness for lower-bound rules: every row
     a capacity cut dropped has a lower bound above the returned k-th
-    distance."""
+    distance.
+
+    ``cfg.dim_groups`` > 1 serves the scan from the PDX layout, with the
+    R-cut's observer folded into ``dropped_min_est``; fdscan and opq force
+    G = 1.  Cached ``blocks`` must have the group count
+    :func:`_effective_groups` resolves for ``cfg``, else ``ValueError``."""
     if probe is not None:
         raise NotImplementedError(
             "IVF probing is not ported yet (ROADMAP A5)")
@@ -287,15 +433,18 @@ def stream_topk(state: dict, q_lead, q_tail, cfg: DcoEngineConfig,
     if cfg.policy is not None and getattr(cfg.policy, "adaptive", False):
         raise NotImplementedError(
             "the adaptive policy is not ported yet (ROADMAP A7)")
-    if _effective_groups(cfg) > 1:
-        raise NotImplementedError(
-            "the PDX grouped layout (dim_groups > 1) is not ported yet "
-            "(ROADMAP A9)")
     q_extra = dict(q_extra or {})
     if cfg.use_kernel is None:
         cfg = dataclasses.replace(cfg, use_kernel=q_lead.is_cuda)
+    ge = _effective_groups(cfg)
     if blocks is None:
-        blocks = build_stream_blocks(state, cfg.row_block)
+        blocks = build_stream_blocks(state, cfg.row_block, dim_groups=ge)
+    gb = blocks["xl"].shape[1] if blocks["xl"].dim() == 4 else 1
+    gp = _group_plan(q_lead.shape[1], ge)[0] if ge > 1 else 1
+    if gb != gp:
+        raise ValueError(
+            f"cached blocks layout has {gb} dim group(s) but cfg resolves "
+            f"to {gp}: rebuild build_stream_blocks with dim_groups={ge}")
     nq = q_lead.shape[0]
     if nq == 0:
         raise ValueError("stream_topk needs at least one query")

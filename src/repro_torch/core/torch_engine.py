@@ -30,11 +30,12 @@ class DcoEngineConfig:
     # --- streaming engine (core.stream_engine) knobs ---
     row_block: int = 4096      # candidate rows per block step
     block_capacity: int = 128  # survivors tail-completed per block per query
-    use_kernel: bool | None = None  # CUDA dco_scan/pq_lookup for stage 1
-                                    # (None -> only on a CUDA device)
+    use_kernel: bool | None = None  # CUDA kernels for stage 1 (None ->
+                                    # only on a CUDA device)
     policy: object | None = None    # adaptive policy: not ported yet
-    dim_groups: int = 1        # PDX layout: not ported yet (1 = flat)
-    group_capacity: int = 0    # PDX R-cut budget: not ported yet
+    dim_groups: int = 1        # PDX layout: lead dim groups (1 = flat)
+    group_capacity: int = 0    # PDX R-cut budget of the inline path
+                               # (0 = max(4 * block_capacity, 512))
 
 
 def build_device_state(method_or_arrays, d1: int, device) -> dict:

@@ -77,8 +77,9 @@ def _compile(sources, out: Path) -> str:
 
 def _bind(lib):
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.dco_scan_launch.argtypes = [vp] * 10 + [i32] * 5 + [vp]
-    lib.dco_scan_launch.restype = i32
+    for fn in (lib.dco_scan_launch, lib.dco_scan_grouped_launch):
+        fn.argtypes = [vp] * 10 + [i32] * 5 + [vp]
+        fn.restype = i32
     lib.pq_lookup_launch.argtypes = [vp] * 3 + [i32] * 5 + [vp]
     lib.pq_lookup_launch.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]

@@ -1,9 +1,12 @@
-"""The staged DCO scan: binding of the CUDA kernel ``csrc/dco_scan.cu`` and
-its plain PyTorch version.
+"""The staged DCO scan: bindings of the CUDA kernels ``csrc/dco_scan.cu``
+and their plain PyTorch versions.
 
-Both compute, for x (N, d1) lead dims, q (Q, d1) queries, tau (Q,),
-scales (nd,) and widths (nd,) over nd = ceil(d1 / block_d) dim blocks and
-nrows (1,) int32 (rows at or beyond it never keep and never count):
+``dco_scan`` takes x (N, d1) lead dims and q (Q, d1) queries, cut into
+nd = ceil(d1 / block_d) dim blocks; ``dco_scan_grouped`` takes the PDX
+vertical layout, x (G, N, dg) and q (G, Q, dg), whose nd = G dim blocks are
+the groups.  Both take tau (Q,), scales (nd,), widths (nd,) (the logical
+dims of each block) and nrows (1,) int32 (rows at or beyond it never keep
+and never count), and compute:
 
   partial (N, Q) f32   running partial distances (frozen pairs keep the
                        value at which they were pruned);
@@ -11,8 +14,9 @@ nrows (1,) int32 (rows at or beyond it never keep and never count):
   counts  (ceil(N / block_n), Q) i32  keep counts per row block;
   dims    (ceil(N / block_n), Q) f32  dims entered per row block.
 
-The semantics are those of the reference Pallas kernel
-(src/repro/kernels/dco_scan.py); ``kernels.ops.dco_scan_op`` is the caller.
+The semantics are those of the reference Pallas kernels
+(src/repro/kernels/dco_scan.py); ``kernels.ops.dco_scan_op`` and
+``dco_scan_grouped_op`` are the callers.
 """
 from __future__ import annotations
 
@@ -21,8 +25,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import _block_contrib
 
-#: kernel launches since the last reset (the plain version never counts)
-launches = 0
+#: kernel launches since the last reset (the plain versions never count)
+launches = 0            # dco_scan
+grouped_launches = 0    # dco_scan_grouped
 
 
 def _block_sum(a, block_n: int):
@@ -33,25 +38,42 @@ def _block_sum(a, block_n: int):
     return a.reshape(nb, block_n, nq).sum(1, dtype=a.dtype)
 
 
+def _staged_plain(blocks, n: int, tau, scales, widths, nrows, block_n: int):
+    """The gating of both kernels over ``blocks``, the (x_b (N, w),
+    q_b (Q, w)) pairs of each dim block in order."""
+    dev = tau.device
+    valid = (torch.arange(n, device=dev) < nrows)[:, None]
+    acc = torch.zeros((n, tau.shape[0]), dtype=torch.float32, device=dev)
+    entered = torch.zeros_like(acc)
+    for di, (xb, qb) in enumerate(blocks):
+        alive = acc * scales[max(di - 1, 0)] <= tau[None, :]
+        entered = entered + (alive & valid) * widths[di]
+        contrib = _block_contrib(xb, qb)
+        acc = torch.where(alive, acc + torch.clamp_min(contrib, 0.0), acc)
+    keep = alive & (acc * scales[di] <= tau[None, :]) & valid
+    return (acc, keep.to(torch.int8),
+            _block_sum(keep.to(torch.int32), block_n),
+            _block_sum(entered, block_n))
+
+
 def dco_scan_plain(x, q, tau, scales, widths, nrows, *, block_n: int,
                    block_d: int):
     """Plain PyTorch version of the kernel: the same four outputs, computed
     for all (row, query) pairs at once per dim block."""
-    n, d1 = x.shape
-    nd = -(-d1 // block_d)
-    valid = (torch.arange(n, device=x.device) < nrows)[:, None]
-    acc = torch.zeros((n, q.shape[0]), dtype=torch.float32, device=x.device)
-    entered = torch.zeros_like(acc)
-    for di in range(nd):
-        alive = acc * scales[max(di - 1, 0)] <= tau[None, :]
-        entered = entered + (alive & valid) * widths[di]
-        lo, hi = di * block_d, min((di + 1) * block_d, d1)
-        contrib = _block_contrib(x[:, lo:hi], q[:, lo:hi])
-        acc = torch.where(alive, acc + torch.clamp_min(contrib, 0.0), acc)
-    keep = alive & (acc * scales[nd - 1] <= tau[None, :]) & valid
-    return (acc, keep.to(torch.int8),
-            _block_sum(keep.to(torch.int32), block_n),
-            _block_sum(entered, block_n))
+    d1 = x.shape[1]
+    blocks = ((x[:, lo:lo + block_d], q[:, lo:lo + block_d])
+              for lo in range(0, d1, block_d))
+    return _staged_plain(blocks, x.shape[0], tau, scales, widths, nrows,
+                         block_n)
+
+
+def dco_scan_grouped_plain(x, q, tau, scales, widths, nrows, *,
+                           block_n: int):
+    """Plain PyTorch version of the grouped kernel: ``dco_scan_plain``'s
+    gating with group g as dim block g, each charging its logical width
+    ``widths[g]`` (the zero padding of a ragged last group adds nothing)."""
+    return _staged_plain(zip(x, q), x.shape[1], tau, scales, widths, nrows,
+                         block_n)
 
 
 def _check(t, name, dtype, device):
@@ -60,24 +82,14 @@ def _check(t, name, dtype, device):
                          f"tensor on {device}, got {t.dtype} on {t.device}")
 
 
-def dco_scan_cuda(x, q, tau, scales, widths, nrows, *, block_n: int,
-                  block_d: int):
-    """Launch the CUDA kernel on the current stream (no padding: ragged N,
-    Q and d1 are bound-checked inside the kernel)."""
-    global launches
+def _launch(entry: str, x, q, tau, scales, widths, nrows, n: int, nq: int,
+            layout: tuple, block_n: int):
+    """Check the operands, allocate the outputs (counts and dims zeroed)
+    and launch ``entry`` of the kernel library on the current stream;
+    ``layout`` is (d1, block_d) or (G, dg).  Raises on a launch error."""
     dev = x.device
-    n, d1 = x.shape
-    nq = q.shape[0]
-    nd = -(-d1 // block_d)
-    if q.shape[1] != d1 or tau.shape != (nq,) or scales.shape[0] < nd \
-            or widths.shape[0] < nd or nrows.numel() != 1:
-        raise ValueError(
-            f"dco_scan: inconsistent shapes x {tuple(x.shape)}, q "
-            f"{tuple(q.shape)}, tau {tuple(tau.shape)}, scales "
-            f"{tuple(scales.shape)}, widths {tuple(widths.shape)} for "
-            f"block_d={block_d}")
-    if block_n < 1 or block_d < 1 or n == 0 or nq == 0:
-        raise ValueError("dco_scan: empty input or non-positive block size")
+    if block_n < 1 or min(layout) < 1 or n == 0 or nq == 0:
+        raise ValueError(f"{entry}: empty input or non-positive block size")
     for t, name in ((x, "x"), (q, "q"), (tau, "tau"), (scales, "scales"),
                     (widths, "widths")):
         _check(t, name, torch.float32, dev)
@@ -88,11 +100,54 @@ def dco_scan_cuda(x, q, tau, scales, widths, nrows, *, block_n: int,
     zeros = torch.zeros((2, nb, nq), dtype=torch.int32, device=dev)
     counts, dims = zeros[0], zeros[1].view(torch.float32)   # 0 bits == 0.0f
     lib = _build.load_library()
-    err = lib.dco_scan_launch(
+    err = getattr(lib, entry)(
         x.data_ptr(), q.data_ptr(), tau.data_ptr(), scales.data_ptr(),
         widths.data_ptr(), nrows.data_ptr(), partial.data_ptr(),
-        keep.data_ptr(), counts.data_ptr(), dims.data_ptr(), n, nq, d1,
-        block_d, block_n, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "dco_scan")
-    launches += 1
+        keep.data_ptr(), counts.data_ptr(), dims.data_ptr(), n, nq, *layout,
+        block_n, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, entry)
     return partial, keep, counts, dims
+
+
+def dco_scan_cuda(x, q, tau, scales, widths, nrows, *, block_n: int,
+                  block_d: int):
+    """Launch the CUDA kernel on the current stream (no padding: ragged N,
+    Q and d1 are bound-checked inside the kernel)."""
+    global launches
+    n, d1 = x.shape
+    nq = q.shape[0]
+    nd = -(-d1 // max(block_d, 1))
+    if q.shape[1] != d1 or tau.shape != (nq,) or scales.shape[0] < nd \
+            or widths.shape[0] < nd or nrows.numel() != 1:
+        raise ValueError(
+            f"dco_scan: inconsistent shapes x {tuple(x.shape)}, q "
+            f"{tuple(q.shape)}, tau {tuple(tau.shape)}, scales "
+            f"{tuple(scales.shape)}, widths {tuple(widths.shape)} for "
+            f"block_d={block_d}")
+    out = _launch("dco_scan_launch", x, q, tau, scales, widths, nrows, n, nq,
+                  (d1, block_d), block_n)
+    launches += 1
+    return out
+
+
+def dco_scan_grouped_cuda(x, q, tau, scales, widths, nrows, *, block_n: int):
+    """Launch the grouped CUDA kernel on the current stream (no padding:
+    ragged N, Q and dg are bound-checked inside the kernel)."""
+    global grouped_launches
+    if x.dim() != 3 or q.dim() != 3:
+        raise ValueError(f"dco_scan_grouped: x and q must be (G, N, dg) and "
+                         f"(G, Q, dg), got {tuple(x.shape)} and "
+                         f"{tuple(q.shape)}")
+    G, n, dg = x.shape
+    nq = q.shape[1]
+    if q.shape[0] != G or q.shape[2] != dg or tau.shape != (nq,) \
+            or scales.shape[0] < G or widths.shape[0] < G \
+            or nrows.numel() != 1:
+        raise ValueError(
+            f"dco_scan_grouped: inconsistent shapes x {tuple(x.shape)}, q "
+            f"{tuple(q.shape)}, tau {tuple(tau.shape)}, scales "
+            f"{tuple(scales.shape)}, widths {tuple(widths.shape)}")
+    out = _launch("dco_scan_grouped_launch", x, q, tau, scales, widths,
+                  nrows, n, nq, (G, dg), block_n)
+    grouped_launches += 1
+    return out

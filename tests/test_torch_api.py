@@ -49,6 +49,35 @@ def test_facade_matches_reference_jax_backend(name, sift_small):
     assert rt.stats.dims_scanned == rj.stats.dims_scanned
 
 
+#: the methods whose layout groups (FDScanning and DDCopq force G = 1)
+GROUPED = ("PDScanning", "PDScanning+", "ADSampling", "DADE", "DDCres",
+           "DDCpca")
+
+
+@pytest.mark.parametrize("name", GROUPED)
+def test_facade_pdx_matches_reference_jax_backend(name, sift_small):
+    """dim_groups = 4 on the CPU: the port's R-cut path against the
+    reference facade's, ids and stats exact, distances within rtol 1e-4;
+    early exit per group reads fewer dims than the flat layout."""
+    ds = sift_small
+    pol = dict(POLICY, dim_groups=4)
+    rj = jax_open_index(ds.X, method=name, backend="jax",
+                        schedule=JaxPolicy(**pol)).search(ds.Q[:8], K)
+    sess = open_index(ds.X, method=name, device="cpu",
+                      schedule=SchedulePolicy(**pol))
+    rt = sess.search(ds.Q[:8], K)
+    assert sess.backend._blocks["xl"].dim() == 4
+    np.testing.assert_array_equal(rt.ids, rj.ids)
+    np.testing.assert_allclose(rt.dists, rj.dists, rtol=1e-4)
+    for key in STAT_KEYS:
+        assert rt.stats.extra[key] == rj.stats.extra[key], key
+    assert rt.stats.dims_scanned == rj.stats.dims_scanned
+    flat = open_index(ds.X, method=name, device="cpu",
+                      schedule=SchedulePolicy(**POLICY)).search(ds.Q[:8], K)
+    assert (rt.stats.extra["dims_read_mean"]
+            < flat.stats.extra["dims_read_mean"])
+
+
 def test_synthetic_data_matches_reference():
     """The port's copy of vecdata draws the same corpus from the same seed."""
     a, b = load_dataset("glove", scale=0.011), ref_load_dataset("glove",
@@ -84,20 +113,27 @@ def test_add_rebuilds_and_serves_new_rows(sift_small):
         sess.add(np.zeros((1, 3), np.float32))
 
 
-@pytest.mark.parametrize("name", ["DDCres", "DDCopq"])
-def test_backend_holds_the_corpus_once(name, sift_small):
-    """The backend pads the rows on the host and keeps only the blocked
-    layout: no per-row tensor stays in its state, the blocks are whole,
-    pad rows carry id -1, and ddcres reads the real rows' tail minimum."""
+@pytest.mark.parametrize("name,groups", [("DDCres", 1), ("DDCopq", 1),
+                                         ("DDCres", 4), ("DDCopq", 4)])
+def test_backend_holds_the_corpus_once(name, groups, sift_small):
+    """The backend lays the blocks out on the host and keeps only them: no
+    per-row tensor stays in its state, the blocks are whole, pad rows
+    carry id -1, and ddcres reads the real rows' tail minimum.  With
+    dim_groups = 4 the lead is the 4-D PDX layout (DDCopq stays flat)."""
     X = sift_small.X[:1300]                 # not a multiple of row_block
     sess = open_index(X, method=name, device="cpu",
-                      schedule=SchedulePolicy(**POLICY))
+                      schedule=SchedulePolicy(**POLICY, dim_groups=groups))
     sess.search(sift_small.Q[:2], K)
     be = sess.backend
     assert not set(be._state) & {"x_lead", "x_tail", "lead_sq", "tail_sq",
                                  "row_ids", "codes"}
     ids = be._blocks["ids"].reshape(-1).numpy()
-    assert be._blocks["xl"].shape[:2] == (3, POLICY["row_block"])
+    xl = be._blocks["xl"]
+    if groups > 1 and name != "DDCopq":
+        assert xl.shape == (3, 4, POLICY["row_block"], POLICY["d1"] // 4)
+        assert be._blocks["lsg"].shape == (3, 4, POLICY["row_block"])
+    else:
+        assert xl.shape == (3, POLICY["row_block"], POLICY["d1"])
     np.testing.assert_array_equal(ids[:1300], np.arange(1300))
     assert (ids[1300:] == -1).all()
     assert float(be._state["tail_min"]) == float(
@@ -110,7 +146,7 @@ def test_backend_holds_the_corpus_once(name, sift_small):
     (dict(serving=True), "A11"), (dict(path="idx.bin"), "A11"),
     (dict(schedule=SchedulePolicy(adaptive=True)), "A7"),
     (dict(schedule=SchedulePolicy(guardrails=True)), "A10"),
-    (dict(schedule=SchedulePolicy(dim_groups=4)), "A9"),
+    (dict(schedule=SchedulePolicy(dim_groups=4, adaptive=True)), "A7"),
     (dict(schedule=SchedulePolicy(engine="two_stage")), "A1"),
 ])
 def test_unsupported_options_raise(kwargs, item, sift_small):

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.ops import dco_scan_grouped_op as jax_grouped_op
 from repro.kernels.ops import dco_scan_op as jax_dco_scan_op
 from repro.kernels.ops import pq_lookup_op as jax_pq_lookup_op
 from repro_torch.kernels import dco_scan as dco_mod
@@ -22,6 +23,11 @@ from repro_torch.kernels import pq_lookup as pq_mod
 
 DCO_CASES = [(256, 128, 128), (300, 17, 130), (64, 8, 96), (1000, 5, 256),
              (128, 1, 32)]
+#: (n, q, G, dg, nrows): the reference's grouped cases
+#: (tests/test_kernels.py), a ragged dg and a ragged nrows
+GROUPED_CASES = [(256, 9, 4, 16, None), (300, 5, 3, 32, 220),
+                 (128, 8, 1, 64, None), (200, 7, 5, 10, None),
+                 (333, 16, 4, 33, 250)]
 PQ_CASES = [(300, 9, 16, 256), (128, 8, 8, 64), (65, 3, 4, 16)]
 
 
@@ -116,12 +122,67 @@ def test_pq_lookup_matches_jax_and_ref(n, q, m, k):
         got, ref.pq_lookup_ref(*_t(codes, lut)).numpy(), rtol=1e-4, atol=1e-3)
 
 
+def _grouped(x, qq, G, dg):
+    """(N, d1) -> (G, N, dg) dim-group-major, the last group zero-padded."""
+    n, d1 = x.shape
+    xp = np.pad(x, ((0, 0), (0, G * dg - d1)))
+    return np.ascontiguousarray(np.moveaxis(xp.reshape(n, G, dg), 1, 0)), \
+        np.ascontiguousarray(np.moveaxis(
+            np.pad(qq, ((0, 0), (0, G * dg - d1))).reshape(-1, G, dg), 1, 0))
+
+
+@pytest.mark.parametrize("n,q,G,dg,nrows", GROUPED_CASES)
+@pytest.mark.parametrize("kind", ["lb", "adsampling"])
+def test_dco_scan_grouped_matches_jax(n, q, G, dg, nrows, kind):
+    """The grouped op on the CPU against the reference's in interpret mode
+    (which pads dg to a multiple of 8; zero dims add exactly 0): partials
+    within rtol 1e-4, keep, counts and dims exact."""
+    d1 = G * dg - (dg // 3 if G > 1 else 0)       # a ragged last group
+    x, qq, tau = _dco_inputs(n, q, d1, ("grouped", kind), 0.5, 2.5)
+    xg, qg = _grouped(x, qq, G, dg)
+    widths = np.array([min(dg, d1 - g * dg) for g in range(G)], np.float32)
+    jsc = jref.make_dco_scales(kind, G * dg, dg, D=2 * d1)
+    tsc = ref.make_dco_scales(kind, G * dg, dg, D=2 * d1)
+    np.testing.assert_array_equal(np.asarray(jsc), tsc.numpy())
+    jout = [np.asarray(a) for a in jax_grouped_op(
+        jnp.asarray(xg), jnp.asarray(qg), jnp.asarray(tau), jsc,
+        jnp.asarray(widths), nrows, block_n=64)]
+    tout = [a.numpy() for a in ops.dco_scan_grouped_op(
+        *_t(xg, qg, tau), tsc, torch.as_tensor(widths), nrows, block_n=64)]
+    np.testing.assert_allclose(tout[0], jout[0], rtol=1e-4, atol=1e-3)
+    for got, want in zip(tout[1:], jout[1:]):
+        np.testing.assert_array_equal(got, want)
+    assert tout[1].any()                  # some pairs keep, and with G > 1
+    assert G == 1 or tout[3].sum() < min(n, nrows or n) * q * d1   # freeze
+
+
+@pytest.mark.parametrize("n,q,G,dg,nrows", GROUPED_CASES[:3])
+def test_dco_scan_grouped_equals_flat_at_block_d(n, q, G, dg, nrows):
+    """At block_d == dg the grouped op is the flat op on the same dims, dim
+    block for dim block: all four outputs equal exactly."""
+    d1 = G * dg
+    x, qq, tau = _dco_inputs(n, q, d1, "grouped-flat", 0.3, 1.5)
+    xg, qg = _grouped(x, qq, G, dg)
+    sc = ref.make_dco_scales("lb", d1, dg, D=d1)
+    flat = ops.dco_scan_op(*_t(x, qq, tau), sc, nrows, block_n=64,
+                           block_d=dg)
+    grouped = ops.dco_scan_grouped_op(*_t(xg, qg, tau), sc,
+                                      torch.full((G,), float(dg)), nrows,
+                                      block_n=64)
+    for f, g in zip(flat, grouped):
+        assert torch.equal(f, g)
+
+
 def test_cpu_tensors_never_launch_a_kernel():
     """On CPU tensors the ops take the plain versions, which never count a
     launch."""
-    before = (dco_mod.launches, pq_mod.launches)
+    before = (dco_mod.launches, dco_mod.grouped_launches, pq_mod.launches)
     x, qq, tau = _dco_inputs(64, 4, 32, "count")
     ops.dco_scan_op(*_t(x, qq, tau), ref.make_dco_scales("lb", 32, 32, D=32))
+    xg, qg = _grouped(x, qq, 4, 8)
+    ops.dco_scan_grouped_op(*_t(xg, qg, tau), torch.ones(4),
+                            torch.full((4,), 8.0))
     ops.pq_lookup_op(torch.zeros((8, 2), dtype=torch.int32),
                      torch.ones((3, 2, 4)))
-    assert (dco_mod.launches, pq_mod.launches) == before
+    assert (dco_mod.launches, dco_mod.grouped_launches,
+            pq_mod.launches) == before

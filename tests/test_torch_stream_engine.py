@@ -1,7 +1,9 @@
 """The port's streaming engine (repro_torch.core.stream_engine) against the
 reference ``repro.core.stream_engine.stream_topk`` on the same fitted
 method state, for all 7 decision rules and both stage-1 paths (kernel op
-vs inline block; the reference runs its Pallas kernels in interpret mode).
+vs inline block; the reference runs its Pallas kernels in interpret mode),
+on the row-blocked and on the PDX layout (the reference's own parity and
+decoy cases from tests/test_pdx_layout.py).
 
 Ids, survivors, passed, dims read and the per-query certificate flag must
 be exact; distances within rtol 1e-4 (float32 sums in another order).
@@ -18,12 +20,15 @@ from repro.core.engine import make_schedule
 from repro.core.jax_engine import DcoEngineConfig as JaxConfig
 from repro.core.jax_engine import build_device_state as jax_state
 from repro.core.methods import make_method
+from repro.core.stream_engine import _group_plan as jax_group_plan
 from repro.core.stream_engine import stream_topk as jax_stream_topk
 from repro_torch.convert import method_from_reference, state_from_reference
-from repro_torch.core.stream_engine import (_merge_topk, _smallest,
-                                            build_stream_blocks, stream_topk)
+from repro_torch.core.stream_engine import (_group_plan, _merge_topk,
+                                            _smallest, build_stream_blocks,
+                                            stream_topk)
 from repro_torch.core.torch_engine import DcoEngineConfig, build_device_state
 from repro_torch.vecdata import recall_at_k
+from tests.test_pdx_layout import PARITY_CASES, _decayed, _decoy_corpus
 
 K = 10
 D1 = 48
@@ -237,5 +242,91 @@ def test_stream_topk_refuses_unported_paths(sift_small):
         stream_topk(st, ql, qt, cfg, probe=torch.zeros(2, 1))
     with pytest.raises(NotImplementedError, match="A8"):
         stream_topk(st, ql, qt, cfg, deadline_ts=1.0)
-    with pytest.raises(NotImplementedError, match="A9"):
-        stream_topk(st, ql, qt, dataclasses.replace(cfg, dim_groups=4))
+
+
+# ---------------------------------------------------------------- PDX -------
+#: the rules whose layout groups (fdscan and opq force G = 1)
+GROUPED = ("PDScanning+", "ADSampling", "DADE", "DDCres", "DDCpca")
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("n,D,d1,rb,g,k", PARITY_CASES)
+def test_stream_pdx_matches_reference(n, D, d1, rb, g, k, use_kernel):
+    """The PDX layout on the reference's parity cases (ragged rows and dim
+    groups, no tail, G = 1, k > block_capacity): the port's grouped path
+    against the reference's grouped path, on the R-cut path and on the
+    kernel path (the reference's in interpret mode)."""
+    X, Q = _decayed(n, D, seed=n + g)
+    kw = dict(kind="lb", d1=d1, k=k, query_chunk=4, row_block=rb,
+              block_capacity=min(128, rb), dim_groups=g,
+              use_kernel=use_kernel)
+    a, b = _run_both({"Xrot": X}, Q[:, :d1], Q[:, d1:], {}, **kw)
+    _assert_parity(a, b)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("name", GROUPED)
+def test_stream_pdx_rules_match_reference(name, use_kernel, sift_small):
+    """Every rule that groups, at dim_groups = 4 on sift_small; the kernel
+    path keeps the corpus at 2,000 rows as the flat test does."""
+    ds = sift_small
+    n = 2000 if use_kernel else ds.n
+    port_m = method_from_reference(_fitted(ds, name, n))
+    dstate, ql, qt, qe = _inputs(port_m, ds.Q[:8])
+    a, b = _run_both(dstate, ql, qt, qe,
+                     **_cfg_kw(dstate, use_kernel=use_kernel, dim_groups=4,
+                               theta=_theta(dstate)))
+    _assert_parity(a, b)
+    gt, _ = _gt(ds.X[:n], ds.Q[:8])
+    assert recall_at_k(b[1], gt) >= 0.9
+
+
+@pytest.mark.parametrize("group_capacity", [0, 2048])
+def test_stream_pdx_rcut_drop_flagged(group_capacity):
+    """The reference's decoy corpus: at the auto R = 512 the R-cut drops
+    the true neighbour and the certificate says so; group_capacity = 2048
+    (no cut) returns it, certified.  Both packages alike."""
+    X, q, nn_id, d1 = _decoy_corpus()
+    a, b = _run_both({"Xrot": X}, q[:, :d1], q[:, d1:], {},
+                     kind="lb", d1=d1, k=K, query_chunk=1, row_block=2048,
+                     block_capacity=64, dim_groups=4, use_kernel=False,
+                     group_capacity=group_capacity)
+    _assert_parity(a, b)
+    d, i, _, _, dm, _ = b
+    if group_capacity == 0:
+        assert nn_id not in i[0] and dm[0] <= d[0, -1]    # missed, flagged
+    else:
+        assert i[0, 0] == nn_id and d[0, 0] == 4.0 and dm[0] > d[0, -1]
+
+
+def test_pdx_blocks_layout_and_guard():
+    """The grouped layout is dim-group-major with a zero-padded ragged last
+    group and per-group norms; a cached layout whose group count differs
+    from the config's is refused."""
+    X, Q = _decayed(600, 64, seed=3)
+    d1 = 30                                 # 4 groups of 8, the last of 6
+    st = build_device_state({"Xrot": X}, d1, "cpu")
+    xs = build_stream_blocks(st, 256, dim_groups=4)
+    assert xs["xl"].shape == (3, 4, 256, 8) and xs["xl"].is_contiguous()
+    lead = torch.as_tensor(X[:256, :d1])
+    np.testing.assert_array_equal(xs["xl"][0, 1].numpy(), lead[:, 8:16])
+    np.testing.assert_array_equal(xs["xl"][0, 3, :, :6].numpy(),
+                                  lead[:, 24:30])
+    assert not xs["xl"][:, 3, :, 6:].any() and not xs["xl"][2, :, 88:].any()
+    np.testing.assert_allclose(xs["lsg"].sum(1).reshape(-1)[:600].numpy(),
+                               (X[:, :d1] ** 2).sum(1), rtol=1e-5)
+    cfg = DcoEngineConfig(d1=d1, k=K, row_block=256)
+    ql, qt = torch.as_tensor(Q[:, :d1]), torch.as_tensor(Q[:, d1:])
+    with pytest.raises(ValueError, match="dim group"):
+        stream_topk(st, ql, qt, cfg, blocks=xs)
+    with pytest.raises(ValueError, match="dim group"):
+        stream_topk(st, ql, qt, dataclasses.replace(cfg, dim_groups=4),
+                    blocks=build_stream_blocks(st, 256))
+    flat = dataclasses.replace(cfg, kind="fdscan", dim_groups=4)
+    stream_topk(st, ql, qt, flat, blocks=build_stream_blocks(st, 256))
+
+
+def test_group_plan_matches_reference():
+    for d1 in range(1, 70):
+        for groups in range(1, 10):
+            assert _group_plan(d1, groups) == jax_group_plan(d1, groups)
