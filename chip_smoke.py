@@ -439,6 +439,28 @@ def time_dco_scan(sess, Q, res, dev):
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
+def grouped_planes_needed(xg, qg, tau, sc, widths, nr):
+    """Rows and queries whose group-g slice the grouped scan must read, for
+    each group g: those with a (row, query) pair still alive when group g
+    starts, as the plain version's partial over groups 0..g-1 says (the
+    same pairs the dims-entered count charges)."""
+    import torch
+    from repro_torch.kernels.dco_scan import dco_scan_grouped_plain
+
+    G, n, _ = xg.shape
+    valid = (torch.arange(n, device=xg.device) < nr)[:, None]
+    acc = torch.zeros((n, tau.shape[0]), device=xg.device)
+    rows, queries = [], []
+    for g in range(G):
+        if g:
+            acc = dco_scan_grouped_plain(xg[:g], qg[:g], tau, sc[:g],
+                                         widths[:g], nr, block_n=256)[0]
+        alive = (acc * sc[max(g - 1, 0)] <= tau[None, :]) & valid
+        rows.append(int(alive.any(1).sum()))
+        queries.append(int(alive.any(0).sum()))
+    return rows, queries
+
+
 def time_dco_scan_grouped(sess, Q, res, dev):
     """dco_scan_grouped at the PDX path's real inputs: the first row block
     (G, 4096, dg), the first query chunk split the same way and the tau
@@ -486,8 +508,9 @@ def time_dco_scan_grouped(sess, Q, res, dev):
     check(not bool(((fl[1] != got[1]) & ~near).any()),
           "dco_scan and dco_scan_grouped keep differ away from tau")
     entered = float(got[3].sum())               # (row, query, dim) triples
+    rows_in, queries_in = grouped_planes_needed(xg, qg, tau, sc, widths, nr)
     nb = -(-n // 256)
-    nbytes = 4 * (G * n * dg + G * nq * dg + nq + 2 * G + 1) \
+    nbytes = 4 * (dg * (sum(rows_in) + sum(queries_in)) + nq + 2 * G + 1) \
         + n * nq * (4 + 1) + nb * nq * (4 + 4)
     flops = 2.0 * entered + 2.0 * (n + nq) * d1
     bms, by = bound_ms(nbytes, flops)
@@ -500,7 +523,8 @@ def time_dco_scan_grouped(sess, Q, res, dev):
         ms=ms, flat_dco_scan_same_inputs_ms=flat_ms, plain_ms=plain,
         eager_call_ms=call, bound_ms=bms, bound_by=by, bytes=nbytes,
         flops=flops, max_abs_err=err, dims_entered=entered,
-        flat_dims_entered=float(fl[3].sum()),
+        flat_dims_entered=float(fl[3].sum()), rows_entering_group=rows_in,
+        queries_entering_group=queries_in,
         keep_pairs=int(got[1].sum()))
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "library_ms": None}

@@ -9,15 +9,11 @@ queries, k = 10), serves it from two sessions held side by side, the
 default flat layout and ``SchedulePolicy(dim_groups=4)``, and times
 ``pairs`` pairs of 100-query batches, alternating which layout goes first
 (flat, pdx, pdx, flat, ...).  Each wall ends in the device-to-host copy of
-the result.  It times ``pairs`` pairs four times, mirroring what
-chip_smoke.py does between its phases: fresh; after one batch of each
-layout under torch.profiler; after a CUDA graph is captured and replayed
-(as its kernel timing does); after a second profiled batch, which the
-profiler runs without tearing CUPTI down once the process has used CUDA
-graphs.  Host time per launch left behind by a step shows in the set after
-it.  Prints one JSON line with every wall, the medians, the quartiles and
-how many pairs the PDX layout won for each set, the card's name and power
-limit.  Needs a CUDA card; the ids of the two layouts must agree.
+the result; no profiler session or CUDA graph runs in the process, since
+either leaves every later launch slower on the host.  Prints one JSON line
+with every wall, the medians, the quartiles, how many pairs the PDX layout
+won, and the card's name and power limit.  Needs a CUDA card; the ids of
+the two layouts must agree.
 """
 from __future__ import annotations
 
@@ -75,32 +71,7 @@ def main() -> int:
         return {"median_s": med, "q1_s": q1, "q3_s": q3,
                 "qps_at_median": Q.shape[0] / med}
 
-    def profiled():
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]):
-            for sess in sessions.values():
-                sess.search(Q, 10)
-
-    def graph():
-        x = torch.randn(4096, 128, device="cuda")
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            x @ x.T
-        torch.cuda.current_stream().wait_stream(side)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            x @ x.T
-        g.replay()
-        torch.cuda.synchronize()
-
-    sets = {"fresh": pairs()}
-    for name, step in (("after_profiler", profiled),
-                       ("after_cuda_graph", graph),
-                       ("after_profiler_with_graphs", profiled)):
-        step()
-        sets[name] = pairs()
+    result = pairs()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -108,7 +79,7 @@ def main() -> int:
 
     print(json.dumps({
         "n": int(X.shape[0]), "dim": int(X.shape[1]), "nq": int(Q.shape[0]),
-        "pairs": args.pairs, **sets,
+        "pairs": args.pairs, **result,
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": smi}))
     return 0
