@@ -27,10 +27,14 @@ Phases, one JSON line each:
               main path's real inputs beside its bound, its plain version
               and, where one exists, a single PyTorch call computing the
               same function (dco_scan_grouped beside dco_scan on the same
-              rows and queries).  This comes last because a profiler
-              session and CUDA graphs leave every later launch slower on
-              the host for the rest of the process (scripts/pdx_ab.py
-              measures it), which would bias the QPS of later phases.
+              rows and queries), and for the two kernels that were
+              redesigned (pq_lookup, dco_scan_grouped) the earlier design,
+              kept in the kernel library for this, on the same inputs
+              (its time is the kernel line's `earlier_ms`).  This comes
+              last because a profiler session and CUDA graphs leave every
+              later launch slower on the host for the rest of the process
+              (scripts/pdx_ab.py measures it), which would bias the QPS of
+              later phases.
 Then the kernel table, the nvidia-smi line and the result line.  Every
 check raises on failure, so the script exits nonzero; without a CUDA card,
 or without the repo beside it, it prints no result and exits nonzero.
@@ -186,19 +190,23 @@ def phase_parity(dev):
             for dg in (32, 10, 33):
                 grouped += parity_grouped(rng, dev, n, n_valid, nq, G, dg)
     pq_err = 0.0
-    # the main path's shape, and one whose block stages more queries than
-    # the kernel accumulates in registers at once
-    for nq, m, k in ((16, 16, 256), (21, 4, 16)):
-        codes = torch.as_tensor(rng.integers(0, k, (n, m)),
-                                dtype=torch.int32, device=dev)
+    # the main path's shape with the engine's uint8 codes and with int32,
+    # a ragged one whose blocks stage several queries, and K = 512 (int32)
+    pq_cases = ((16, 16, 256, torch.uint8), (16, 16, 256, torch.int32),
+                (21, 4, 16, torch.uint8), (21, 4, 16, torch.int32),
+                (16, 16, 512, torch.int32))
+    for nq, m, k, dtype in pq_cases:
+        codes = torch.as_tensor(rng.integers(0, k, (n, m)), dtype=dtype,
+                                device=dev)
         lut = torch.rand(nq, m, k, device=dev) * 10
         got, want = ops.pq_lookup_op(codes, lut), pq_lookup_plain(codes, lut)
         check(torch.allclose(got, want, rtol=1e-4, atol=1e-3),
-              f"pq_lookup differs from its plain version (nq={nq} m={m})")
+              f"pq_lookup differs from its plain version (nq={nq} m={m} "
+              f"k={k} {dtype})")
         pq_err = max(pq_err, float((got - want).abs().max()))
     torch.cuda.synchronize()
     log("parity", dco_scan_cases=cases, dco_scan_grouped_cases=grouped,
-        pq_lookup_cases=2, pq_lookup_max_abs_err=pq_err)
+        pq_lookup_cases=len(pq_cases), pq_lookup_max_abs_err=pq_err)
 
 
 def parity_grouped(rng, dev, n, n_valid, nq, G, dg) -> int:
@@ -330,6 +338,11 @@ def run_method(X, Q, gt, method, dev, *, fitted=None, schedule=None):
         "device_bytes_peak": torch.cuda.max_memory_allocated(dev),
         "launches_per_batch": launches,
     }
+    codes = sess.backend._blocks.get("codes")
+    if codes is not None:           # DDCopq: the PQ codes' share of it
+        rec["codes_dtype"] = str(codes.dtype)
+        rec["codes_bytes"] = codes.nbytes
+        rec["codes_bytes_at_int32"] = codes.numel() * 4
     return sess, res, rec
 
 
@@ -468,6 +481,7 @@ def time_dco_scan_grouped(sess, Q, res, dev):
     the same rows and queries."""
     import numpy as np
     import torch
+    from repro_torch.kernels import dco_scan as dco_mod
     from repro_torch.kernels import ops
     from repro_torch.kernels.dco_scan import dco_scan_grouped_plain
 
@@ -514,27 +528,40 @@ def time_dco_scan_grouped(sess, Q, res, dev):
         + n * nq * (4 + 1) + nb * nq * (4 + 4)
     flops = 2.0 * entered + 2.0 * (n + nq) * d1
     bms, by = bound_ms(nbytes, flops)
+    def tiled():                # the earlier design: the flat body's tiles
+        return dco_mod._launch("dco_scan_grouped_tiled_launch", xg, qg, tau,
+                               sc, widths, nr, n, nq, (G, dg), 256)
+
+    # both designs sum each group in the same order: equal bit for bit
+    for name, o, g in zip(("partial", "keep", "counts", "dims"), tiled(),
+                          got):
+        check(torch.equal(o, g), f"the earlier grouped design differs in "
+              f"{name} at the PDX path's inputs")
     ms = cuda_ms(grouped)
+    earlier = cuda_ms(tiled)
     flat_ms = cuda_ms(flat)
     plain = cuda_ms(lambda: dco_scan_grouped_plain(
         xg, qg, tau, sc, widths, nr, block_n=256))
     call = eager_ms(grouped)
     log("kernel_timing", kernel="dco_scan_grouped", shape=[G, n, nq, dg],
-        ms=ms, flat_dco_scan_same_inputs_ms=flat_ms, plain_ms=plain,
+        ms=ms, earlier_design_ms=earlier,
+        flat_dco_scan_same_inputs_ms=flat_ms, plain_ms=plain,
         eager_call_ms=call, bound_ms=bms, bound_by=by, bytes=nbytes,
         flops=flops, max_abs_err=err, dims_entered=entered,
         flat_dims_entered=float(fl[3].sum()), rows_entering_group=rows_in,
         queries_entering_group=queries_in,
         keep_pairs=int(got[1].sum()))
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "redesigned": True, "earlier_ms": earlier}
 
 
 def time_pq_lookup(sess, Q, dev):
     """pq_lookup at the main path's real inputs: the first row block's
-    codes and the first query chunk's LUTs."""
+    codes, as the engine stores them, and the first query chunk's LUTs;
+    beside it, in the same call, the earlier design on int32 codes."""
     import torch
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops
     from repro_torch.kernels.pq_lookup import pq_lookup_plain
 
     be = sess.backend
@@ -554,19 +581,38 @@ def time_pq_lookup(sess, Q, dev):
     lib_out = torch.nn.functional.embedding_bag(flat, weight, mode="sum")
     check(torch.allclose(lib_out, want, rtol=1e-4, atol=1e-3),
           "embedding_bag does not compute the same function")
-    nbytes = 4 * (n * m + nq * m * k + n * nq)
+    # the earlier design: int32 codes, the LUTs of up to 96 KB of queries
+    # staged per block by scalar loads
+    lib = _build.load_library()
+    codes32 = codes.to(torch.int32)
+    bq_staged = max(1, min(nq, 96 * 1024 // (m * k * 4)))
+
+    def staged():
+        out = torch.empty((n, nq), dtype=torch.float32, device=dev)
+        _build.check(lib, lib.pq_lookup_staged_launch(
+            codes32.data_ptr(), lut.data_ptr(), out.data_ptr(), n, nq, m, k,
+            bq_staged, torch.cuda.current_stream(dev).cuda_stream),
+            "pq_lookup_staged")
+        return out
+
+    check(torch.allclose(staged(), want, rtol=1e-4, atol=1e-3),
+          "the earlier pq_lookup design differs at the main path's inputs")
+    nbytes = codes.element_size() * n * m + 4 * (nq * m * k + n * nq)
     flops = float(n * nq * m)
     bms, by = bound_ms(nbytes, flops)
     ms = cuda_ms(lambda: ops.pq_lookup_op(codes, lut))
+    earlier = cuda_ms(staged)
     plain = cuda_ms(lambda: pq_lookup_plain(codes, lut))
     lib_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(
         flat, weight, mode="sum"))
     call = eager_ms(lambda: ops.pq_lookup_op(codes, lut))
-    log("kernel_timing", kernel="pq_lookup", shape=[n, nq, m, k], ms=ms,
+    log("kernel_timing", kernel="pq_lookup", shape=[n, nq, m, k],
+        codes_dtype=str(codes.dtype), ms=ms, earlier_design_ms=earlier,
         plain_ms=plain, library_ms=lib_ms, eager_call_ms=call, bound_ms=bms,
         bound_by=by, bytes=nbytes, flops=flops, max_abs_err=err)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+            "redesigned": True, "earlier_ms": earlier}
 
 
 def main() -> int:
@@ -655,6 +701,8 @@ def main() -> int:
     log("main", **rec, phase_s=time.perf_counter() - t0)
     check(rec["launches_per_batch"]["pq_lookup"] > 0,
           "the main path launched no pq_lookup kernel")
+    check(rec["codes_dtype"] == "torch.uint8",
+          "DDCopq's codes are not held as uint8 at K = 256")
     # DDCopq is an estimator whose recall falls with corpus size (the
     # reference package's does too: scripts/ddcopq_recall_scaling.py), so
     # the 0.9 bar is reported, met or not, and the check is that the

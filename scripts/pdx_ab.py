@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""QPS of the PDX layout against the flat layout on one CUDA card, batch
-for batch in turns.
+"""QPS of the PDX layout's two stage-1 paths against the flat layout on one
+CUDA card, batch for batch in turns.
 
     python3 scripts/pdx_ab.py [--n 1000000] [--pairs 10]
 
 Fits PDScanning+ once on the GIST-shaped synthetic corpus (N x 960, 100
-queries, k = 10), serves it from two sessions held side by side, the
-default flat layout and ``SchedulePolicy(dim_groups=4)``, and times
-``pairs`` pairs of 100-query batches, alternating which layout goes first
-(flat, pdx, pdx, flat, ...).  Each wall ends in the device-to-host copy of
-the result; no profiler session or CUDA graph runs in the process, since
-either leaves every later launch slower on the host.  Prints one JSON line
-with every wall, the medians, the quartiles, how many pairs the PDX layout
-won, and the card's name and power limit.  Needs a CUDA card; the ids of
-the two layouts must agree.
+queries, k = 10) and serves it from three sessions held side by side: the
+default flat layout ("flat"), ``SchedulePolicy(dim_groups=4)`` through the
+``dco_scan_grouped`` kernel ("pdx") and the same layout through the
+inline R-cut path, ``use_kernel=False`` ("rcut").  It times ``pairs``
+rounds of 100-query batches, one batch per session a round, the order
+reversed every other round (flat, pdx, rcut, rcut, pdx, flat, ...).  Each
+wall ends in the device-to-host copy of the result; no profiler session
+or CUDA graph runs in the process, since either leaves every later launch
+slower on the host.  Prints one JSON line with every wall, the medians,
+the quartiles, how many rounds the kernel path beat each other session,
+and the card's name and power limit.  Needs a CUDA card; the flat and PDX
+kernel paths must return the same ids, and the R-cut path the same ids on
+every query it certifies.
 """
 from __future__ import annotations
 
@@ -44,27 +48,43 @@ def main() -> int:
     ds = load_dataset("gist", scale=args.n / 30_000)
     X, Q = ds.X, ds.Q
     flat = open_index(X, method="PDScanning+")
-    pdx = SearchSession(flat.method, SchedulePolicy(dim_groups=4))
-    sessions = {"flat": flat, "pdx": pdx}
-    ids = {key: s.search(Q, 10).ids for key, s in sessions.items()}  # warm
-    if not np.array_equal(np.sort(ids["flat"], 1), np.sort(ids["pdx"], 1)):
+    sessions = {
+        "flat": flat,
+        "pdx": SearchSession(flat.method, SchedulePolicy(dim_groups=4)),
+        "rcut": SearchSession(flat.method, SchedulePolicy(
+            dim_groups=4, use_kernel=False)),
+    }
+    res = {key: s.search(Q, 10) for key, s in sessions.items()}  # warm
+    if not np.array_equal(np.sort(res["flat"].ids, 1),
+                          np.sort(res["pdx"].ids, 1)):
         raise AssertionError("the flat and PDX layouts return other ids")
+    ok = ~res["rcut"].stats.extra["uncertified_mask"]
+    if not np.array_equal(np.sort(res["rcut"].ids[ok], 1),
+                          np.sort(res["pdx"].ids[ok], 1)):
+        raise AssertionError("the R-cut path returns other ids on certified "
+                             "queries")
 
     def pairs():
-        walls = {"flat": [], "pdx": []}
-        pdx_wins = 0
+        walls = {key: [] for key in sessions}
+        wins = {"pdx_over_flat": 0, "pdx_over_rcut": 0}
         for i in range(args.pairs):
-            order = ("flat", "pdx") if i % 2 == 0 else ("pdx", "flat")
-            pair = {}
+            order = list(sessions) if i % 2 == 0 else list(sessions)[::-1]
+            rnd = {}
             for key in order:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 sessions[key].search(Q, 10)
-                pair[key] = time.perf_counter() - t0
-                walls[key].append(pair[key])
-            pdx_wins += pair["pdx"] < pair["flat"]
-        return {"walls_s": walls, "flat": stats(walls["flat"]),
-                "pdx": stats(walls["pdx"]), "pdx_wins": int(pdx_wins)}
+                rnd[key] = time.perf_counter() - t0
+                walls[key].append(rnd[key])
+            wins["pdx_over_flat"] += rnd["pdx"] < rnd["flat"]
+            wins["pdx_over_rcut"] += rnd["pdx"] < rnd["rcut"]
+        return {"walls_s": walls,
+                **{key: stats(w) for key, w in walls.items()},
+                "wins": {key: int(v) for key, v in wins.items()},
+                "rcut_certified_share": float(ok.mean()),
+                "dims_read_mean": {
+                    key: r.stats.extra["dims_read_mean"]
+                    for key, r in res.items()}}
 
     def stats(w):
         q1, med, q3 = np.percentile(w, [25, 50, 75])

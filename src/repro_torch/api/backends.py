@@ -27,6 +27,13 @@ from repro_torch.core.torch_engine import DcoEngineConfig, build_device_state
 _ROW_KEYS = ("x_lead", "x_tail", "lead_sq", "tail_sq", "row_ids", "codes")
 
 
+def _code_dtype(n_codes: int):
+    """PQ codes as the device holds them: one byte each when the codebooks
+    have at most 256 entries (the host's uint16 codes narrow losslessly),
+    else int32."""
+    return np.uint8 if n_codes <= 256 else np.int32
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means the CUDA card; a CUDA device without a card raises
     instead of quietly running on the CPU."""
@@ -84,7 +91,8 @@ class TorchBackend:
         pad = (-n) % min(self.policy.row_block, n)
         rows = {"Xrot": xr}
         if dstate["kind"] == "opq":
-            rows["codes"] = np.asarray(dstate["codes"], np.int32)
+            rows["codes"] = np.asarray(dstate["codes"],
+                                       _code_dtype(dstate["books"].shape[1]))
         if pad:
             rows = {key: np.pad(a, ((0, pad), (0, 0)))
                     for key, a in rows.items()}

@@ -147,8 +147,11 @@ def build_stream_blocks(state: dict, row_block: int,
         "tsq": rows(state["tail_sq"]),
         "ids": rows(ids.to(torch.int32), value=-1),
     }
-    if "codes" in state:        # PQ codes for the opq rule
-        xs["codes"] = rows(state["codes"].to(torch.int32))
+    if "codes" in state:        # PQ codes for the opq rule: uint8 as given
+        codes = state["codes"]
+        if codes.dtype != torch.uint8:
+            codes = codes.to(torch.int32)
+        xs["codes"] = rows(codes)
     if dim_groups > 1:
         d1 = x_lead.shape[1]
         G, dg, _ = _group_plan(d1, dim_groups)

@@ -5,7 +5,8 @@ process per source, all started together) and linked into one shared
 library with a plain C interface, loaded with ``ctypes``.  No ninja and no
 PyTorch headers are involved, so a cold build takes seconds.  The library
 lives under ``build/torch_ext/`` at the root of the checkout, named by a
-hash of the sources and flags, so an edited source rebuilds on first use.
+hash of the sources, the headers beside them (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds on first use.
 A failed build raises; nothing falls back to the plain versions.
 """
 from __future__ import annotations
@@ -44,7 +45,7 @@ def _nvcc() -> str:
 
 def _library_path(sources) -> Path:
     h = hashlib.sha256(" ".join(CFLAGS).encode())
-    for src in sources:
+    for src in sorted([*sources, *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"repro_torch_kernels_{h.hexdigest()[:16]}.so"
@@ -77,11 +78,14 @@ def _compile(sources, out: Path) -> str:
 
 def _bind(lib):
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.dco_scan_launch, lib.dco_scan_grouped_launch):
+    for fn in (lib.dco_scan_launch, lib.dco_scan_grouped_launch,
+               lib.dco_scan_grouped_tiled_launch):
         fn.argtypes = [vp] * 10 + [i32] * 5 + [vp]
         fn.restype = i32
-    lib.pq_lookup_launch.argtypes = [vp] * 3 + [i32] * 5 + [vp]
-    lib.pq_lookup_launch.restype = i32
+    for fn in (lib.pq_lookup_u8_launch, lib.pq_lookup_i32_launch,
+               lib.pq_lookup_staged_launch):
+        fn.argtypes = [vp] * 3 + [i32] * 5 + [vp]
+        fn.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -78,8 +78,11 @@ def _nrows(nrows, n: int, device):
 
 
 def pq_lookup_op(codes, lut):
-    """PQ scan: codes (N, M) int, lut (Q, M, K) f32 -> adist (N, Q) f32."""
-    codes = codes.to(torch.int32).contiguous()
+    """PQ scan: codes (N, M) int, lut (Q, M, K) f32 -> adist (N, Q) f32.
+    uint8 and int32 codes (what the engine stores) go to the kernel as they
+    come; another integer type is converted to int32 first."""
+    if codes.dtype not in (torch.uint8, torch.int32):
+        codes = codes.to(torch.int32)
     if codes.is_cuda:
-        return pq_lookup_cuda(codes, lut.contiguous())
+        return pq_lookup_cuda(codes.contiguous(), lut.contiguous())
     return pq_lookup_plain(codes, lut)

@@ -49,6 +49,26 @@ def test_facade_matches_reference_jax_backend(name, sift_small):
     assert rt.stats.dims_scanned == rj.stats.dims_scanned
 
 
+@pytest.mark.parametrize("n_codes,dtype", [(256, torch.uint8),
+                                           (512, torch.int32)])
+def test_facade_ddcopq_code_storage(n_codes, dtype, sift_small):
+    """The backend holds PQ codes as uint8 when the codebooks have at most
+    256 entries, else int32; either way DDCopq returns the reference
+    facade's ids, and distances within rtol 1e-4."""
+    X, Q = sift_small.X[:3000], sift_small.Q[:8]
+    params = {"n_codes": n_codes}
+    rj = jax_open_index(X, method="DDCopq", backend="jax",
+                        method_params=params,
+                        schedule=JaxPolicy(**POLICY)).search(Q, K)
+    sess = open_index(X, method="DDCopq", device="cpu", method_params=params,
+                      schedule=SchedulePolicy(**POLICY))
+    rt = sess.search(Q, K)
+    assert sess.method.state["pq"]["n_codes"] == n_codes
+    assert sess.backend._blocks["codes"].dtype == dtype
+    np.testing.assert_array_equal(rt.ids, rj.ids)
+    np.testing.assert_allclose(rt.dists, rj.dists, rtol=1e-4)
+
+
 #: the methods whose layout groups (FDScanning and DDCopq force G = 1)
 GROUPED = ("PDScanning", "PDScanning+", "ADSampling", "DADE", "DDCres",
            "DDCpca")

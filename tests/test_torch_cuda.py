@@ -16,8 +16,16 @@ from repro_torch.kernels import pq_lookup as pq_mod
 
 DCO_CASES = [(256, 128, 128), (300, 17, 130), (64, 8, 96), (1000, 5, 256),
              (128, 1, 32), (4096, 16, 128)]
-PQ_CASES = [(300, 9, 16, 256), (128, 8, 8, 64), (65, 3, 4, 16),
-            (4096, 16, 16, 256), (1000, 21, 4, 16)]
+#: (n, q, m, k, code dtype): the main path's shape, ragged n, query counts
+#: that are not a multiple of the queries a block stages (130 at 4096 rows
+#: stages 7 a block), M in {4, 8, 16}, K in {16, 64, 256} in both code
+#: dtypes, and K = 512 (int32 only)
+PQ_CASES = [(*shape, dtype)
+            for shape in ((300, 9, 16, 256), (128, 8, 8, 64), (65, 3, 4, 16),
+                          (4096, 16, 16, 256), (1000, 21, 4, 16),
+                          (65, 3, 4, 256), (4096, 130, 16, 16))
+            for dtype in (torch.int32, torch.uint8)] + [
+    (4096, 16, 16, 512, torch.int32), (300, 7, 4, 512, torch.int32)]
 #: (n, q, G, dg, d1): the PDX main path's shape (4 groups of 32), ragged
 #: dg (not a multiple of the kernel's 32-dim slice, down to 1), a ragged
 #: last group, G = 5, and G = 1
@@ -68,17 +76,40 @@ def test_dco_scan_kernel_matches_plain(cuda_device, n, q, d1, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,q,m,k", PQ_CASES)
-def test_pq_lookup_kernel_matches_plain(cuda_device, n, q, m, k):
+@pytest.mark.parametrize("n,q,m,k,dtype", PQ_CASES)
+def test_pq_lookup_kernel_matches_plain(cuda_device, n, q, m, k, dtype):
+    """uint8 codes (the engine's storage at K <= 256) and int32 codes give
+    the int32 plain version's sums."""
     rng = np.random.default_rng(_seed("cuda", n, q, m, k))
     codes = rng.integers(0, k, (n, m)).astype(np.int32)
     lut = rng.standard_normal((q, m, k)).astype(np.float32)
     before = pq_mod.launches
-    got = ops.pq_lookup_op(*_t(codes, lut, device=cuda_device))
+    got = ops.pq_lookup_op(torch.as_tensor(codes, device=cuda_device).to(
+        dtype), torch.as_tensor(lut, device=cuda_device))
     assert pq_mod.launches == before + 1
     want = ops.pq_lookup_op(*_t(codes, lut))
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
                                atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,lo,hi", [(torch.uint8, 0, 64),
+                                         (torch.int32, -8, 24)])
+def test_pq_lookup_kernel_out_of_range_codes_add_nothing(cuda_device, dtype,
+                                                         lo, hi):
+    """A code outside [0, K) adds nothing, as the reference's one-hot row of
+    zeros does."""
+    n, q, m, k = 300, 5, 4, 16
+    rng = np.random.default_rng(_seed("cuda-oob", dtype, lo, hi))
+    codes = rng.integers(lo, hi, (n, m))
+    lut = rng.standard_normal((q, m, k)).astype(np.float32)
+    got = ops.pq_lookup_op(
+        torch.as_tensor(codes, dtype=dtype, device=cuda_device),
+        torch.as_tensor(lut, device=cuda_device)).cpu().numpy()
+    ok = (codes >= 0) & (codes < k)
+    g = lut[:, np.arange(m)[None, :], np.where(ok, codes, 0)]   # (q, n, m)
+    want = np.where(ok[None], g, 0.0).sum(-1).T
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
 
 
 def _grouped_inputs(rng, n, q, G, dg, d1, device):
@@ -137,3 +168,72 @@ def test_dco_scan_grouped_one_group_is_the_flat_kernel(cuda_device, n, q,
     torch.cuda.synchronize()
     for f, g in zip(flat, grouped):
         assert torch.equal(f, g)
+
+
+def _patterned_grouped(pattern, n, q, G, dg, d1, rng):
+    """Integer-valued grouped inputs whose liveness after group 0 is set by
+    construction: ``all_alive`` (tau above every partial), ``all_dead``
+    (every group-0 slice of x is odd and every one of q even, so each pair
+    adds at least 1 against tau = 0.5; ``revive`` is the same data, run
+    with scales that drop after group 1) or ``one_row`` (as ``all_dead``
+    plus one row in each 16-row tile equal to the queries' group-0 slice,
+    so it alone stays alive).  Every fifth query has tau = -1."""
+    x = np.zeros((G, n, dg), np.float32)
+    qq = np.zeros((G, q, dg), np.float32)
+    widths = np.array([min(dg, d1 - g * dg) for g in range(G)], np.float32)
+    for g in range(G):
+        w = int(widths[g])
+        x[g, :, :w] = rng.integers(-4, 5, (n, w))
+        qq[g, :, :w] = rng.integers(-4, 5, (q, w))
+    tau = np.full(q, 0.5, np.float32)
+    live_rows = np.zeros(n, bool)
+    if pattern == "all_alive":
+        tau[:] = 1e9
+        live_rows[:] = True
+    else:
+        w0 = int(widths[0])
+        x[0, :, :w0] = 2 * rng.integers(-2, 2, (n, w0)) + 1
+        qq[0, :, :w0] = 2 * rng.integers(-2, 3, (1, w0))  # one shared slice
+        if pattern == "one_row":
+            live_rows[5::16] = True
+            x[0, live_rows, :w0] = qq[0, 0, :w0]
+    tau[::5] = -1.0
+    return x, qq, tau, widths, live_rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q,G,dg,d1", [(4096, 16, 4, 32, 128),
+                                         (300, 17, 3, 10, 27),
+                                         (257, 40, 5, 33, 161)])
+@pytest.mark.parametrize("pattern", ["all_alive", "all_dead", "one_row",
+                                     "revive"])
+def test_dco_scan_grouped_kernel_liveness_patterns(cuda_device, pattern, n,
+                                                   q, G, dg, d1):
+    """Tiles whose pairs are all alive, all dead, or alive in a single row
+    after group 0 (the compaction's edge cases), and pairs that come back
+    to life at group 2 because the scales drop (their rows were not staged
+    after group 0), with tau = -1 queries, ragged nrows, dg and G: bit for
+    bit against the plain version."""
+    rng = np.random.default_rng(_seed("cuda-pattern", pattern, n, q, G, dg))
+    x, qq, tau, widths, live_rows = _patterned_grouped(pattern, n, q, G, dg,
+                                                       d1, rng)
+    sc = torch.ones(G)
+    if pattern == "revive":
+        sc[1:] = 2.0 ** -12         # exact: partial * scale stays exact
+    nr = torch.tensor([n - n // 7], dtype=torch.int32)
+    cpu = _t(x, qq, tau, widths)
+    # the construction holds: rows with a live pair entering group 1
+    p0 = ops.dco_scan_grouped_op(cpu[0][:1], cpu[1][:1], cpu[2], sc[:1],
+                                 cpu[3][:1])[0]
+    alive1 = (p0 <= cpu[2][None, :]).any(1).numpy()
+    np.testing.assert_array_equal(alive1, live_rows)
+    got = ops.dco_scan_grouped_op(*(t.to(cuda_device) for t in cpu[:3]),
+                                  sc.to(cuda_device), cpu[3].to(cuda_device),
+                                  nr.to(cuda_device))
+    want = ops.dco_scan_grouped_op(*cpu[:3], sc, cpu[3], nr)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    if pattern == "revive":         # some pairs did enter group 2
+        assert float(want[3].sum()) > float(
+            widths[0] * (n - n // 7) * (tau >= 0).sum())

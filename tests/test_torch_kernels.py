@@ -111,15 +111,22 @@ def test_dco_scan_dims_matches_oracle(n, q, d1, block_d, nrows):
 
 
 @pytest.mark.parametrize("n,q,m,k", PQ_CASES)
-def test_pq_lookup_matches_jax_and_ref(n, q, m, k):
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint8])
+def test_pq_lookup_matches_jax_and_ref(n, q, m, k, dtype):
+    """int32 codes, and uint8 codes (the engine's storage at K <= 256) on
+    the same draw, against the Pallas kernel on int32 codes; the uint8 sums
+    equal the int32 plain version's exactly."""
     rng = np.random.default_rng(_seed(n, q, m, k))
     codes = rng.integers(0, k, (n, m)).astype(np.int32)
     lut = rng.standard_normal((q, m, k)).astype(np.float32)
-    got = ops.pq_lookup_op(*_t(codes, lut)).numpy()
+    got = ops.pq_lookup_op(torch.as_tensor(codes).to(dtype),
+                           torch.as_tensor(lut)).numpy()
     want = np.asarray(jax_pq_lookup_op(jnp.asarray(codes), jnp.asarray(lut)))
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
     np.testing.assert_allclose(
         got, ref.pq_lookup_ref(*_t(codes, lut)).numpy(), rtol=1e-4, atol=1e-3)
+    np.testing.assert_array_equal(
+        got, pq_mod.pq_lookup_plain(*_t(codes, lut)).numpy())
 
 
 def _grouped(x, qq, G, dg):

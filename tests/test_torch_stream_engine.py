@@ -78,14 +78,16 @@ def _cfg_kw(ds, **kw):
 
 
 def _run_both(dstate, ql, qt, qe, **kw):
-    """(reference outputs, port outputs) as numpy tuples."""
+    """(reference outputs, port outputs) as numpy tuples.  The PQ codes of
+    the opq rule (256 codebook entries) are int32 for the reference and
+    uint8 for the port, as its backend holds them."""
     d1 = ql.shape[1]
     js = jax_state(dstate, d1)
     ts = build_device_state(dstate, d1, "cpu")
     if "codes" in dstate:
         codes = np.asarray(dstate["codes"], np.int32)
         js["codes"] = jnp.asarray(codes)
-        ts["codes"] = torch.as_tensor(codes)
+        ts["codes"] = torch.as_tensor(codes).to(torch.uint8)
     a = jax_stream_topk(js, jnp.asarray(ql), jnp.asarray(qt),
                         JaxConfig(**kw), {k: jnp.asarray(v) for k, v in qe.items()})
     b = stream_topk(ts, torch.as_tensor(ql), torch.as_tensor(qt),
@@ -215,6 +217,8 @@ def test_build_stream_blocks_pads_with_invalid_ids():
           "codes": torch.ones(5, 4, dtype=torch.int64)}
     xs = build_stream_blocks(st, 2)
     assert xs["xl"].shape == (3, 2, 3) and xs["codes"].dtype == torch.int32
+    st["codes"] = st["codes"].to(torch.uint8)       # one byte a code stays
+    assert build_stream_blocks(st, 2)["codes"].dtype == torch.uint8
     np.testing.assert_array_equal(xs["ids"].reshape(-1).numpy(),
                                   [0, 1, 2, 3, 4, -1])
     assert xs["xl"][2, 1].abs().sum() == 0
