@@ -22,17 +22,21 @@ Phases, one JSON line each:
               on the inline R-cut path);
   7. profile  for each 1M session (flat, PDX, DDCopq), served again from
               its fitted method: one batch under torch.profiler (device
-              operations, CUDA runtime calls, device-busy share against
-              the phase's unprofiled wall), then its kernel's time at the
-              main path's real inputs beside its bound, its plain version
-              and, where one exists, a single PyTorch call computing the
-              same function (dco_scan_grouped beside dco_scan on the same
-              rows and queries), and for the two kernels that were
-              redesigned (pq_lookup, dco_scan_grouped) the earlier design,
-              kept in the kernel library for this, on the same inputs
-              (its time is the kernel line's `earlier_ms`).  This comes
-              last because a profiler session and CUDA graphs leave every
-              later launch slower on the host for the rest of the process
+              operations, zero fills, CUDA runtime calls, device-busy share
+              against the phase's unprofiled wall), then its kernel's time
+              at the main path's real inputs beside its bound, its plain
+              version and, where one exists, a single PyTorch call
+              computing the same function (dco_scan_grouped beside
+              dco_scan on the same rows and queries; beside dco_scan, an
+              fp32 torch.addmm forming the same (N, Q) contrib from
+              precomputed norms, the product only), and for the three
+              kernels that were redesigned (dco_scan, dco_scan_grouped,
+              pq_lookup) the earlier design, kept in the kernel library
+              for this, on the same inputs (its time is the kernel line's
+              `earlier_ms`).  dco_scan at the main shape must be one device
+              operation (no zero fill).  This comes last because a
+              profiler session and CUDA graphs leave every later launch
+              slower on the host for the rest of the process
               (scripts/pdx_ab.py measures it), which would bias the QPS of
               later phases.
 Then the kernel table, the nvidia-smi line and the result line.  Every
@@ -158,14 +162,17 @@ def phase_parity(dev):
                 tau = torch.as_tensor(rng.uniform(2 * d1, 10 * d1, nq),
                                       dtype=torch.float32, device=dev)
                 tau[::5] = -1.0               # padded queries prune all
-                got = ops.dco_scan_op(x, q, tau, sc, nr, block_n=256,
-                                      block_d=block_d)
-                want = dco_scan_plain(x, q, tau, sc, widths, nr,
-                                      block_n=256, block_d=block_d)
-                for name, g, w in zip(("partial", "keep", "counts", "dims"),
-                                      got, want):
-                    check(torch.equal(g, w),
-                          f"dco_scan {name} differs (nq={nq} d1={d1} {kind})")
+                # block_n 256 stores counts and dims by cluster, 40 adds
+                # them to a zero fill
+                for block_n in (256, 40):
+                    got = ops.dco_scan_op(x, q, tau, sc, nr, block_n=block_n,
+                                          block_d=block_d)
+                    want = dco_scan_plain(x, q, tau, sc, widths, nr,
+                                          block_n=block_n, block_d=block_d)
+                    for name, g, w in zip(("partial", "keep", "counts",
+                                           "dims"), got, want):
+                        check(torch.equal(g, w), f"dco_scan {name} differs "
+                              f"(nq={nq} d1={d1} {kind} block_n={block_n})")
                 # (b) Gaussian inputs: summation order moves the last bits,
                 # so keep may differ only for pairs within rounding of tau
                 x = torch.randn(n, d1, device=dev)
@@ -361,7 +368,7 @@ def profile_batch(sess, Q, wall_s: float) -> dict:
         torch.cuda.synchronize()
         profiled_wall_s = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
-    kernels = memops = runtime = 0
+    kernels = memops = runtime = fills = 0
     dev_us = 0.0
     top = []
     for e in prof.key_averages():
@@ -373,6 +380,7 @@ def profile_batch(sess, Q, wall_s: float) -> dict:
                 memops += e.count
             else:
                 kernels += e.count
+                fills += e.count if "FillFunctor" in e.key else 0
             top.append((us, e.count, e.key[:60]))
         elif e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel",
                                "cudaMemcpy", "cudaMemset")):
@@ -380,6 +388,7 @@ def profile_batch(sess, Q, wall_s: float) -> dict:
     top.sort(reverse=True)
     return {
         "device_kernels": kernels, "device_copies_fills": memops,
+        "fill_kernels": fills,
         "runtime_launch_calls": runtime, "device_ms": dev_us / 1e3,
         "unprofiled_wall_ms": wall_s * 1e3,
         "profiled_wall_ms": profiled_wall_s * 1e3,
@@ -405,12 +414,31 @@ def inline_agreement(sess, Q, res, dev):
     return agree, other.ids
 
 
+def device_ops(fn) -> list:
+    """The names of the device operations one call of ``fn`` runs
+    (torch.profiler; ``fn`` warmed up first)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e.key for e in prof.key_averages() for _ in range(e.count)
+            if getattr(e, "device_type", None) == cuda]
+
+
 def time_dco_scan(sess, Q, res, dev):
     """dco_scan at the main path's real inputs: the first row block of the
-    corpus, the first query chunk, and the tau the scan ends with."""
+    corpus, the first query chunk, and the tau the scan ends with; beside
+    it, in the same call, the earlier design on the same inputs and the
+    product alone as one fp32 torch.addmm."""
     import numpy as np
     import torch
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import dco_scan as dco_mod
     from repro_torch.kernels.dco_scan import dco_scan_plain
 
     be = sess.backend
@@ -426,30 +454,61 @@ def time_dco_scan(sess, Q, res, dev):
     sc = torch.ones(nd, device=dev)
     nr = torch.tensor([n], dtype=torch.int32, device=dev)
     widths = ops._widths(d1, block_d, dev)
-    got = ops.dco_scan_op(x, q, tau, sc, nr, block_n=256, block_d=block_d)
+
+    def op():
+        return ops.dco_scan_op(x, q, tau, sc, nr, block_n=256,
+                               block_d=block_d)
+
+    def tiled():                # the earlier design: 32 x 16 tiles, a fill
+        return dco_mod._launch("dco_scan_tiled_launch", x, q, tau, sc,
+                               widths, nr, n, nq, (d1, block_d), 256)
+
+    got = op()
     want = dco_scan_plain(x, q, tau, sc, widths, nr, block_n=256,
                           block_d=block_d)
     near = (want[0] - tau[None, :]).abs() <= 1e-4 * tau.abs()[None, :]
     check(not bool(((got[1] != want[1]) & ~near).any()),
           "dco_scan keep differs at the main path's inputs")
     err = float((got[0] - want[0]).abs().max())
+    # both designs sum each pair in the same order: equal bit for bit
+    for name, o, g in zip(("partial", "keep", "counts", "dims"), tiled(),
+                          got):
+        check(torch.equal(o, g), f"the earlier dco_scan design differs in "
+              f"{name} at the main path's inputs")
+    names = device_ops(op)
+    check(len(names) == 1 and "dco_scan_flat_kernel" in names[0],
+          f"dco_scan_op at the main shape is not the kernel alone: {names}")
+    clusters = _build.load_library().dco_scan_max_active_clusters(block_d,
+                                                                  256)
+    # the product only, not the function: no gating, no clamp, no outputs
+    # but the (N, Q) contrib of one dim block
+    base = ((x * x).sum(1)[:, None] + (q * q).sum(1)[None, :]).contiguous()
+    qt = q.T
+
+    def product():
+        return torch.addmm(base, x, qt, beta=1.0, alpha=-2.0)
+
     entered = float(got[3].sum())               # (row, query, dim) triples
     nb = -(-n // 256)
     nbytes = 4 * (n * d1 + nq * d1 + nq + 2 * nd + 1) \
         + n * nq * (4 + 1) + nb * nq * (4 + 4)
     flops = 2.0 * entered + 2.0 * (n + nq) * d1
     bms, by = bound_ms(nbytes, flops)
-    ms = cuda_ms(lambda: ops.dco_scan_op(x, q, tau, sc, nr, block_n=256,
-                                         block_d=block_d))
+    ms = cuda_ms(op)
+    earlier = cuda_ms(tiled)
+    product_ms = cuda_ms(product)
     plain = cuda_ms(lambda: dco_scan_plain(x, q, tau, sc, widths, nr,
                                            block_n=256, block_d=block_d))
-    call = eager_ms(lambda: ops.dco_scan_op(x, q, tau, sc, nr, block_n=256,
-                                            block_d=block_d))
+    call = eager_ms(op)
     log("kernel_timing", kernel="dco_scan", shape=[n, nq, d1], ms=ms,
+        earlier_design_ms=earlier, product_only_addmm_ms=product_ms,
         plain_ms=plain, eager_call_ms=call, bound_ms=bms, bound_by=by,
-        bytes=nbytes, flops=flops, max_abs_err=err)
+        bytes=nbytes, flops=flops, max_abs_err=err, device_ops=names,
+        max_active_clusters=clusters, clusters_launched=nb)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "redesigned": True, "earlier_ms": earlier,
+            "product_only_addmm_ms": product_ms}
 
 
 def grouped_planes_needed(xg, qg, tau, sc, widths, nr):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""What a launch of the port's grouped and PQ kernels costs apart from its
+"""What a launch of the port's scan and PQ kernels costs apart from its
 work, on one CUDA card.
 
     python3 scripts/kernel_floor.py
@@ -19,7 +19,13 @@ a replayed CUDA graph (chip_smoke.cuda_ms):
   grouped_kernel_g1     group 0 only;
   grouped_kernel_all_alive  tau = 1e9 (every pair alive in every group);
   tiled_kernel          the earlier grouped design on the same inputs;
-  flat_op               dco_scan_op on the same rows and queries;
+  flat_op               dco_scan_op on the same rows and queries, laid out
+                        flat (4096 x 128, the flat main path's launch
+                        shape, block_n 256): the kernel alone, no fill;
+  flat_kernel_no_live   the flat kernel with every tau = -1 (staging,
+                        norms, the writes and the cluster's sums only);
+  flat_tiled            the earlier flat design (zero fill + kernel, as
+                        its op issued it);
   pq_op                 pq_lookup_op at 4096 x 16 uint8 codes, K = 256.
 
 Prints one JSON line with the times in us and the card's name and power
@@ -45,6 +51,7 @@ def main() -> int:
         return 2
     from chip_smoke import cuda_ms
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import dco_scan as dco_mod
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -61,18 +68,22 @@ def main() -> int:
     keep = torch.empty((n, nq), dtype=torch.int8, device=dev)
     zeros = torch.zeros((2, nb, nq), dtype=torch.int32, device=dev)
 
-    def kernel(entry, t=tau, groups=G):
+    def kernel(entry, t=tau, groups=G, xx=x, qq=q, layout=None):
+        layout = layout or (groups, dg)
+
         def launch():
             _build.check(lib, getattr(lib, entry)(
-                x.data_ptr(), q.data_ptr(), t.data_ptr(), sc.data_ptr(),
+                xx.data_ptr(), qq.data_ptr(), t.data_ptr(), sc.data_ptr(),
                 widths.data_ptr(), nr.data_ptr(), partial.data_ptr(),
                 keep.data_ptr(), zeros[0].data_ptr(), zeros[1].data_ptr(),
-                n, nq, groups, dg, 256,
+                n, nq, *layout, 256,
                 torch.cuda.current_stream().cuda_stream), entry)
         return launch
 
     xf = x.transpose(0, 1).reshape(n, G * dg).contiguous()
     qf = q.transpose(0, 1).reshape(nq, G * dg).contiguous()
+    sc1 = torch.ones(1, device=dev)
+    w1 = torch.full((1,), float(G * dg), device=dev)
     codes = torch.randint(0, 256, (n, 16), device=dev, dtype=torch.uint8,
                           generator=gen)
     lut = torch.rand(nq, 16, 256, device=dev, generator=gen)
@@ -91,9 +102,14 @@ def main() -> int:
         "grouped_kernel_all_alive": kernel("dco_scan_grouped_launch",
                                            t=torch.full_like(tau, 1e9)),
         "tiled_kernel": kernel("dco_scan_grouped_tiled_launch"),
-        "flat_op": lambda: ops.dco_scan_op(xf, qf, tau, torch.ones(1,
-                                           device=dev), nr, block_n=256,
+        "flat_op": lambda: ops.dco_scan_op(xf, qf, tau, sc1, nr, block_n=256,
                                            block_d=128),
+        "flat_kernel_no_live": kernel("dco_scan_launch", xx=xf, qq=qf,
+                                      t=torch.full_like(tau, -1.0),
+                                      layout=(G * dg, G * dg)),
+        "flat_tiled": lambda: dco_mod._launch(
+            "dco_scan_tiled_launch", xf, qf, tau, sc1, w1, nr, n, nq,
+            (G * dg, G * dg), 256),
         "pq_op": lambda: ops.pq_lookup_op(codes, lut),
     }
     us = {key: cuda_ms(fn) * 1e3 for key, fn in timers.items()}

@@ -78,10 +78,15 @@ def _compile(sources, out: Path) -> str:
 
 def _bind(lib):
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.dco_scan_launch, lib.dco_scan_grouped_launch,
+    for fn in (lib.dco_scan_launch, lib.dco_scan_tiled_launch,
+               lib.dco_scan_grouped_launch,
                lib.dco_scan_grouped_tiled_launch):
         fn.argtypes = [vp] * 10 + [i32] * 5 + [vp]
         fn.restype = i32
+    lib.dco_scan_fill_free.argtypes = [i32]
+    lib.dco_scan_fill_free.restype = i32
+    lib.dco_scan_max_active_clusters.argtypes = [i32, i32]
+    lib.dco_scan_max_active_clusters.restype = i32
     for fn in (lib.pq_lookup_u8_launch, lib.pq_lookup_i32_launch,
                lib.pq_lookup_staged_launch):
         fn.argtypes = [vp] * 3 + [i32] * 5 + [vp]

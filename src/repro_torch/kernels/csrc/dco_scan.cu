@@ -22,25 +22,54 @@
 //            physical width dg (a ragged last group is zero-padded, and its
 //            logical width comes in `widths`).
 //
-// Flat body (dco_scan_kernel<FlatLayout>).  One CUDA block per (BN rows x
-// BQ queries) output tile; lane = row, each warp owns QPW queries, so the
-// partial stays in registers across the whole dim loop (the TPU kernel kept
-// it resident in VMEM across its innermost grid axis).  Each dim block is
-// staged through shared memory in TD-wide slices.  When no pair of the tile
-// is alive, __syncthreads_or lets the whole block skip the dim block's loads
-// and FMAs.  All arithmetic is fp32 FMA: TF32 tensor cores would move
-// screening decisions.  Bound: at the main path's shape (4096 x 128 rows x
-// dims, 16 queries) one launch must read 2.1 MB and write 0.33 MB, under
-// 1 us of HBM time, while its 17 MFLOP take 0.25 us at the fp32 FMA peak:
-// memory-bound on paper, launch-bound in practice.
+// Flat body (dco_scan_flat_kernel).  What held the first flat design (the
+// tiled body below) back at the main path's shape (4096 rows x 16 queries x
+// 128 dims, nd = 1) was fixed cost and serial latency, not work: 128
+// blocks on 132 SMs with nothing to hide a stall, four global round trips
+// a dim block (32-dim slices, scalar loads, a barrier each) and a zero fill
+// of counts and dims before every launch, for atomics.  This body:
+//   1. covers FBN x FBQ = 16 x 16 tiles, one (row, query) pair per thread
+//      with its partial in a register across the dim loop: 256 blocks at
+//      the main shape, two per SM;
+//   2. stages a dim block's whole tile (the 16 rows' and the 16 queries'
+//      block_d-wide slices, 8 KB each at block_d = 128) in one cp.async
+//      round trip, with 16-byte copies when d1 and block_d are multiples of
+//      4.  Dim block 0 is in flight during the gating; for a later block
+//      the tile-level skip (__syncthreads_or over its live pairs) decides
+//      first whether it is loaded at all.  No prefetch: the main path has
+//      one dim block;
+//   3. keeps the per-pair arithmetic of the tiled and grouped bodies: xn,
+//      dot and qn as sequential fmaf chains over c, then
+//      max(0, (xn - 2 dot) + qn), so the integer-valued parity stays exact
+//      and the grouped body at G = 1 agrees bit for bit.  A row's |x|^2 and
+//      a query's |q|^2 are the same chain whichever thread runs it, so warp
+//      0 computes the tile's 32 norms once and each pair runs its dot alone;
+//   4. writes counts and dims without a zero fill: when block_n is a
+//      multiple of FBN up to MAX_CLUSTER tiles, one thread block cluster
+//      covers one row block.  Each block sums its keep counts and dims per
+//      query, stores them into rank 0's shared memory (distributed shared
+//      memory), and rank 0 adds the cluster's sums in rank order and stores
+//      them: the op is the kernel alone.  Any other block_n takes the
+//      caller's zero fill and atomics (dco_scan_fill_free says which).
+// All arithmetic is fp32 FMA: TF32 tensor cores would move screening
+// decisions.  Bound: at the main shape one launch must read 2.1 MB and
+// write 0.33 MB, 0.73 us of HBM time, while its 17 MFLOP take 0.25 us at
+// the fp32 FMA peak: bytes on paper, launch and latency in practice.
+//
+// Tiled body (dco_scan_kernel<Layout>), the first design of both layouts,
+// kept only so that chip_smoke.py can time the flat and grouped bodies
+// against it on the same card in the same run (dco_scan_tiled_launch,
+// dco_scan_grouped_tiled_launch); the port never calls it.  One CUDA block
+// per (BN rows x BQ queries) tile, lane = row, each warp owns QPW queries;
+// each dim block staged through shared memory in TD-wide slices.
 //
 // Grouped body (dco_scan_grouped_kernel).  After group 0 only a few rows of
-// a tile keep a live pair (at the PDX main path 339 of 4096), so the flat
+// a tile keep a live pair (at the PDX main path 339 of 4096), so the tiled
 // body's all-or-nothing tile skip almost never fires there, and its four
 // group rounds each wait for a load.  This body moves the inline path's
 // compaction inside the kernel and waits for two loads in all:
 //   1. group 0 covers every row of a GBN x GBQ tile, one (row, query) pair
-//      per thread with its partial in a register, and the flat body's
+//      per thread with its partial in a register, and the flat bodies'
 //      per-pair arithmetic (sequential fmaf over c), so at G = 1 and dg ==
 //      block_d the two agree bit for bit.  The tile's group-0 slice (one
 //      contiguous GBN x dg span of the plane), its query slices and every
@@ -63,12 +92,15 @@
 // of group 0's plane, the later planes' live rows, and the outputs; the
 // kernel also reads, for a row live entering group 1, the later slices in
 // which it is already dead.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "async_copy.cuh"
 
 namespace {
+
+// ---- tiled body (timing only) ----------------------------------------------
 
 constexpr int BN = 32;                 // rows per tile: one per lane
 constexpr int QPW = 2;                 // queries per warp
@@ -78,6 +110,7 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int TD = 32;                 // dims staged per shared-memory step
 
 // Row-major x (n, d1) and q (nq, d1), cut into dim blocks of block_d.
+// Instantiated only for the earlier flat design (dco_scan_tiled_launch).
 struct FlatLayout {
   int d1, block_d;
   __device__ int blocks() const { return (d1 + block_d - 1) / block_d; }
@@ -91,9 +124,8 @@ struct FlatLayout {
 };
 
 // PDX vertical x (groups, n, dg) and q (groups, nq, dg): dim block = group.
-// Instantiated only for the earlier grouped design (dco_scan_grouped_tiled_
-// launch below), kept so that chip_smoke.py can time the grouped body
-// against it on the same card in the same run; the port never calls it.
+// Instantiated only for the earlier grouped design
+// (dco_scan_grouped_tiled_launch).
 struct GroupedLayout {
   int groups, dg;
   __device__ int blocks() const { return groups; }
@@ -280,7 +312,7 @@ __device__ __forceinline__ void stage_slices(float* dst, int S, int rows,
 }
 
 // max(0, |x|^2 - 2 x.q + |q|^2) over one dg slice, each sum a sequential
-// fmaf chain over c = 0..dg-1 (the flat body's order).
+// fmaf chain over c = 0..dg-1 (the flat bodies' order).
 __device__ __forceinline__ float clamped_contrib(const float* xr,
                                                  const float* qr, int dg) {
   float xn = 0.0f, dot = 0.0f, qn = 0.0f;
@@ -443,16 +475,329 @@ dco_scan_grouped_kernel(const float* __restrict__ x,
   }
 }
 
+// ---- flat body -------------------------------------------------------------
+
+constexpr int FBN = 16;                 // rows per tile
+constexpr int FBQ = 16;                 // queries per tile
+constexpr int FTHREADS = FBN * FBQ;     // one (row, query) pair per thread
+constexpr int FWARPS = FTHREADS / 32;
+constexpr int MAX_CLUSTER = 16;         // above 8 a non-portable cluster size
+static_assert(32 % FBQ == 0 && FBN + FBQ == 32, "warp 0 runs one norm a lane");
+
+// Blocks per cluster when one thread block cluster covers a row block of
+// block_n rows (block_n a multiple of FBN, at most MAX_CLUSTER tiles): the
+// cluster then stores counts and dims.  0 otherwise: the caller zeroes them
+// and the kernel adds with atomics.
+inline int flat_cluster_size(int block_n) {
+  return (block_n % FBN == 0 && block_n / FBN <= MAX_CLUSTER) ? block_n / FBN
+                                                              : 0;
+}
+
+// Dynamic shared memory: one dim block's x slices (FBN rows) and query
+// slices (FBQ rows).
+inline size_t flat_smem_bytes(int block_d) {
+  return (size_t)(FBN + FBQ) * slice_stride(block_d) * sizeof(float);
+}
+
+// Split cluster barrier: arrive, then wait for every thread of the cluster
+// (release / acquire unless relaxed).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// Stage the w-wide slices of rows [0, nr), row i from src + i * ld to
+// dst + i * S: 16-byte copies when `vec` (src and ld 16-byte aligned), and
+// 4-byte copies for the rest of a row.
+__device__ __forceinline__ void stage_rows(float* dst, int S, const float* src,
+                                           size_t ld, int nr, int w,
+                                           bool vec) {
+  const int w4 = vec ? w >> 2 : 0;
+  const int per = w4 + (w - 4 * w4);     // copies a row
+  for (int i = threadIdx.x; i < nr * per; i += FTHREADS) {
+    const int r = i / per, k = i - r * per;
+    const float* s = src + r * ld;
+    float* d = dst + r * S;
+    if (k < w4) {
+      repro::cp_async16(d + 4 * k, s + 4 * k);
+    } else {
+      const int c = 4 * w4 + (k - w4);
+      repro::cp_async4(d + c, s + c);
+    }
+  }
+}
+
+// sum_c a[c] * b[c] as one sequential fmaf chain over c = 0..w-1, the order
+// of each of clamped_contrib's three sums (a, b 16-byte aligned).
+__device__ __forceinline__ float fma_chain(const float* a, const float* b,
+                                           int w) {
+  float s = 0.0f;
+  int c = 0;
+#pragma unroll 4
+  for (; c + 4 <= w; c += 4) {
+    const float4 av = *reinterpret_cast<const float4*>(a + c);
+    const float4 bv = *reinterpret_cast<const float4*>(b + c);
+    s = fmaf(av.x, bv.x, s);
+    s = fmaf(av.y, bv.y, s);
+    s = fmaf(av.z, bv.z, s);
+    s = fmaf(av.w, bv.w, s);
+  }
+  for (; c < w; ++c) s = fmaf(a[c], b[c], s);
+  return s;
+}
+
+template <bool kCluster>
+__global__ void __launch_bounds__(FTHREADS, 2)
+dco_scan_flat_kernel(const float* __restrict__ x, const float* __restrict__ q,
+                     const float* __restrict__ tau,
+                     const float* __restrict__ scales,
+                     const float* __restrict__ widths,
+                     const int32_t* __restrict__ nrows_ptr,
+                     float* __restrict__ partial, int8_t* __restrict__ keep,
+                     int32_t* __restrict__ counts, float* __restrict__ dims,
+                     int n, int nq, int d1, int block_d, int block_n) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float norm_s[FBN + FBQ];   // |x_r|^2 of the tile's rows, |q_j|^2
+  __shared__ int cnt_w[FWARPS][FBQ];    // per warp: keep counts per query
+  __shared__ float dim_w[FWARPS][FBQ];  // per warp: dims entered per query
+  __shared__ int cnt_c[MAX_CLUSTER][FBQ];    // rank 0: each block's sums
+  __shared__ float dim_c[MAX_CLUSTER][FBQ];
+  // every block of the cluster has started before a remote store (waited on
+  // at the end, so the arrival costs nothing)
+  if constexpr (kCluster) cluster_arrive_relaxed();
+
+  const int S = slice_stride(block_d);
+  float* xs = smem;                     // (FBN, S) x slices of a dim block
+  float* qs = smem + FBN * S;           // (FBQ, S) query slices
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r = tid / FBQ, j = tid % FBQ;    // this thread's pair
+  const int row0 = blockIdx.x * FBN, qtile = blockIdx.y * FBQ;
+  const int nr = min(FBN, n - row0), nqt = min(FBQ, nq - qtile);
+  const bool aligned = ((d1 | block_d) & 3) == 0;
+  const bool vx = aligned && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool vq = aligned && (reinterpret_cast<uintptr_t>(q) & 15) == 0;
+  const int nd = (d1 + block_d - 1) / block_d;
+  auto stage = [&](int di) {            // one round trip: x and q slices
+    const int lo = di * block_d, w = min(block_d, d1 - lo);
+    stage_rows(xs, S, x + (size_t)row0 * d1 + lo, d1, nr, w, vx);
+    stage_rows(qs, S, q + (size_t)qtile * d1 + lo, d1, nqt, w, vq);
+    repro::cp_async_commit();
+  };
+  stage(0);                             // in flight during the gating
+
+  const int row = row0 + r, qi = qtile + j;
+  const int nrows = *nrows_ptr;
+  const bool row_ok = r < nr, q_ok = j < nqt;
+  const bool row_valid = row_ok && row < nrows;
+  const float tq = q_ok ? tau[qi] : -1.0f;
+  // warp 0 computes the tile's norms: lane < FBN row `lane`, else a query
+  const bool norm_ok = lane < FBN ? lane < nr : lane - FBN < nqt;
+  const float* norm_src = lane < FBN ? xs + lane * S : qs + (lane - FBN) * S;
+  float acc = 0.0f, dsum = 0.0f;
+  bool alive = false;
+  for (int di = 0; di < nd; ++di) {
+    alive = row_ok && q_ok && (acc * scales[di > 0 ? di - 1 : 0] <= tq);
+    if (alive && row_valid) dsum += widths[di];
+    if (di > 0) {
+      if (!__syncthreads_or(alive)) continue;   // tile-level early exit
+      stage(di);
+    }
+    const int w = min(block_d, d1 - di * block_d);
+    repro::cp_async_wait<0>();
+    __syncthreads();
+    if (warp == 0 && norm_ok) norm_s[lane] = fma_chain(norm_src, norm_src, w);
+    const float dot = alive ? fma_chain(xs + r * S, qs + j * S, w) : 0.0f;
+    __syncthreads();                    // norms written; slices free after
+    if (alive) acc += fmaxf((norm_s[r] - 2.0f * dot) + norm_s[FBN + j], 0.0f);
+  }
+
+  const bool kp = alive && row_valid && (acc * scales[nd - 1] <= tq);
+  if (row_ok && q_ok) {
+    partial[(size_t)row * nq + qi] = acc;
+    keep[(size_t)row * nq + qi] = kp ? 1 : 0;
+  }
+  if (!kCluster && block_n % FBN != 0) {  // the tile spans row blocks
+    if (row_ok && q_ok) {
+      const size_t o = (size_t)(row / block_n) * nq + qi;
+      if (kp) atomicAdd(&counts[o], 1);
+      if (dsum != 0.0f) atomicAdd(&dims[o], dsum);
+    }
+    return;
+  }
+  // the tile lies in one row block: its sums per query, the warp's two rows
+  // by a shuffle, then the warps in order
+  int kc = kp ? 1 : 0;
+  float ds = dsum;
+#pragma unroll
+  for (int off = FBQ; off < 32; off <<= 1) {
+    kc += __shfl_xor_sync(0xffffffffu, kc, off);
+    ds += __shfl_xor_sync(0xffffffffu, ds, off);
+  }
+  if (lane < FBQ) {
+    cnt_w[warp][lane] = kc;
+    dim_w[warp][lane] = ds;
+  }
+  __syncthreads();
+  kc = 0;
+  ds = 0.0f;
+  if (tid < FBQ) {
+#pragma unroll
+    for (int w = 0; w < FWARPS; ++w) {
+      kc += cnt_w[w][tid];
+      ds += dim_w[w][tid];
+    }
+  }
+  const size_t o = (size_t)(row0 / block_n) * nq + qtile + tid;
+  if constexpr (kCluster) {
+    // every block stores its sums into rank 0's shared memory; rank 0 adds
+    // them in rank order and stores them
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    cluster_wait();
+    if (tid < FBQ) {
+      cluster.map_shared_rank(&cnt_c[0][0], 0)[rank * FBQ + tid] = kc;
+      cluster.map_shared_rank(&dim_c[0][0], 0)[rank * FBQ + tid] = ds;
+    }
+    cluster_arrive();
+    cluster_wait();
+    if (rank == 0 && tid < nqt) {
+      const int csize = (int)cluster.num_blocks();
+      int c = 0;
+      float d = 0.0f;
+      for (int b = 0; b < csize; ++b) {
+        c += cnt_c[b][tid];
+        d += dim_c[b][tid];
+      }
+      counts[o] = c;
+      dims[o] = d;
+    }
+  } else if (tid < nqt) {
+    if (kc) atomicAdd(&counts[o], kc);
+    if (ds != 0.0f) atomicAdd(&dims[o], ds);
+  }
+}
+
+// Opt in, once per instantiation and size, above 48 KB of dynamic shared
+// memory and (clusters) above the portable cluster size, so that a launch
+// captured into a CUDA graph makes no attribute call.
+template <bool kCluster>
+cudaError_t flat_prepare(size_t smem) {
+  static bool cluster_ok = false;
+  static size_t opted_in = 48 * 1024;
+  if (kCluster && !cluster_ok) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dco_scan_flat_kernel<kCluster>,
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    cluster_ok = true;
+  }
+  if (smem > opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dco_scan_flat_kernel<kCluster>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    opted_in = smem;
+  }
+  return cudaSuccess;
+}
+
+// The cluster launch's configuration: grid, block, shared memory, stream
+// and the cluster dimension (attr must outlive cfg's use).
+cudaLaunchConfig_t cluster_config(dim3 grid, size_t smem, int csize,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(FTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = csize;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 }  // namespace
 
-// Launch on `stream`; counts and dims must be zeroed by the caller.  Each
-// returns the cudaError_t of the launch (0 on success).
+// 1 when dco_scan_launch stores counts and dims itself at this block_n (a
+// thread block cluster a row block), 0 when the caller must zero them.
+extern "C" int dco_scan_fill_free(int block_n) {
+  return flat_cluster_size(block_n) > 0;
+}
+
+// Launch on `stream`.  Each launcher returns the cudaError_t of the launch
+// (0 on success).  counts and dims must be zeroed by the caller unless
+// dco_scan_fill_free(block_n); the grouped and tiled launchers always add
+// to them.
 extern "C" int dco_scan_launch(const float* x, const float* q,
                                const float* tau, const float* scales,
                                const float* widths, const int32_t* nrows,
                                float* partial, int8_t* keep, int32_t* counts,
                                float* dims, int n, int nq, int d1,
                                int block_d, int block_n, cudaStream_t stream) {
+  const int csize = flat_cluster_size(block_n);
+  const size_t smem = flat_smem_bytes(block_d);
+  const int tiles = (n + FBN - 1) / FBN;
+  // a cluster path grid covers whole row blocks (blocks past n add zeros)
+  const dim3 grid(csize ? (tiles + csize - 1) / csize * csize : tiles,
+                  (nq + FBQ - 1) / FBQ);
+  if (csize) {
+    cudaError_t e = flat_prepare<true>(smem);
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        cluster_config(grid, smem, csize, stream, &attr);
+    e = cudaLaunchKernelEx(&cfg, dco_scan_flat_kernel<true>, x, q, tau,
+                           scales, widths, nrows, partial, keep, counts, dims,
+                           n, nq, d1, block_d, block_n);
+    const cudaError_t last = cudaGetLastError();
+    return (int)(e != cudaSuccess ? e : last);
+  }
+  const cudaError_t e = flat_prepare<false>(smem);
+  if (e != cudaSuccess) return (int)e;
+  dco_scan_flat_kernel<false><<<grid, FTHREADS, smem, stream>>>(
+      x, q, tau, scales, widths, nrows, partial, keep, counts, dims, n, nq,
+      d1, block_d, block_n);
+  return (int)cudaGetLastError();
+}
+
+// How many clusters of the fill-free launch at (block_d, block_n) the card
+// holds at once (cudaOccupancyMaxActiveClusters); 0 when block_n takes the
+// atomic path, minus the cudaError_t on failure.
+extern "C" int dco_scan_max_active_clusters(int block_d, int block_n) {
+  const int csize = flat_cluster_size(block_n);
+  if (!csize) return 0;
+  const size_t smem = flat_smem_bytes(block_d);
+  cudaError_t e = flat_prepare<true>(smem);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(dim3(csize), smem, csize, nullptr, &attr);
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(
+      &clusters, (const void*)dco_scan_flat_kernel<true>, &cfg);
+  return e != cudaSuccess ? -(int)e : clusters;
+}
+
+// The same launch through the tiled body: the earlier flat design, for
+// timing only (counts and dims zeroed by the caller).
+extern "C" int dco_scan_tiled_launch(const float* x, const float* q,
+                                     const float* tau, const float* scales,
+                                     const float* widths,
+                                     const int32_t* nrows, float* partial,
+                                     int8_t* keep, int32_t* counts,
+                                     float* dims, int n, int nq, int d1,
+                                     int block_d, int block_n,
+                                     cudaStream_t stream) {
   return launch(x, q, tau, scales, widths, nrows, partial, keep, counts, dims,
                 n, nq, FlatLayout{d1, block_d}, block_n, stream);
 }
@@ -485,7 +830,7 @@ extern "C" int dco_scan_grouped_launch(const float* x, const float* q,
   return (int)cudaGetLastError();
 }
 
-// The same layout through the flat body: the earlier grouped design, for
+// The same layout through the tiled body: the earlier grouped design, for
 // timing only (see GroupedLayout).
 extern "C" int dco_scan_grouped_tiled_launch(
     const float* x, const float* q, const float* tau, const float* scales,

@@ -20,6 +20,8 @@ The semantics are those of the reference Pallas kernels
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import _build
@@ -82,11 +84,25 @@ def _check(t, name, dtype, device):
                          f"tensor on {device}, got {t.dtype} on {t.device}")
 
 
+@functools.lru_cache(maxsize=None)
+def fill_free(block_n: int) -> bool:
+    """Whether the flat kernel stores counts and dims itself at this
+    ``block_n``: one thread block cluster of 16-row tiles covers a row
+    block, so ``block_n`` must be a multiple of 16 up to 256 rows (the
+    engine's 256 is).  Otherwise the op zeroes them first and the kernel
+    adds with atomics.  The rule lives in the kernel library
+    (``dco_scan_fill_free``); it depends on ``block_n`` alone, so the
+    answer is cached."""
+    return bool(_build.load_library().dco_scan_fill_free(block_n))
+
+
 def _launch(entry: str, x, q, tau, scales, widths, nrows, n: int, nq: int,
-            layout: tuple, block_n: int):
-    """Check the operands, allocate the outputs (counts and dims zeroed)
-    and launch ``entry`` of the kernel library on the current stream;
-    ``layout`` is (d1, block_d) or (G, dg).  Raises on a launch error."""
+            layout: tuple, block_n: int, *, zeroed: bool = True):
+    """Check the operands, allocate the outputs (counts and dims zeroed
+    when ``zeroed``, a fill the entry then adds to; else left for the
+    entry to store) and launch ``entry`` of the kernel library on the
+    current stream; ``layout`` is (d1, block_d) or (G, dg).  Raises on a
+    launch error."""
     dev = x.device
     if block_n < 1 or min(layout) < 1 or n == 0 or nq == 0:
         raise ValueError(f"{entry}: empty input or non-positive block size")
@@ -97,8 +113,9 @@ def _launch(entry: str, x, q, tau, scales, widths, nrows, n: int, nq: int,
     nb = -(-n // block_n)
     partial = torch.empty((n, nq), dtype=torch.float32, device=dev)
     keep = torch.empty((n, nq), dtype=torch.int8, device=dev)
-    zeros = torch.zeros((2, nb, nq), dtype=torch.int32, device=dev)
-    counts, dims = zeros[0], zeros[1].view(torch.float32)   # 0 bits == 0.0f
+    alloc = torch.zeros if zeroed else torch.empty
+    sums = alloc((2, nb, nq), dtype=torch.int32, device=dev)
+    counts, dims = sums[0], sums[1].view(torch.float32)     # 0 bits == 0.0f
     lib = _build.load_library()
     err = getattr(lib, entry)(
         x.data_ptr(), q.data_ptr(), tau.data_ptr(), scales.data_ptr(),
@@ -112,7 +129,9 @@ def _launch(entry: str, x, q, tau, scales, widths, nrows, n: int, nq: int,
 def dco_scan_cuda(x, q, tau, scales, widths, nrows, *, block_n: int,
                   block_d: int):
     """Launch the CUDA kernel on the current stream (no padding: ragged N,
-    Q and d1 are bound-checked inside the kernel)."""
+    Q and d1 are bound-checked inside the kernel).  At a ``block_n`` for
+    which :func:`fill_free` holds (the engine's), the op is the kernel
+    alone: one device operation, no zero fill."""
     global launches
     n, d1 = x.shape
     nq = q.shape[0]
@@ -125,7 +144,7 @@ def dco_scan_cuda(x, q, tau, scales, widths, nrows, *, block_n: int,
             f"{tuple(scales.shape)}, widths {tuple(widths.shape)} for "
             f"block_d={block_d}")
     out = _launch("dco_scan_launch", x, q, tau, scales, widths, nrows, n, nq,
-                  (d1, block_d), block_n)
+                  (d1, block_d), block_n, zeroed=not fill_free(block_n))
     launches += 1
     return out
 

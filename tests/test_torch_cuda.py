@@ -237,3 +237,100 @@ def test_dco_scan_grouped_kernel_liveness_patterns(cuda_device, pattern, n,
     if pattern == "revive":         # some pairs did enter group 2
         assert float(want[3].sum()) > float(
             widths[0] * (n - n // 7) * (tau >= 0).sum())
+
+
+#: (n, q, d1, block_n): the engine's block_n = 256 (the fill-free cluster
+#: path) and 48 (a 3-block cluster), and 24, 40 (tiles that span row
+#: blocks) and 512 (more than 16 tiles a row block) on the atomic path;
+#: ragged n, and nd > 1 at d1 = 130 and 256
+FLAT_BLOCK_N_CASES = [(4096 - 333, 16, 128, 256), (300, 17, 130, 256),
+                      (1000, 5, 256, 256), (700, 16, 96, 48),
+                      (1000, 17, 130, 24), (333, 9, 256, 40),
+                      (1500, 33, 130, 512), (4096, 16, 128, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q,d1,block_n", FLAT_BLOCK_N_CASES)
+def test_dco_scan_kernel_block_n_paths(cuda_device, n, q, d1, block_n):
+    """Both ways counts and dims are written (stored by a cluster a row
+    block, or added to a zero fill with atomics) give the plain version's
+    four outputs bit for bit on integer-valued inputs."""
+    rng = np.random.default_rng(_seed("cuda-block-n", n, q, d1, block_n))
+    x = rng.integers(-4, 5, (n, d1)).astype(np.float32)
+    qq = rng.integers(-4, 5, (q, d1)).astype(np.float32)
+    tau = rng.uniform(d1 * 2.0, d1 * 10.0, q).astype(np.float32)
+    tau[::5] = -1.0
+    sc = ref.make_dco_scales("adsampling", d1, 128, D=2 * d1,
+                             device=cuda_device)
+    xt, qt, taut = _t(x, qq, tau, device=cuda_device)
+    nr = torch.tensor([n - n // 7], dtype=torch.int32, device=cuda_device)
+    assert dco_mod.fill_free(block_n) == (block_n in (48, 256))
+    got = ops.dco_scan_op(xt, qt, taut, sc, nr, block_n=block_n)
+    want = dco_mod.dco_scan_plain(xt, qt, taut, sc, ops._widths(
+        d1, 128, cuda_device), nr, block_n=block_n, block_d=128)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q,G,d1", [(4096, 16, 2, 256), (300, 17, 3, 300),
+                                      (257, 40, 3, 330)])
+@pytest.mark.parametrize("pattern", ["all_alive", "all_dead", "one_row",
+                                     "revive"])
+def test_dco_scan_kernel_liveness_patterns(cuda_device, pattern, n, q, G,
+                                           d1):
+    """The grouped liveness patterns laid out flat (dim block b of 128 dims
+    = group b): tiles all alive, all dead after dim block 0 (the tile-level
+    skip fires), alive in one row a 16-row tile, and pairs that come back
+    to life when the scales drop; tau = -1 queries and ragged nrows: bit
+    for bit against the plain version."""
+    rng = np.random.default_rng(_seed("cuda-flat-pattern", pattern, n, q, G))
+    xg, qg, tau, _, live_rows = _patterned_grouped(pattern, n, q, G, 128, d1,
+                                                   rng)
+    x = np.ascontiguousarray(xg.transpose(1, 0, 2).reshape(n, -1)[:, :d1])
+    qq = np.ascontiguousarray(qg.transpose(1, 0, 2).reshape(q, -1)[:, :d1])
+    sc = torch.ones(G)
+    if pattern == "revive":
+        sc[1:] = 2.0 ** -12
+    nr = torch.tensor([n - n // 7], dtype=torch.int32)
+    cpu = _t(x, qq, tau)
+    p0 = ops.dco_scan_op(cpu[0][:, :128], cpu[1][:, :128], cpu[2], sc[:1],
+                         block_d=128)[0]
+    np.testing.assert_array_equal(
+        (p0 <= cpu[2][None, :]).any(1).numpy(), live_rows)
+    got = ops.dco_scan_op(*(t.to(cuda_device) for t in cpu),
+                          sc.to(cuda_device), nr.to(cuda_device))
+    want = ops.dco_scan_op(*cpu, sc, nr)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_n,ops_expected", [(256, 1), (512, 2)])
+def test_dco_scan_op_device_operations(cuda_device, block_n, ops_expected):
+    """One dco_scan_op call at the main path's shape (4096 x 16 x 128), with
+    nrows a device int32 tensor and the scales a contiguous f32 tensor of
+    length nd, as the engine passes them, runs the kernel alone at the
+    engine's block_n = 256 (no zero fill), and the fill plus the kernel at
+    block_n = 512."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=cuda_device).manual_seed(_seed("ops", 1))
+    x = torch.randn(4096, 128, device=cuda_device, generator=gen)
+    qq = torch.randn(16, 128, device=cuda_device, generator=gen)
+    tau = torch.rand(16, device=cuda_device, generator=gen) * 300
+    sc = torch.ones(1, device=cuda_device)
+    nr = torch.tensor([4096], dtype=torch.int32, device=cuda_device)
+    ops.dco_scan_op(x, qq, tau, sc, nr, block_n=block_n)   # build, caches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ops.dco_scan_op(x, qq, tau, sc, nr, block_n=block_n)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    names = [e.key for e in prof.key_averages()
+             for _ in range(e.count)
+             if getattr(e, "device_type", None) == cuda]
+    assert len(names) == ops_expected, names
+    assert any("dco_scan_flat_kernel" in k for k in names), names
