@@ -414,20 +414,25 @@ def inline_agreement(sess, Q, res, dev):
     return agree, other.ids
 
 
-def device_ops(fn) -> list:
-    """The names of the device operations one call of ``fn`` runs
-    (torch.profiler; ``fn`` warmed up first)."""
+def device_ops(fn) -> int:
+    """The device operations one call of ``fn`` issues: the nodes of a CUDA
+    graph that captures it (``fn`` warmed up first).  A graph, unlike a
+    profiler session, sees every operation whatever ran before it."""
+    import ctypes
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
         fn()
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    return [e.key for e in prof.key_averages() for _ in range(e.count)
-            if getattr(e, "device_type", None) == cuda]
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    libcuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.POINTER(ctypes.c_size_t)]
+    count = ctypes.c_size_t(0)
+    err = libcuda.cuGraphGetNodes(graph.raw_cuda_graph(), None,
+                                  ctypes.byref(count))
+    check(err == 0, f"cuGraphGetNodes failed ({err})")
+    return count.value
 
 
 def time_dco_scan(sess, Q, res, dev):
@@ -475,9 +480,9 @@ def time_dco_scan(sess, Q, res, dev):
                           got):
         check(torch.equal(o, g), f"the earlier dco_scan design differs in "
               f"{name} at the main path's inputs")
-    names = device_ops(op)
-    check(len(names) == 1 and "dco_scan_flat_kernel" in names[0],
-          f"dco_scan_op at the main shape is not the kernel alone: {names}")
+    nodes = device_ops(op)
+    check(nodes == 1, f"dco_scan_op at the main shape is {nodes} device "
+          "operations, not the kernel alone")
     clusters = _build.load_library().dco_scan_max_active_clusters(block_d,
                                                                   256)
     # the product only, not the function: no gating, no clamp, no outputs
@@ -503,7 +508,7 @@ def time_dco_scan(sess, Q, res, dev):
     log("kernel_timing", kernel="dco_scan", shape=[n, nq, d1], ms=ms,
         earlier_design_ms=earlier, product_only_addmm_ms=product_ms,
         plain_ms=plain, eager_call_ms=call, bound_ms=bms, bound_by=by,
-        bytes=nbytes, flops=flops, max_abs_err=err, device_ops=names,
+        bytes=nbytes, flops=flops, max_abs_err=err, device_ops=nodes,
         max_active_clusters=clusters, clusters_launched=nb)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "library_ms": None,

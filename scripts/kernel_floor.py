@@ -24,6 +24,11 @@ a replayed CUDA graph (chip_smoke.cuda_ms):
                         shape, block_n 256): the kernel alone, no fill;
   flat_kernel_no_live   the flat kernel with every tau = -1 (staging,
                         norms, the writes and the cluster's sums only);
+  flat_kernel_atomic    the same body at block_n = 512, which takes no
+                        cluster and adds its sums with atomics to
+                        outputs zeroed beforehand (the fill not timed):
+                        what the cluster costs;
+  flat_kernel_atomic_no_live  the same with every tau = -1;
   flat_tiled            the earlier flat design (zero fill + kernel, as
                         its op issued it);
   pq_op                 pq_lookup_op at 4096 x 16 uint8 codes, K = 256.
@@ -68,15 +73,13 @@ def main() -> int:
     keep = torch.empty((n, nq), dtype=torch.int8, device=dev)
     zeros = torch.zeros((2, nb, nq), dtype=torch.int32, device=dev)
 
-    def kernel(entry, t=tau, groups=G, xx=x, qq=q, layout=None):
-        layout = layout or (groups, dg)
-
+    def kernel(entry, t=tau, xx=x, qq=q, layout=(G, dg), block_n=256):
         def launch():
             _build.check(lib, getattr(lib, entry)(
                 xx.data_ptr(), qq.data_ptr(), t.data_ptr(), sc.data_ptr(),
                 widths.data_ptr(), nr.data_ptr(), partial.data_ptr(),
                 keep.data_ptr(), zeros[0].data_ptr(), zeros[1].data_ptr(),
-                n, nq, *layout, 256,
+                n, nq, *layout, block_n,
                 torch.cuda.current_stream().cuda_stream), entry)
         return launch
 
@@ -98,7 +101,8 @@ def main() -> int:
         "grouped_kernel": kernel("dco_scan_grouped_launch"),
         "grouped_kernel_no_live": kernel("dco_scan_grouped_launch",
                                          t=torch.full_like(tau, -1.0)),
-        "grouped_kernel_g1": kernel("dco_scan_grouped_launch", groups=1),
+        "grouped_kernel_g1": kernel("dco_scan_grouped_launch",
+                                    layout=(1, dg)),
         "grouped_kernel_all_alive": kernel("dco_scan_grouped_launch",
                                            t=torch.full_like(tau, 1e9)),
         "tiled_kernel": kernel("dco_scan_grouped_tiled_launch"),
@@ -107,6 +111,11 @@ def main() -> int:
         "flat_kernel_no_live": kernel("dco_scan_launch", xx=xf, qq=qf,
                                       t=torch.full_like(tau, -1.0),
                                       layout=(G * dg, G * dg)),
+        "flat_kernel_atomic": kernel("dco_scan_launch", xx=xf, qq=qf,
+                                     layout=(G * dg, G * dg), block_n=512),
+        "flat_kernel_atomic_no_live": kernel(
+            "dco_scan_launch", xx=xf, qq=qf, t=torch.full_like(tau, -1.0),
+            layout=(G * dg, G * dg), block_n=512),
         "flat_tiled": lambda: dco_mod._launch(
             "dco_scan_tiled_launch", xf, qf, tau, sc1, w1, nr, n, nq,
             (G * dg, G * dg), 256),

@@ -25,32 +25,38 @@
 // Flat body (dco_scan_flat_kernel).  What held the first flat design (the
 // tiled body below) back at the main path's shape (4096 rows x 16 queries x
 // 128 dims, nd = 1) was fixed cost and serial latency, not work: 128
-// blocks on 132 SMs with nothing to hide a stall, four global round trips
-// a dim block (32-dim slices, scalar loads, a barrier each) and a zero fill
-// of counts and dims before every launch, for atomics.  This body:
-//   1. covers FBN x FBQ = 16 x 16 tiles, one (row, query) pair per thread
-//      with its partial in a register across the dim loop: 256 blocks at
-//      the main shape, two per SM;
-//   2. stages a dim block's whole tile (the 16 rows' and the 16 queries'
-//      block_d-wide slices, 8 KB each at block_d = 128) in one cp.async
-//      round trip, with 16-byte copies when d1 and block_d are multiples of
-//      4.  Dim block 0 is in flight during the gating; for a later block
-//      the tile-level skip (__syncthreads_or over its live pairs) decides
-//      first whether it is loaded at all.  No prefetch: the main path has
-//      one dim block;
+// blocks on 132 SMs, four global round trips a dim block (32-dim slices,
+// scalar loads, a barrier each) and a zero fill of counts and dims before
+// every launch, for atomics.  This body:
+//   1. covers FBN x FBQ = 32 x 16 tiles with 128 threads, each thread 2
+//      rows x 2 queries with their partials in registers across the dim
+//      loop.  One pair a thread (16 x 16 tiles, 256 threads) spent its time
+//      in shared-memory loads, two 16-byte loads for four FMAs; a 2 x 2
+//      block of pairs loads four for sixteen, and 32-row tiles read the
+//      queries from L2 half as often;
+//   2. stages a dim block's whole tile (the 32 rows' and the 16 queries'
+//      block_d-wide slices, 16 KB and 8 KB at block_d = 128) in one cp.async
+//      round trip, 16-byte copies when d1 and block_d are multiples of 4.
+//      Dim block 0 is in flight during the gating; for a later block the
+//      tile-level skip (__syncthreads_or over its live pairs) decides first
+//      whether it is loaded at all.  No prefetch of the next dim block: the
+//      main path has one;
 //   3. keeps the per-pair arithmetic of the tiled and grouped bodies: xn,
 //      dot and qn as sequential fmaf chains over c, then
 //      max(0, (xn - 2 dot) + qn), so the integer-valued parity stays exact
-//      and the grouped body at G = 1 agrees bit for bit.  A row's |x|^2 and
-//      a query's |q|^2 are the same chain whichever thread runs it, so warp
-//      0 computes the tile's 32 norms once and each pair runs its dot alone;
+//      and the grouped body at G = 1 agrees bit for bit.  A thread runs the
+//      eight chains of its 2 x 2 pairs side by side, its shared loads one
+//      step ahead;
 //   4. writes counts and dims without a zero fill: when block_n is a
-//      multiple of FBN up to MAX_CLUSTER tiles, one thread block cluster
-//      covers one row block.  Each block sums its keep counts and dims per
-//      query, stores them into rank 0's shared memory (distributed shared
-//      memory), and rank 0 adds the cluster's sums in rank order and stores
-//      them: the op is the kernel alone.  Any other block_n takes the
-//      caller's zero fill and atomics (dco_scan_fill_free says which).
+//      multiple of FBN up to MAX_CLUSTER (8, the portable size) tiles, one
+//      thread block cluster covers one row block.  Each block sums its keep
+//      counts and dims per query, stores them into rank 0's shared memory
+//      (distributed shared memory), and rank 0 adds the cluster's sums in
+//      rank order and stores them: the op is the kernel alone.  Any other
+//      block_n takes the caller's zero fill and atomics (dco_scan_fill_free
+//      says which).  The cluster costs time of its own: the GPCs' sizes
+//      likely leave some SMs with two blocks of a launch of 8-block
+//      clusters.
 // All arithmetic is fp32 FMA: TF32 tensor cores would move screening
 // decisions.  Bound: at the main shape one launch must read 2.1 MB and
 // write 0.33 MB, 0.73 us of HBM time, while its 17 MFLOP take 0.25 us at
@@ -477,12 +483,16 @@ dco_scan_grouped_kernel(const float* __restrict__ x,
 
 // ---- flat body -------------------------------------------------------------
 
-constexpr int FBN = 16;                 // rows per tile
+constexpr int FBN = 32;                 // rows per tile
 constexpr int FBQ = 16;                 // queries per tile
-constexpr int FTHREADS = FBN * FBQ;     // one (row, query) pair per thread
+constexpr int RPT = 2;                  // rows per thread: rg, rg + FRG
+constexpr int QPT = 2;                  // queries per thread: qg, qg + FQG
+constexpr int FRG = FBN / RPT;          // row groups
+constexpr int FQG = FBQ / QPT;          // query groups
+constexpr int FTHREADS = FRG * FQG;     // 128: each thread 2 x 2 pairs
 constexpr int FWARPS = FTHREADS / 32;
-constexpr int MAX_CLUSTER = 16;         // above 8 a non-portable cluster size
-static_assert(32 % FBQ == 0 && FBN + FBQ == 32, "warp 0 runs one norm a lane");
+constexpr int MAX_CLUSTER = 8;          // the portable cluster size
+static_assert(32 % FQG == 0 && FTHREADS % 32 == 0, "a warp covers whole rows");
 
 // Blocks per cluster when one thread block cluster covers a row block of
 // block_n rows (block_n a multiple of FBN, at most MAX_CLUSTER tiles): the
@@ -512,47 +522,101 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // Stage the w-wide slices of rows [0, nr), row i from src + i * ld to
-// dst + i * S: 16-byte copies when `vec` (src and ld 16-byte aligned), and
-// 4-byte copies for the rest of a row.
+// dst + i * S: 16-byte copies when `vec` (src, ld and w multiples of 4
+// floats), else 4-byte copies.
 __device__ __forceinline__ void stage_rows(float* dst, int S, const float* src,
                                            size_t ld, int nr, int w,
                                            bool vec) {
-  const int w4 = vec ? w >> 2 : 0;
-  const int per = w4 + (w - 4 * w4);     // copies a row
+  const int step = vec ? 4 : 1;
+  const int per = w / step;              // copies a row
   for (int i = threadIdx.x; i < nr * per; i += FTHREADS) {
-    const int r = i / per, k = i - r * per;
-    const float* s = src + r * ld;
-    float* d = dst + r * S;
-    if (k < w4) {
-      repro::cp_async16(d + 4 * k, s + 4 * k);
-    } else {
-      const int c = 4 * w4 + (k - w4);
-      repro::cp_async4(d + c, s + c);
-    }
+    const int r = i / per, c = (i - r * per) * step;
+    if (vec)
+      repro::cp_async16(dst + r * S + c, src + r * ld + c);
+    else
+      repro::cp_async4(dst + r * S + c, src + r * ld + c);
   }
 }
 
-// sum_c a[c] * b[c] as one sequential fmaf chain over c = 0..w-1, the order
-// of each of clamped_contrib's three sums (a, b 16-byte aligned).
-__device__ __forceinline__ float fma_chain(const float* a, const float* b,
-                                           int w) {
-  float s = 0.0f;
-  int c = 0;
-#pragma unroll 4
-  for (; c + 4 <= w; c += 4) {
-    const float4 av = *reinterpret_cast<const float4*>(a + c);
-    const float4 bv = *reinterpret_cast<const float4*>(b + c);
-    s = fmaf(av.x, bv.x, s);
-    s = fmaf(av.y, bv.y, s);
-    s = fmaf(av.z, bv.z, s);
-    s = fmaf(av.w, bv.w, s);
+// One dim block of a thread's 2 x 2 pairs from shared memory: x rows xr,
+// xr + FRG * S and query rows qr, qr + FQG * S, w dims.  Each of the eight
+// sums (four dots, two |x|^2, two |q|^2) is one sequential fmaf chain over
+// c = 0..w-1, the order of clamped_contrib's; the 16-byte loads run one
+// step ahead of the FMAs.
+__device__ __forceinline__ void pair_sums(const float* xr, const float* qr,
+                                          int S, int w, float (&xn)[RPT],
+                                          float (&qn)[QPT],
+                                          float (&dot)[RPT][QPT]) {
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) xn[i] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < QPT; ++k) qn[k] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int k = 0; k < QPT; ++k) dot[i][k] = 0.0f;
+  auto load = [&](int c, float4 (&xv)[RPT], float4 (&qv)[QPT]) {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+      xv[i] = *reinterpret_cast<const float4*>(xr + i * FRG * S + c);
+#pragma unroll
+    for (int k = 0; k < QPT; ++k)
+      qv[k] = *reinterpret_cast<const float4*>(qr + k * FQG * S + c);
+  };
+  const int w4 = w & ~3;
+  float4 xv[RPT], qv[QPT];
+  if (w4) load(0, xv, qv);
+#pragma unroll 2
+  for (int c = 0; c < w4; c += 4) {
+    float4 xw[RPT], qw[QPT];
+    load(c + 4 < w4 ? c + 4 : c, xw, qw);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const float a[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) xn[i] = fmaf(a[u], a[u], xn[i]);
+    }
+#pragma unroll
+    for (int k = 0; k < QPT; ++k) {
+      const float b[4] = {qv[k].x, qv[k].y, qv[k].z, qv[k].w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) qn[k] = fmaf(b[u], b[u], qn[k]);
+    }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int k = 0; k < QPT; ++k) {
+        dot[i][k] = fmaf(xv[i].x, qv[k].x, dot[i][k]);
+        dot[i][k] = fmaf(xv[i].y, qv[k].y, dot[i][k]);
+        dot[i][k] = fmaf(xv[i].z, qv[k].z, dot[i][k]);
+        dot[i][k] = fmaf(xv[i].w, qv[k].w, dot[i][k]);
+      }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) xv[i] = xw[i];
+#pragma unroll
+    for (int k = 0; k < QPT; ++k) qv[k] = qw[k];
   }
-  for (; c < w; ++c) s = fmaf(a[c], b[c], s);
-  return s;
+  for (int c = w4; c < w; ++c) {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const float a = xr[i * FRG * S + c];
+      xn[i] = fmaf(a, a, xn[i]);
+    }
+#pragma unroll
+    for (int k = 0; k < QPT; ++k) {
+      const float b = qr[k * FQG * S + c];
+      qn[k] = fmaf(b, b, qn[k]);
+    }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int k = 0; k < QPT; ++k)
+        dot[i][k] = fmaf(xr[i * FRG * S + c], qr[k * FQG * S + c], dot[i][k]);
+  }
 }
 
 template <bool kCluster>
-__global__ void __launch_bounds__(FTHREADS, 2)
+__global__ void __launch_bounds__(FTHREADS)
 dco_scan_flat_kernel(const float* __restrict__ x, const float* __restrict__ q,
                      const float* __restrict__ tau,
                      const float* __restrict__ scales,
@@ -562,7 +626,6 @@ dco_scan_flat_kernel(const float* __restrict__ x, const float* __restrict__ q,
                      int32_t* __restrict__ counts, float* __restrict__ dims,
                      int n, int nq, int d1, int block_d, int block_n) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ float norm_s[FBN + FBQ];   // |x_r|^2 of the tile's rows, |q_j|^2
   __shared__ int cnt_w[FWARPS][FBQ];    // per warp: keep counts per query
   __shared__ float dim_w[FWARPS][FBQ];  // per warp: dims entered per query
   __shared__ int cnt_c[MAX_CLUSTER][FBQ];    // rank 0: each block's sums
@@ -575,8 +638,8 @@ dco_scan_flat_kernel(const float* __restrict__ x, const float* __restrict__ q,
   float* xs = smem;                     // (FBN, S) x slices of a dim block
   float* qs = smem + FBN * S;           // (FBQ, S) query slices
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int r = tid / FBQ, j = tid % FBQ;    // this thread's pair
-  const int row0 = blockIdx.x * FBN, qtile = blockIdx.y * FBQ;
+  const int rg = tid / FQG, qg = tid % FQG;  // rows rg + i FRG, queries
+  const int row0 = blockIdx.x * FBN, qtile = blockIdx.y * FBQ;  // qg + k FQG
   const int nr = min(FBN, n - row0), nqt = min(FBQ, nq - qtile);
   const bool aligned = ((d1 | block_d) & 3) == 0;
   const bool vx = aligned && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
@@ -590,66 +653,108 @@ dco_scan_flat_kernel(const float* __restrict__ x, const float* __restrict__ q,
   };
   stage(0);                             // in flight during the gating
 
-  const int row = row0 + r, qi = qtile + j;
   const int nrows = *nrows_ptr;
-  const bool row_ok = r < nr, q_ok = j < nqt;
-  const bool row_valid = row_ok && row < nrows;
-  const float tq = q_ok ? tau[qi] : -1.0f;
-  // warp 0 computes the tile's norms: lane < FBN row `lane`, else a query
-  const bool norm_ok = lane < FBN ? lane < nr : lane - FBN < nqt;
-  const float* norm_src = lane < FBN ? xs + lane * S : qs + (lane - FBN) * S;
-  float acc = 0.0f, dsum = 0.0f;
-  bool alive = false;
+  bool row_ok[RPT], row_valid[RPT], q_ok[QPT];
+  float tq[QPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = rg + i * FRG;
+    row_ok[i] = r < nr;
+    row_valid[i] = row_ok[i] && row0 + r < nrows;
+  }
+#pragma unroll
+  for (int k = 0; k < QPT; ++k) {
+    const int j = qg + k * FQG;
+    q_ok[k] = j < nqt;
+    tq[k] = q_ok[k] ? tau[qtile + j] : -1.0f;
+  }
+  float acc[RPT][QPT], dsum[RPT][QPT];
+  bool alive[RPT][QPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int k = 0; k < QPT; ++k) {
+      acc[i][k] = dsum[i][k] = 0.0f;
+      alive[i][k] = false;
+    }
   for (int di = 0; di < nd; ++di) {
-    alive = row_ok && q_ok && (acc * scales[di > 0 ? di - 1 : 0] <= tq);
-    if (alive && row_valid) dsum += widths[di];
+    const float prev = scales[di > 0 ? di - 1 : 0];
+    const float width = widths[di];
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int k = 0; k < QPT; ++k) {
+        alive[i][k] = row_ok[i] && q_ok[k] && (acc[i][k] * prev <= tq[k]);
+        if (alive[i][k] && row_valid[i]) dsum[i][k] += width;
+        any |= alive[i][k];
+      }
     if (di > 0) {
-      if (!__syncthreads_or(alive)) continue;   // tile-level early exit
+      if (!__syncthreads_or(any)) continue;   // tile-level early exit
       stage(di);
     }
-    const int w = min(block_d, d1 - di * block_d);
     repro::cp_async_wait<0>();
     __syncthreads();
-    if (warp == 0 && norm_ok) norm_s[lane] = fma_chain(norm_src, norm_src, w);
-    const float dot = alive ? fma_chain(xs + r * S, qs + j * S, w) : 0.0f;
-    __syncthreads();                    // norms written; slices free after
-    if (alive) acc += fmaxf((norm_s[r] - 2.0f * dot) + norm_s[FBN + j], 0.0f);
+    if (any) {
+      float xn[RPT], qn[QPT], dot[RPT][QPT];
+      pair_sums(xs + rg * S, qs + qg * S, S, min(block_d, d1 - di * block_d),
+                xn, qn, dot);
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int k = 0; k < QPT; ++k)
+          if (alive[i][k])
+            acc[i][k] += fmaxf((xn[i] - 2.0f * dot[i][k]) + qn[k], 0.0f);
+    }
+    __syncthreads();                    // the slices are free after this
   }
 
-  const bool kp = alive && row_valid && (acc * scales[nd - 1] <= tq);
-  if (row_ok && q_ok) {
-    partial[(size_t)row * nq + qi] = acc;
-    keep[(size_t)row * nq + qi] = kp ? 1 : 0;
-  }
-  if (!kCluster && block_n % FBN != 0) {  // the tile spans row blocks
-    if (row_ok && q_ok) {
-      const size_t o = (size_t)(row / block_n) * nq + qi;
-      if (kp) atomicAdd(&counts[o], 1);
-      if (dsum != 0.0f) atomicAdd(&dims[o], dsum);
-    }
-    return;
-  }
-  // the tile lies in one row block: its sums per query, the warp's two rows
-  // by a shuffle, then the warps in order
-  int kc = kp ? 1 : 0;
-  float ds = dsum;
+  const float last = scales[nd - 1];
+  const bool spans = !kCluster && block_n % FBN != 0;  // tile in two blocks
+  int kc[QPT] = {};
+  float ds[QPT] = {};
 #pragma unroll
-  for (int off = FBQ; off < 32; off <<= 1) {
-    kc += __shfl_xor_sync(0xffffffffu, kc, off);
-    ds += __shfl_xor_sync(0xffffffffu, ds, off);
-  }
-  if (lane < FBQ) {
-    cnt_w[warp][lane] = kc;
-    dim_w[warp][lane] = ds;
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int k = 0; k < QPT; ++k) {
+      const bool kp = alive[i][k] && row_valid[i] && (acc[i][k] * last <= tq[k]);
+      if (!row_ok[i] || !q_ok[k]) continue;
+      const int row = row0 + rg + i * FRG, qi = qtile + qg + k * FQG;
+      partial[(size_t)row * nq + qi] = acc[i][k];
+      keep[(size_t)row * nq + qi] = kp ? 1 : 0;
+      if (spans) {
+        const size_t o = (size_t)(row / block_n) * nq + qi;
+        if (kp) atomicAdd(&counts[o], 1);
+        if (dsum[i][k] != 0.0f) atomicAdd(&dims[o], dsum[i][k]);
+      }
+      kc[k] += kp ? 1 : 0;
+      ds[k] += dsum[i][k];
+    }
+  if (spans) return;
+  // the tile lies in one row block: its sums per query, the warp's rows by
+  // shuffles, then the warps in order
+#pragma unroll
+  for (int k = 0; k < QPT; ++k)
+#pragma unroll
+    for (int off = FQG; off < 32; off <<= 1) {
+      kc[k] += __shfl_xor_sync(0xffffffffu, kc[k], off);
+      ds[k] += __shfl_xor_sync(0xffffffffu, ds[k], off);
+    }
+  if (lane < FQG) {
+#pragma unroll
+    for (int k = 0; k < QPT; ++k) {
+      cnt_w[warp][lane + k * FQG] = kc[k];
+      dim_w[warp][lane + k * FQG] = ds[k];
+    }
   }
   __syncthreads();
-  kc = 0;
-  ds = 0.0f;
+  int bc = 0;
+  float bd = 0.0f;
   if (tid < FBQ) {
 #pragma unroll
     for (int w = 0; w < FWARPS; ++w) {
-      kc += cnt_w[w][tid];
-      ds += dim_w[w][tid];
+      bc += cnt_w[w][tid];
+      bd += dim_w[w][tid];
     }
   }
   const size_t o = (size_t)(row0 / block_n) * nq + qtile + tid;
@@ -661,8 +766,8 @@ dco_scan_flat_kernel(const float* __restrict__ x, const float* __restrict__ q,
     const int rank = (int)cluster.block_rank();
     cluster_wait();
     if (tid < FBQ) {
-      cluster.map_shared_rank(&cnt_c[0][0], 0)[rank * FBQ + tid] = kc;
-      cluster.map_shared_rank(&dim_c[0][0], 0)[rank * FBQ + tid] = ds;
+      cluster.map_shared_rank(&cnt_c[0][0], 0)[rank * FBQ + tid] = bc;
+      cluster.map_shared_rank(&dim_c[0][0], 0)[rank * FBQ + tid] = bd;
     }
     cluster_arrive();
     cluster_wait();
@@ -678,25 +783,16 @@ dco_scan_flat_kernel(const float* __restrict__ x, const float* __restrict__ q,
       dims[o] = d;
     }
   } else if (tid < nqt) {
-    if (kc) atomicAdd(&counts[o], kc);
-    if (ds != 0.0f) atomicAdd(&dims[o], ds);
+    if (bc) atomicAdd(&counts[o], bc);
+    if (bd != 0.0f) atomicAdd(&dims[o], bd);
   }
 }
 
-// Opt in, once per instantiation and size, above 48 KB of dynamic shared
-// memory and (clusters) above the portable cluster size, so that a launch
-// captured into a CUDA graph makes no attribute call.
+// Opt in above 48 KB of dynamic shared memory, once per instantiation and
+// size, so that a launch captured into a CUDA graph makes no attribute call.
 template <bool kCluster>
 cudaError_t flat_prepare(size_t smem) {
-  static bool cluster_ok = false;
   static size_t opted_in = 48 * 1024;
-  if (kCluster && !cluster_ok) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        dco_scan_flat_kernel<kCluster>,
-        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return e;
-    cluster_ok = true;
-  }
   if (smem > opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
         dco_scan_flat_kernel<kCluster>,

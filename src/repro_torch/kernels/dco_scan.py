@@ -87,8 +87,8 @@ def _check(t, name, dtype, device):
 @functools.lru_cache(maxsize=None)
 def fill_free(block_n: int) -> bool:
     """Whether the flat kernel stores counts and dims itself at this
-    ``block_n``: one thread block cluster of 16-row tiles covers a row
-    block, so ``block_n`` must be a multiple of 16 up to 256 rows (the
+    ``block_n``: one thread block cluster of 32-row tiles covers a row
+    block, so ``block_n`` must be a multiple of 32 up to 256 rows (the
     engine's 256 is).  Otherwise the op zeroes them first and the kernel
     adds with atomics.  The rule lives in the kernel library
     (``dco_scan_fill_free``); it depends on ``block_n`` alone, so the

@@ -240,13 +240,14 @@ def test_dco_scan_grouped_kernel_liveness_patterns(cuda_device, pattern, n,
 
 
 #: (n, q, d1, block_n): the engine's block_n = 256 (the fill-free cluster
-#: path) and 48 (a 3-block cluster), and 24, 40 (tiles that span row
-#: blocks) and 512 (more than 16 tiles a row block) on the atomic path;
+#: path) and 64 (a 2-block cluster), and 24, 40, 48 (tiles that span row
+#: blocks) and 512 (more than 8 tiles a row block) on the atomic path;
 #: ragged n, and nd > 1 at d1 = 130 and 256
 FLAT_BLOCK_N_CASES = [(4096 - 333, 16, 128, 256), (300, 17, 130, 256),
-                      (1000, 5, 256, 256), (700, 16, 96, 48),
-                      (1000, 17, 130, 24), (333, 9, 256, 40),
-                      (1500, 33, 130, 512), (4096, 16, 128, 512)]
+                      (1000, 5, 256, 256), (700, 16, 96, 64),
+                      (700, 16, 96, 48), (1000, 17, 130, 24),
+                      (333, 9, 256, 40), (1500, 33, 130, 512),
+                      (4096, 16, 128, 512)]
 
 
 @pytest.mark.cuda
@@ -264,7 +265,7 @@ def test_dco_scan_kernel_block_n_paths(cuda_device, n, q, d1, block_n):
                              device=cuda_device)
     xt, qt, taut = _t(x, qq, tau, device=cuda_device)
     nr = torch.tensor([n - n // 7], dtype=torch.int32, device=cuda_device)
-    assert dco_mod.fill_free(block_n) == (block_n in (48, 256))
+    assert dco_mod.fill_free(block_n) == (block_n in (64, 256))
     got = ops.dco_scan_op(xt, qt, taut, sc, nr, block_n=block_n)
     want = dco_mod.dco_scan_plain(xt, qt, taut, sc, ops._widths(
         d1, 128, cuda_device), nr, block_n=block_n, block_d=128)
@@ -282,7 +283,7 @@ def test_dco_scan_kernel_liveness_patterns(cuda_device, pattern, n, q, G,
                                            d1):
     """The grouped liveness patterns laid out flat (dim block b of 128 dims
     = group b): tiles all alive, all dead after dim block 0 (the tile-level
-    skip fires), alive in one row a 16-row tile, and pairs that come back
+    skip fires), alive in one row in 16, and pairs that come back
     to life when the scales drop; tau = -1 queries and ragged nrows: bit
     for bit against the plain version."""
     rng = np.random.default_rng(_seed("cuda-flat-pattern", pattern, n, q, G))
