@@ -17,10 +17,29 @@ Phases, one JSON line each:
   5. pdx      the same PDScanning+ method, unrefitted, served from the PDX
               layout (SchedulePolicy(dim_groups=4), dco_scan_grouped) with
               the same record, its ids held against the flat path's;
-  6. rules    all 8 methods at 100k x 960 with the same queries, and each
+  6. ivf      an IVF index over the 1M corpus (n_list = 4096, the 4 sqrt(N)
+              rule of Faiss's wiki for about 1M vectors; nprobe = 64) built
+              on the host, served on the card by the same fitted
+              PDScanning+ (flat: dco_scan; PDX: dco_scan_grouped) and
+              DDCopq (pq_lookup) with a completion budget of a whole row
+              block (IVF_BLOCK_CAPACITY), and the flat PDScanning+ again at
+              the default budget: build seconds, QPS, recall, candidates
+              and row blocks hit per query chunk, launches; PDScanning+'s
+              ids held against the port's host IVF (IVFIndex.search through
+              scan_topk) for every query, and 0 uncertified at the row
+              block's budget;
+  7. delta    the LSM write path: PDScanning+ fitted on 1M - 4,096 rows,
+              the last 4,096 added (the "delta" mode), its ids held against
+              a freshly materialized session on the same method, the next
+              add a "merge"; then an IVF delta at 100k rows (n_list = 64,
+              nprobe = n_list) held against the host IVF;
+  8. two_stage the 1M PDScanning+ on engine="two_stage" (no kernel): QPS,
+              recall, per-query survivors against its capacity, ids held
+              against the streaming engine's where nothing was cut;
+  9. rules    all 8 methods at 100k x 960 with the same queries, and each
               method that groups again at dim_groups = 4 (and PDScanning+
               on the inline R-cut path);
-  7. profile  for each 1M session (flat, PDX, DDCopq), served again from
+ 10. profile  for each 1M session (flat, PDX, DDCopq), served again from
               its fitted method: one batch under torch.profiler (device
               operations, zero fills, CUDA runtime calls, device-busy share
               against the phase's unprofiled wall), then its kernel's time
@@ -38,7 +57,9 @@ Phases, one JSON line each:
               profiler session and CUDA graphs leave every later launch
               slower on the host for the rest of the process
               (scripts/pdx_ab.py measures it), which would bias the QPS of
-              later phases.
+              later phases.  The IVF flat sessions (at both completion
+              budgets) and the two-stage session are profiled too,
+              without a kernel timing.
 Then the kernel table, the nvidia-smi line and the result line.  Every
 check raises on failure, so the script exits nonzero; without a CUDA card,
 or without the repo beside it, it prints no result and exits nonzero.
@@ -54,6 +75,20 @@ from pathlib import Path
 K = 10
 N_MAIN = 1_000_000
 N_RULES = 100_000
+N_LIST = 4096                    # 4 sqrt(N) at N = 1M (Faiss's wiki)
+NPROBE = 64
+N_LIST_RULES = 64                # the facade's default n_list
+DELTA_ROWS = 4096                # SchedulePolicy.delta_merge_threshold
+#: the IVF sessions' completion budget a query and row block, the row
+#: block itself: every row that passes the screen completes, so the
+#: certificate holds by construction (the reference's certified
+#: configuration).  A query's first probed block screens at tau = inf and
+#: its probed rows are near neighbours, so a smaller budget drops rows
+#: whose lower bounds fall under the final k-th distance: the default 128
+#: left about half the queries uncertified at 100k rows on the CPU, and
+#: 512 left some uncertified at 1M on the card (lists of up to 1,026
+#: rows).  The default budget's share is logged beside it.
+IVF_BLOCK_CAPACITY = 4096
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12          # H100 SXM data sheet, fp32 outside the TCs
 
@@ -191,6 +226,7 @@ def phase_parity(dev):
                 check(torch.allclose(gp[both], wp[both], rtol=1e-4, atol=1e-3),
                       f"dco_scan partial differs (nq={nq} d1={d1} {kind})")
                 cases += 1
+    unprobed = parity_unprobed(rng, dev)
     grouped = 0
     for nq in (16, 128):
         for G in (1, 4, 5):
@@ -213,7 +249,45 @@ def phase_parity(dev):
         pq_err = max(pq_err, float((got - want).abs().max()))
     torch.cuda.synchronize()
     log("parity", dco_scan_cases=cases, dco_scan_grouped_cases=grouped,
-        pq_lookup_cases=len(pq_cases), pq_lookup_max_abs_err=pq_err)
+        pq_lookup_cases=len(pq_cases), pq_lookup_max_abs_err=pq_err,
+        all_unprobed_cases=unprobed)
+
+
+def parity_unprobed(rng, dev) -> int:
+    """A launch no query of the chunk probes (every tau -1, as the IVF gate
+    sets a block outside each query's probe), flat and grouped at the main
+    path's shapes: bit for bit against the plain version, with keep,
+    counts and dims all zero.  Returns the number of cases checked."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dco_scan import (dco_scan_grouped_plain,
+                                              dco_scan_plain)
+    n, nq, d1, G, dg = 4096, 16, 128, 4, 32
+    tau = torch.full((nq,), -1.0, device=dev)
+    nr = torch.tensor([n], dtype=torch.int32, device=dev)
+    x = torch.as_tensor(rng.integers(-4, 5, (n, d1)), dtype=torch.float32,
+                        device=dev)
+    q = torch.as_tensor(rng.integers(-4, 5, (nq, d1)), dtype=torch.float32,
+                        device=dev)
+    sc = torch.ones(1, device=dev)
+    flat = (ops.dco_scan_op(x, q, tau, sc, nr, block_n=256, block_d=128),
+            dco_scan_plain(x, q, tau, sc, ops._widths(d1, 128, dev), nr,
+                           block_n=256, block_d=128))
+    xg = x.reshape(n, G, dg).transpose(0, 1).contiguous()
+    qg = q.reshape(nq, G, dg).transpose(0, 1).contiguous()
+    scg, widths = torch.ones(G, device=dev), ops._widths(d1, dg, dev)
+    grouped = (ops.dco_scan_grouped_op(xg, qg, tau, scg, widths, nr),
+               dco_scan_grouped_plain(xg, qg, tau, scg, widths, nr,
+                                      block_n=256))
+    for kernel, (got, want) in (("dco_scan", flat),
+                                ("dco_scan_grouped", grouped)):
+        for name, g, w in zip(("partial", "keep", "counts", "dims"), got,
+                              want):
+            check(torch.equal(g, w), f"{kernel} with every tau -1 differs "
+                  f"from its plain version in {name}")
+        check(not (got[1].any() or got[2].any() or got[3].any()),
+              f"{kernel} with every tau -1 kept or counted a pair")
+    return 2
 
 
 def parity_grouped(rng, dev, n, n_valid, nq, G, dg) -> int:
@@ -285,12 +359,13 @@ def check_rule(method, res, rec, fd_ids, gt) -> None:
         gt.shape[0], K), f"{name} returned malformed results")
 
 
-def run_method(X, Q, gt, method, dev, *, fitted=None, schedule=None):
+def run_method(X, Q, gt, method, dev, *, fitted=None, schedule=None,
+               index_kind="flat", index=None, nprobe=NPROBE):
     """Fit ``method`` on the host (or serve the already ``fitted`` one
-    under ``schedule``), then search Q on the card: a first
-    (materializing) batch and three timed batches, the first of which
-    counts each kernel's launches.  Returns the session, last result and a
-    record of the run."""
+    under ``schedule``, over ``index`` when ``index_kind`` is "ivf"), then
+    search Q on the card: a first (materializing) batch and three timed
+    batches, the first of which counts each kernel's launches.  Returns
+    the session, last result and a record of the run."""
     import numpy as np
     import torch
     from repro_torch.api import SearchSession, open_index
@@ -304,22 +379,23 @@ def run_method(X, Q, gt, method, dev, *, fitted=None, schedule=None):
     if fitted is None:
         sess = open_index(X, method=method, device=dev, schedule=schedule)
     else:
-        sess = SearchSession(fitted, schedule, device=dev)
+        sess = SearchSession(fitted, schedule, index_kind=index_kind,
+                             index=index, device=dev)
     fit_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sess.search(Q, K)                           # materializes the layout
+    sess.search(Q, K, nprobe=nprobe)            # materializes the layout
     first_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     dco_mod.launches = dco_mod.grouped_launches = pq_mod.launches = 0
     t0 = time.perf_counter()
-    res = sess.search(Q, K)                     # ends in a device->host copy
+    res = sess.search(Q, K, nprobe=nprobe)      # ends in a device->host copy
     walls = [time.perf_counter() - t0]
     launches = {"dco_scan": dco_mod.launches,
                 "dco_scan_grouped": dco_mod.grouped_launches,
                 "pq_lookup": pq_mod.launches}
     for _ in range(2):
         t0 = time.perf_counter()
-        res = sess.search(Q, K)
+        res = sess.search(Q, K, nprobe=nprobe)
         walls.append(time.perf_counter() - t0)
     ex = res.stats.extra
     rec = {
@@ -339,13 +415,13 @@ def run_method(X, Q, gt, method, dev, *, fitted=None, schedule=None):
         # and searched
         "layout_bytes": sum(v.nbytes for t in (sess.backend._blocks,
                                                sess.backend._state)
-                            for v in t.values()),
+                            if t is not None for v in t.values()),
         "device_bytes_held": torch.cuda.memory_allocated(dev),
         "device_bytes_before": before,
         "device_bytes_peak": torch.cuda.max_memory_allocated(dev),
         "launches_per_batch": launches,
     }
-    codes = sess.backend._blocks.get("codes")
+    codes = (sess.backend._blocks or {}).get("codes")
     if codes is not None:           # DDCopq: the PQ codes' share of it
         rec["codes_dtype"] = str(codes.dtype)
         rec["codes_bytes"] = codes.nbytes
@@ -353,7 +429,7 @@ def run_method(X, Q, gt, method, dev, *, fitted=None, schedule=None):
     return sess, res, rec
 
 
-def profile_batch(sess, Q, wall_s: float) -> dict:
+def profile_batch(sess, Q, wall_s: float, nprobe: int = NPROBE) -> dict:
     """One more batch under torch.profiler: the device operations it ran
     (kernels apart from copies and fills), the CUDA runtime calls the host
     made, and the device time.  The busy share divides the device time by
@@ -364,7 +440,7 @@ def profile_batch(sess, Q, wall_s: float) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sess.search(Q, K)
+        sess.search(Q, K, nprobe=nprobe)
         torch.cuda.synchronize()
         profiled_wall_s = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
@@ -401,14 +477,18 @@ def profile_batch(sess, Q, wall_s: float) -> dict:
 
 
 def inline_agreement(sess, Q, res, dev):
-    """Serve the same fitted method through the engine's inline torch
-    screen (no kernel); return the overlap of its top-k sets with the
-    kernel path's (1.0 = the same neighbours) and its ids."""
-    from repro_torch.api import SchedulePolicy, SearchSession
+    """Serve the same fitted method over the same index, under the same
+    policy, through the engine's inline torch screen (no kernel); return
+    the overlap of its top-k sets with the kernel path's (1.0 = the same
+    neighbours) and its ids."""
+    import dataclasses
+    from repro_torch.api import SearchSession
     from repro_torch.vecdata import recall_at_k
-    inline = SearchSession(sess.method, SchedulePolicy(use_kernel=False),
+    inline = SearchSession(sess.method,
+                           dataclasses.replace(sess.policy, use_kernel=False),
+                           index_kind=sess.index_kind, index=sess.index,
                            device=dev)
-    other = inline.search(Q, K)
+    other = inline.search(Q, K, nprobe=NPROBE)
     agree = recall_at_k(other.ids, res.ids)
     del inline
     return agree, other.ids
@@ -679,6 +759,252 @@ def time_pq_lookup(sess, Q, dev):
             "redesigned": True, "earlier_ms": earlier}
 
 
+def host_ivf_ids(method, index, Q, nprobe):
+    """The port's host IVF, the oracle of the device probe: IVFIndex.search
+    through the numpy scan_topk, query by query, on the same fitted
+    method and index."""
+    import numpy as np
+    from repro_torch.core.engine import QueryBatch
+    batch = QueryBatch.create(method, Q)
+    return np.stack([index.search(method, batch, qi, K, nprobe)[1]
+                     for qi in range(Q.shape[0])])
+
+
+def same_sets(a, b):
+    """Per query: do the two top-k lists hold the same ids?"""
+    import numpy as np
+    return (np.sort(a, 1) == np.sort(b, 1)).all(1)
+
+
+def blocks_hit(sess, Q, nprobe):
+    """Row blocks a query chunk hits (a block whose partition span holds a
+    partition some query of the chunk probes), read on the host from the
+    backend's probe and the blocks' partition spans."""
+    import numpy as np
+    be = sess.backend
+    probed, _ = be._probe(Q, nprobe)
+    part = be._blocks["part"]
+    pmin = part.amin(1).cpu().numpy()
+    pmax = part.amax(1).cpu().numpy()
+    hit = ((probed[:, None, :] >= pmin[None, :, None])
+           & (probed[:, None, :] <= pmax[None, :, None])).any(-1)
+    c = be._config(K).query_chunk
+    per_chunk = [int(hit[s:s + c].any(0).sum())
+                 for s in range(0, Q.shape[0], c)]
+    return {"row_blocks": int(part.shape[0]),
+            "blocks_hit_per_chunk_mean": float(np.mean(per_chunk)),
+            "blocks_hit_per_chunk_max": max(per_chunk),
+            "blocks_hit_per_query_mean": float(hit.sum(1).mean())}
+
+
+def phase_ivf(X, Q, gt, pdsp, opq, dev):
+    """The IVF probe path at 1M: one host-built index, three sessions on
+    the fitted methods.  Returns the index and each session's record."""
+    import numpy as np
+    import torch
+    from repro_torch.api import SchedulePolicy
+    from repro_torch.search.ivf import IVFIndex
+
+    t0 = time.perf_counter()
+    ivf = IVFIndex(n_list=N_LIST, seed=0).build(X)
+    sizes = np.array([len(lst) for lst in ivf.lists])
+    log("ivf_build", n=int(X.shape[0]), n_list=N_LIST,
+        seconds=time.perf_counter() - t0,
+        lloyd_s=ivf.build_seconds["lloyd"],
+        assign_s=ivf.build_seconds["assign"],
+        list_rows_min=int(sizes.min()), list_rows_max=int(sizes.max()),
+        list_rows_mean=float(sizes.mean()))
+    t0 = time.perf_counter()
+    host_ids = host_ivf_ids(pdsp, ivf, Q, NPROBE)
+    host_s = time.perf_counter() - t0
+    recs = {}
+    bc = IVF_BLOCK_CAPACITY
+    for label, fitted, schedule, kernel in (
+            ("flat", pdsp, SchedulePolicy(block_capacity=bc), "dco_scan"),
+            ("pdx", pdsp, SchedulePolicy(block_capacity=bc, dim_groups=4),
+             "dco_scan_grouped"),
+            ("DDCopq", opq, SchedulePolicy(block_capacity=bc), "pq_lookup"),
+            ("flat_default_budget", pdsp, SchedulePolicy(), "dco_scan")):
+        t0 = time.perf_counter()
+        sess, res, rec = run_method(X, Q, gt, fitted.name, dev,
+                                    fitted=fitted, schedule=schedule,
+                                    index_kind="ivf", index=ivf,
+                                    nprobe=NPROBE)
+        rec.update(label=label, n_list=N_LIST, nprobe=NPROBE,
+                   block_capacity=schedule.block_capacity,
+                   n_dco_per_query=res.stats.n_dco / Q.shape[0],
+                   **blocks_hit(sess, Q, NPROBE))
+        if fitted is pdsp:
+            same = same_sets(res.ids, host_ids)
+            rec.update(host_ivf_s=host_s,
+                       host_ivf_ids_equal=int(same.sum()),
+                       host_ivf_ids_equal_in_order=int(
+                           (res.ids == host_ids).all(1).sum()))
+        else:
+            rec["inline_id_agreement"], _ = inline_agreement(sess, Q, res,
+                                                             dev)
+        log("ivf", **rec, phase_s=time.perf_counter() - t0)
+        launches = rec["launches_per_batch"]
+        check(launches[kernel] > 0 and sum(launches.values())
+              == launches[kernel],
+              f"the IVF {label} path did not run through {kernel} alone")
+        if fitted is not pdsp:
+            check(rec["inline_id_agreement"] >= 0.99, "IVF DDCopq results "
+                  "differ between pq_lookup and the plain gather")
+        elif label != "flat_default_budget":    # reported, not held
+            check(bool(same.all()), f"IVF {label} PDScanning+ ids differ "
+                  f"from the host IVF on {int((~same).sum())} queries")
+            check(rec["uncertified_queries"] == 0.0,
+                  f"IVF {label} PDScanning+ left queries uncertified")
+        recs[label] = rec
+        del sess, res
+        torch.cuda.empty_cache()
+    return ivf, recs
+
+
+def phase_delta(X, Q, gt, Xr, gt_r, dev):
+    """The LSM write path: a 4,096-row delta after a 1M - 4,096 main layout,
+    then the merge; an IVF delta at the rules depth."""
+    import numpy as np
+    import torch
+    from repro_torch.api import SchedulePolicy, SearchSession, open_index
+    from repro_torch.kernels import dco_scan as dco_mod
+    from repro_torch.kernels import pq_lookup as pq_mod
+    from repro_torch.vecdata import recall_at_k
+
+    t_phase = time.perf_counter()
+    n0 = N_MAIN - DELTA_ROWS
+    t0 = time.perf_counter()
+    sess = open_index(X[:n0], method="PDScanning+", device=dev)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sess.search(Q, K)                           # materializes the main layout
+    first_s = time.perf_counter() - t0
+    be = sess.backend
+    n_main0, written0 = be._n_main, be.rows_written
+    main_bytes = sum(v.nbytes for v in be._blocks.values())
+    t0 = time.perf_counter()
+    sess.add(X[n0:])
+    add_s = time.perf_counter() - t0
+    check(sess.last_write_mode == "delta",
+          f"a {DELTA_ROWS}-row add took {sess.last_write_mode!r}, not delta")
+    torch.cuda.synchronize()
+    dco_mod.launches = dco_mod.grouped_launches = pq_mod.launches = 0
+    t0 = time.perf_counter()
+    res = sess.search(Q, K)                     # builds the delta segment
+    after_add_s = time.perf_counter() - t0
+    launches = {"dco_scan": dco_mod.launches,
+                "dco_scan_grouped": dco_mod.grouped_launches,
+                "pq_lookup": pq_mod.launches}
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = sess.search(Q, K)
+        walls.append(time.perf_counter() - t0)
+    ex = res.stats.extra
+    rec = {"method": "PDScanning+", "n_main": n0, "n_delta": DELTA_ROWS,
+           "fit_s": fit_s, "first_search_s": first_s, "add_s": add_s,
+           "first_search_after_add_s": after_add_s, "search_walls_s": walls,
+           "qps": float(Q.shape[0] / np.median(walls)),
+           "recall_at_10": recall_at_k(res.ids, gt),
+           "dims_read_mean": ex["dims_read_mean"],
+           "uncertified_queries": ex["uncertified_queries"],
+           "rows_written": be.rows_written, "merges": be.merges,
+           "main_layout_bytes": main_bytes,
+           "combined_layout_bytes": sum(
+               v.nbytes for v in be._delta_blocks.values()),
+           "device_bytes_held": torch.cuda.memory_allocated(dev),
+           "launches_per_batch": launches}
+    t0 = time.perf_counter()
+    fresh = SearchSession(sess.method, SchedulePolicy(), device=dev)
+    merged = fresh.search(Q, K)
+    rec["rematerialize_first_search_s"] = time.perf_counter() - t0
+    same = same_sets(res.ids, merged.ids)
+    rec["merged_ids_equal"] = int(same.sum())
+    rec["merged_ids_equal_in_order"] = int((res.ids == merged.ids).all(1).sum())
+    del fresh, merged
+    torch.cuda.empty_cache()
+    n_main, rows_written, merges0 = be._n_main, be.rows_written, be.merges
+    sess.add(X[n0:n0 + 1])
+    rec["next_add_mode"] = sess.last_write_mode
+    log("delta", **rec, phase_s=time.perf_counter() - t_phase)
+    check(n_main == n_main0, "the delta add re-materialized the main "
+          "layout")
+    check(rows_written == written0 + DELTA_ROWS,
+          f"rows_written rose by {rows_written - written0}, not "
+          f"{DELTA_ROWS}")
+    check(launches["dco_scan"] > 0, "the delta search launched no dco_scan")
+    check(rec["recall_at_10"] == 1.0, "delta PDScanning+ recall@10 below 1.0")
+    check(rec["uncertified_queries"] == 0.0,
+          "delta PDScanning+ left queries uncertified")
+    check(bool(same.all()), "delta ids differ from the merged session's")
+    check(sess.last_write_mode == "merge" and be.merges == merges0 + 1,
+          f"the add past the threshold took {sess.last_write_mode!r}")
+    del sess, res
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    n0r = N_RULES - DELTA_ROWS
+    sess = open_index(Xr[:n0r], index="ivf", method="PDScanning+",
+                      index_params={"n_list": N_LIST_RULES}, device=dev,
+                      schedule=SchedulePolicy(
+                          block_capacity=IVF_BLOCK_CAPACITY))
+    sess.search(Q, K, nprobe=N_LIST_RULES)
+    sess.add(Xr[n0r:])
+    mode = sess.last_write_mode
+    check(mode == "delta", f"the IVF add took {mode!r}, not delta")
+    res = sess.search(Q, K, nprobe=N_LIST_RULES)
+    host = host_ivf_ids(sess.method, sess.index, Q, N_LIST_RULES)
+    same = same_sets(res.ids, host)
+    log("delta_ivf", n_main=n0r, n_delta=DELTA_ROWS, n_list=N_LIST_RULES,
+        nprobe=N_LIST_RULES, mode=mode, host_ivf_ids_equal=int(same.sum()),
+        recall_at_10=recall_at_k(res.ids, gt_r),
+        uncertified_queries=res.stats.extra["uncertified_queries"],
+        phase_s=time.perf_counter() - t0)
+    check(bool(same.all()), "the IVF delta's ids differ from the host IVF")
+    check(recall_at_k(res.ids, gt_r) == 1.0,
+          "the IVF delta at full probe is not exact")
+    del sess, res
+    torch.cuda.empty_cache()
+
+
+def phase_two_stage(X, Q, gt, pdsp, flat_ids, dev):
+    """The 1M PDScanning+ on the two-stage engine; per-query survivors
+    from one more direct call of two_stage_topk on the session's state."""
+    import numpy as np
+    import torch
+    from repro_torch.api import SchedulePolicy
+    from repro_torch.core.torch_engine import two_stage_topk
+
+    t0 = time.perf_counter()
+    sess, res, rec = run_method(X, Q, gt, "PDScanning+", dev, fitted=pdsp,
+                                schedule=SchedulePolicy(engine="two_stage"))
+    be = sess.backend
+    cfg = be._config(K)
+    ql, qt, _ = be._prep_queries(Q)
+    _, ids, surv = two_stage_topk(
+        be._state, torch.as_tensor(np.ascontiguousarray(ql), device=dev),
+        torch.as_tensor(np.ascontiguousarray(qt), device=dev), cfg)
+    surv, ids = surv.cpu().numpy(), ids.cpu().numpy()
+    under = surv < cfg.capacity
+    same = same_sets(res.ids, flat_ids)
+    rec.update(capacity=cfg.capacity, survivors_min=int(surv.min()),
+               survivors_median=float(np.median(surv)),
+               survivors_max=int(surv.max()),
+               queries_under_capacity=int(under.sum()),
+               stream_ids_equal=int(same.sum()),
+               stream_ids_equal_under_capacity=int(same[under].sum()),
+               direct_call_ids_equal=bool(np.array_equal(ids, res.ids)))
+    log("two_stage", **rec, phase_s=time.perf_counter() - t0)
+    check(sum(rec["launches_per_batch"].values()) == 0,
+          "the two-stage engine launched a kernel")
+    check(bool(same[under].all()), "two-stage ids differ from the stream "
+          "engine's on a query whose survivors fit the capacity")
+    del sess, res
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -783,10 +1109,14 @@ def main() -> int:
     del sess, res, ds
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
+    ivf, ivf_recs = phase_ivf(X, Q, gt, pdsp, opq, dev)
     Xr = np.ascontiguousarray(X[:N_RULES])
-    del X
     gt_r = ground_truth(Xr, Q)
+    phase_delta(X, Q, gt, Xr, gt_r, dev)
+    ts_rec = phase_two_stage(X, Q, gt, pdsp, flat_ids, dev)
+    del X
+
+    t0 = time.perf_counter()
     fd_ids = None
     for method in ("FDScanning", "PDScanning", "PDScanning+", "ADSampling",
                    "DADE", "DDCres", "DDCpca", "DDCopq"):
@@ -840,8 +1170,29 @@ def main() -> int:
                             **timer(sess, Q, res, dev))
         del sess, res
         torch.cuda.empty_cache()
+    for label, schedule, rec, index_kind in (
+            ("ivf", SchedulePolicy(block_capacity=IVF_BLOCK_CAPACITY),
+             ivf_recs["flat"], "ivf"),
+            ("ivf_default_budget", SchedulePolicy(),
+             ivf_recs["flat_default_budget"], "ivf"),
+            ("two_stage", SchedulePolicy(engine="two_stage"), ts_rec,
+             "flat")):
+        sess = SearchSession(pdsp, schedule, index_kind=index_kind,
+                             index=ivf if index_kind == "ivf" else None,
+                             device=dev)
+        sess.search(Q, K, nprobe=NPROBE)        # materializes the layout
+        log("profile", method="PDScanning+", label=label,
+            **profile_batch(sess, Q,
+                            float(np.median(rec["search_walls_s"]))))
+        del sess
+        torch.cuda.empty_cache()
     log("profile_done", seconds=time.perf_counter() - t0)
 
+    # launches on the IVF path of each kernel, beside the main path's
+    for kernel, label in (("dco_scan", "flat"), ("dco_scan_grouped", "pdx"),
+                          ("pq_lookup", "DDCopq")):
+        rows[kernel]["launches_ivf"] = \
+            ivf_recs[label]["launches_per_batch"][kernel]
     kernels = [
         dict(name="dco_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/dco_scan.cu",

@@ -1,13 +1,19 @@
 """The facade: ``open_index(...)`` -> ``SearchSession``.
 
-Counterpart of the reference package's ``api/session.py`` for the flat
-streaming search on a torch device:
+Counterpart of the reference package's ``api/session.py`` for the
+streaming search on a torch device, over a flat or an IVF index:
 
     sess = open_index(X, method="PDScanning+")       # fits, runs on CUDA
     res = sess.search(Q, k=10)                       # res.ids (nq, k)
-    sess.add(X_new)                                  # re-materializes
+    sess.add(X_new)                                  # the delta segment
+    print(sess.last_write_mode)                      # "delta", "merge", ...
+    ivf = open_index(X, index="ivf", method="PDScanning+",
+                     index_params={"n_list": 64})
+    res = ivf.search(Q, k=10, nprobe=16)             # the device IVF probe
     pdx = open_index(X, method="PDScanning+",        # the PDX layout
                      schedule=SchedulePolicy(dim_groups=4))
+    two = open_index(X, method="PDScanning+",        # the one-shot engine
+                     schedule=SchedulePolicy(engine="two_stage"))
 
 Options the port does not serve yet raise ``NotImplementedError`` naming
 their ROADMAP item.
@@ -21,8 +27,9 @@ import numpy as np
 from repro_torch.api.backends import make_backend, resolve_device
 from repro_torch.api.types import SchedulePolicy, SearchResult
 from repro_torch.core.methods import ALL_METHODS, make_method
+from repro_torch.search.ivf import IVFIndex
 
-INDEX_KINDS = ("flat",)
+INDEX_KINDS = ("flat", "ivf")
 METHODS = tuple(ALL_METHODS)
 
 
@@ -34,25 +41,32 @@ def _unsupported(policy: SchedulePolicy) -> None:
     if policy.guardrails is not None and policy.guardrails is not False:
         raise NotImplementedError(
             "SchedulePolicy(guardrails=...) is not ported yet (ROADMAP A10)")
-    if policy.engine != "stream":
-        raise NotImplementedError(
-            f"SchedulePolicy(engine={policy.engine!r}) is not ported yet; "
-            "the streaming engine is (ROADMAP A1)")
+    if policy.engine not in ("stream", "two_stage"):
+        raise ValueError(f"SchedulePolicy(engine={policy.engine!r}): "
+                         "expected 'stream' or 'two_stage'")
     if policy.faults is not None:
         raise NotImplementedError(
             "SchedulePolicy(faults=...) is not ported yet (ROADMAP A8)")
 
 
 class SearchSession:
-    """A fitted method + the torch backend, behind batched calls."""
+    """A fitted method + built index + the torch backend, behind batched
+    calls.  ``index_kind`` is ``"flat"`` (``index`` None) or ``"ivf"``
+    (``index`` a built ``IVFIndex``)."""
 
     def __init__(self, method, policy: SchedulePolicy | None = None, *,
+                 index_kind: str = "flat", index=None,
                  backend: str = "torch", device=None):
+        if index_kind not in INDEX_KINDS:
+            raise ValueError(
+                f"index must be one of {INDEX_KINDS}, got {index_kind!r}")
         self.method = method
-        self.index_kind = "flat"
+        self.index_kind = index_kind
+        self.index = index
         self.policy = policy if policy is not None else SchedulePolicy()
         _unsupported(self.policy)
         self.backend = make_backend(backend, method, self.policy,
+                                    index_kind=index_kind, index=index,
                                     device=device)
         self.last_write_mode: str | None = None   # set by add()
 
@@ -71,10 +85,12 @@ class SearchSession:
         """Executing backend: ``"torch"``."""
         return self.backend.name
 
-    def search(self, Q, k: int = 10, *, deadline_s: float | None = None
-               ) -> SearchResult:
+    def search(self, Q, k: int = 10, *, nprobe: int = 16, ef: int = 64,
+               deadline_s: float | None = None) -> SearchResult:
         """Batched top-k for all rows of ``Q``; one online prep for the
-        whole batch."""
+        whole batch.  ``nprobe`` is the IVF probe width (ignored by a flat
+        index); ``ef`` is accepted for parity with the reference (unused
+        here: HNSW is not ported)."""
         if deadline_s is not None:
             raise NotImplementedError(
                 "search(deadline_s=...) is not ported yet (ROADMAP A8)")
@@ -90,15 +106,17 @@ class SearchSession:
                 "values; distances to non-finite queries are meaningless "
                 "and would poison the running top-k threshold")
         t0 = time.perf_counter()
-        dists, ids, stats = self.backend.search(Q, k)
+        dists, ids, stats = self.backend.search(Q, k, nprobe=nprobe, ef=ef)
         return SearchResult(dists, ids, stats, time.perf_counter() - t0,
                             self.backend.name)
 
     def add(self, Xnew) -> "SearchSession":
-        """Dynamic inserts: extend the fitted method state without
-        refitting transforms.  The device layout is rebuilt in full on the
-        next search (the reference's ``"rebuild"`` write mode; the delta
-        segment is ROADMAP A6)."""
+        """Dynamic inserts (paper §V-E): extend the fitted method state
+        without refitting transforms, then assign the rows into the index.
+        Below ``policy.delta_merge_threshold`` rows they land in a delta
+        segment scanned after the cached main block layout (no
+        re-materialization); the write mode taken is readable as
+        ``session.last_write_mode``."""
         Xnew = np.atleast_2d(np.asarray(Xnew))
         if Xnew.dtype.kind not in "fiu":
             raise ValueError(
@@ -118,9 +136,14 @@ class SearchSession:
                 "values; a non-finite corpus row poisons every distance "
                 "computed against it, so it is rejected before any state "
                 "changes")
+        parts = None
+        start = self.n
         self.method.append(Xnew)
-        self.backend.invalidate()
-        self.last_write_mode = "rebuild"
+        if self.index_kind == "ivf":
+            parts = self.index.insert(
+                np.arange(start, start + Xnew.shape[0]), Xnew)
+        self.last_write_mode = self.backend.notify_append(
+            Xnew.shape[0], parts=parts)
         return self
 
 
@@ -128,19 +151,21 @@ def open_index(X=None, *, index: str = "flat", method: str = "DADE",
                backend: str = "torch",
                schedule: SchedulePolicy | None = None,
                method_params: dict | None = None,
+               index_params: dict | None = None,
                train_queries=None, train_k: int = 10, seed: int = 0,
                device=None, mesh=None, serving: bool = False, path=None):
-    """Fit ``method`` on ``X`` and return a ready flat-index session on
-    ``device`` (default: the CUDA card; without one this raises
+    """Fit ``method`` on ``X``, build ``index`` and return a ready session
+    on ``device`` (default: the CUDA card; without one this raises
     ``RuntimeError`` — pass ``device="cpu"`` to run on the CPU).
 
     ``method`` is one of the paper's 8 (``METHODS``); training-based
     methods (DDCpca/DDCopq) are trained on ``train_queries`` (default: a
-    sample of X rows) for ``k=train_k``."""
-    if index in ("ivf", "hnsw"):
+    sample of X rows) for ``k=train_k``.  ``index="ivf"`` builds an
+    ``IVFIndex(**index_params)`` (default ``n_list=64``) probed on the
+    device."""
+    if index == "hnsw":
         raise NotImplementedError(
-            f"index={index!r} is not ported yet (ROADMAP A5 for device IVF "
-            "probing, A4 for the host indexes)")
+            "index='hnsw' is not ported yet (ROADMAP A4, the host indexes)")
     if index not in INDEX_KINDS:
         raise ValueError(f"index must be one of {INDEX_KINDS}, got {index!r}")
     if mesh is not None:
@@ -174,4 +199,10 @@ def open_index(X=None, *, index: str = "flat", method: str = "DADE",
                                          replace=False)]
         m.train(np.asarray(train_queries, np.float32), train_k,
                 policy.stage_dims(X.shape[1]))
-    return SearchSession(m, policy, backend=backend, device=device)
+    idx = None
+    if index == "ivf":
+        params = dict(index_params or {})
+        params.setdefault("n_list", 64)
+        idx = IVFIndex(**params).build(X)
+    return SearchSession(m, policy, index_kind=index, index=idx,
+                         backend=backend, device=device)

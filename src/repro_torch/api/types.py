@@ -2,9 +2,10 @@
 
 A copy of the reference package's ``api/types.py`` with the same fields and
 defaults, so one ``SchedulePolicy`` reads the same in both packages.  The
-torch backend serves the flat fixed-path streaming search, row-blocked or
-in the PDX layout (``dim_groups`` > 1); the options it does not serve yet
-(adaptive, guardrails, engine="two_stage", faults) are refused by
+torch backend serves the fixed-path streaming search over a flat or IVF
+index, row-blocked or in the PDX layout (``dim_groups`` > 1), its delta
+write path and the two-stage engine; the options it does not serve yet
+(adaptive, guardrails, faults) are refused by
 ``repro_torch.api.open_index``.
 """
 from __future__ import annotations

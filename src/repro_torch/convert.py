@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.methods import make_method
+from repro_torch.search.ivf import IVFIndex
 
 
 def _copy(v):
@@ -34,3 +35,15 @@ def state_from_reference(d: dict, device=None) -> dict:
     reads) as torch tensors on ``device``."""
     return {key: torch.as_tensor(np.asarray(v), device=device)
             for key, v in d.items()}
+
+
+def index_from_reference(ref_index) -> IVFIndex:
+    """The port's ``IVFIndex`` holding a copy of ``ref_index``'s built
+    state (``centroids``, ``lists``, ``n_list``, ``n``, read by attribute),
+    so both packages probe the same partitions."""
+    idx = IVFIndex(ref_index.n_list, seed=getattr(ref_index, "seed", 0),
+                   kmeans_iters=getattr(ref_index, "kmeans_iters", 10))
+    idx.centroids = np.array(ref_index.centroids, np.float32)
+    idx.lists = [np.array(lst, np.int64) for lst in ref_index.lists]
+    idx.n = int(ref_index.n)
+    return idx

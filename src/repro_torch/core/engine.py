@@ -1,13 +1,22 @@
-"""Engine constants and per-search statistics shared by the backends.
+"""Staged top-k scan engine (host/numpy path) and the statistics shared
+by the backends.
 
-The subset of the reference ``core/engine.py`` that the flat streaming
-search needs: the canonical ``ScanStats.extra`` key names, the paper's
-(Delta_0, Delta_d) stage schedule and ``ScanStats``.  The host staged scan
-(``scan_topk``) is not ported yet (ROADMAP A4).
+A copy of the reference ``core/engine.py``: the canonical
+``ScanStats.extra`` key names, the paper's (Delta_0, Delta_d) stage
+schedule, ``ScanStats``, ``QueryBatch`` and the host scan ``scan_topk``,
+the batched form of Alg. 1/2/3's inner loop: for each block of candidates
+the method's screening stages run with real compaction (survivors only
+move to the next stage), then exact distances are completed in original
+coordinates and merged into the running top-k, whose k-th distance is the
+DCO threshold ``tau``.  It is the oracle the IVF index searches through.
+The adaptive host policy (ROADMAP A7) and anytime deadlines (A8) are not
+ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+import numpy as np
 
 # --- canonical ScanStats.extra keys -----------------------------------------
 # Both backends report batch telemetry under these names and ONLY these names
@@ -58,3 +67,110 @@ class ScanStats:
     @property
     def pruning_ratio(self) -> float:
         return 1.0 - self.dims_scanned / max(self.dims_total, 1e-9)
+
+
+@dataclass
+class QueryBatch:
+    """One prepped batch of queries flowing through the scan/index layers:
+    the method's online pre-processing output (``ctx``, which holds the raw
+    queries under ``"Q"`` plus any rotated views), the stage schedule and
+    the per-batch ``ScanStats``."""
+
+    ctx: dict
+    schedule: list
+    stats: ScanStats
+
+    @classmethod
+    def create(cls, method, Q, schedule=None, stats: ScanStats | None = None):
+        """Prep ``Q`` with ``method`` and attach a schedule (defaults to the
+        paper's (Delta_0, Delta_d) schedule for the method's D)."""
+        ctx = method.prep_queries(Q)
+        if schedule is None:
+            schedule = make_schedule(method.state["D"])
+        return cls(ctx, list(schedule),
+                   stats if stats is not None else ScanStats())
+
+    @property
+    def Q(self):
+        return self.ctx["Q"]
+
+    def __len__(self) -> int:
+        return int(self.ctx["Q"].shape[0])
+
+
+def topk_merge(best_d, best_i, new_d, new_i, k):
+    d = np.concatenate([best_d, new_d])
+    i = np.concatenate([best_i, new_i])
+    order = np.argpartition(d, min(k - 1, len(d) - 1))[:k]
+    order = order[np.argsort(d[order])]
+    return d[order], i[order]
+
+
+def scan_topk(method, batch: QueryBatch, qi: int, cand_ids, k, *,
+              block: int = 1024, init_d=None, init_i=None, policy=None,
+              deadline_ts=None):
+    """DCO-accelerated exact-completion top-k over ``cand_ids`` for query
+    ``qi`` of ``batch``.  Stats accumulate into ``batch.stats``.
+
+    ``policy`` with ``adaptive=True`` (the host fdscan fallback, ROADMAP
+    A7) and ``deadline_ts`` (anytime mode, A8) are not ported yet."""
+    if policy is not None and getattr(policy, "adaptive", False):
+        raise NotImplementedError(
+            "the adaptive host policy is not ported yet (ROADMAP A7)")
+    if deadline_ts is not None:
+        raise NotImplementedError(
+            "anytime deadlines are not ported yet (ROADMAP A8)")
+    D = method.state["D"]
+    ctx, stats = batch.ctx, batch.stats
+    stages = method.stage_dims(batch.schedule)
+    best_d = init_d if init_d is not None else np.full(k, np.inf, np.float32)
+    best_i = init_i if init_i is not None else np.full(k, -1, np.int64)
+    cand_ids = np.asarray(cand_ids, np.int64)
+    for s in range(0, len(cand_ids), block):
+        ids = cand_ids[s:s + block]
+        tau_sq = float(best_d[-1])
+        alive = ids
+        if stats is not None:
+            stats.n_dco += len(ids)
+            stats.dims_total += len(ids) * D
+        if np.isfinite(tau_sq):
+            # methods exposing partial_range (pure-partial lower bounds:
+            # PDScanning/+) screen incrementally: each stage reads only the
+            # dim group [prev_d, d) and adds it to a carried partial (the
+            # host mirror of the device PDX layout).  Same keep decisions
+            # (the accumulated partial IS the stage partial), fewer dims
+            # charged.
+            pr_fn = getattr(method, "partial_range", None)
+            acc, prev_d = None, 0
+            for d in stages:
+                if len(alive) == 0:
+                    break
+                d_eff = max(d, 1)
+                if pr_fn is not None:
+                    if d_eff <= prev_d:
+                        continue
+                    part = pr_fn(alive, ctx, qi, prev_d, d_eff)
+                    acc = part if acc is None else acc + part
+                    keep, charged = acc <= tau_sq, float(d_eff - prev_d)
+                    prev_d = d_eff
+                else:
+                    keep, charged = method.screen(alive, ctx, qi, d_eff,
+                                                  tau_sq)
+                if stats is not None:
+                    stats.dims_scanned += len(alive) * charged
+                alive = alive[keep]
+                if acc is not None:
+                    acc = acc[keep]
+        if len(alive) == 0:
+            continue
+        ex = method.exact_sq(alive, ctx, qi)
+        if stats is not None:
+            stats.dims_scanned += len(alive) * D
+            stats.n_true += (int((ex <= tau_sq).sum()) if np.isfinite(tau_sq)
+                             else len(alive))
+            # host completion == screen pass (no completion budget)
+            stats.extra["_completed_total"] = (
+                stats.extra.get("_completed_total", 0) + len(alive))
+        best_d, best_i = topk_merge(best_d, best_i, ex.astype(np.float32),
+                                    alive, k)
+    return best_d, best_i

@@ -36,9 +36,20 @@ group 0 prices every row, survivors compact to the per-query top-R (the
 R-cut, with its own observer column in the certificate) and the later
 groups refine only those candidates (:func:`_scan_blocks`).
 
-Not ported yet (each raises ``NotImplementedError``): IVF probing (ROADMAP
-A5), anytime deadlines (A8) and the adaptive policy (A7), with it the
-adaptive PDX escape.  The PDX delta segment waits for the delta path (A6).
+IVF probing (``probe=``): rows are laid out partition-major (the
+``row_part`` state sorted, ``row_ids`` the permutation, the ``part``
+plane of the blocks); for each query chunk a block whose partition span
+holds none of a query's probed partitions gets tau = -1 for that query,
+which the kernels' liveness gate turns into skipped work, and rows of
+unprobed partitions are masked out of the keep set.
+
+LSM delta segment (:func:`append_stream_blocks`): a small segment of
+appended rows is laid out at the main layout's block width and its blocks
+concatenated after the main ones, so one running tau walks both.
+
+Not ported yet (each raises ``NotImplementedError``): anytime deadlines
+(ROADMAP A8) and the adaptive policy (A7), with it the adaptive PDX
+escape.
 """
 from __future__ import annotations
 
@@ -113,12 +124,20 @@ def _merge_topk(best_d, best_i, new_d, new_i, k: int):
 
 
 def build_stream_blocks(state: dict, row_block: int,
+                        full_width: bool = False,
                         dim_groups: int = 1) -> dict:
     """Pad the corpus to a whole number of row blocks and reshape every
-    per-row tensor to (n_blocks, block, ...).  Pad rows carry id -1.
-    Callers that search repeatedly build this once per materialization.
-    When the row count is already a whole number of blocks the layout is
-    a view of ``state``'s tensors, so the corpus is not copied.
+    per-row tensor to (n_blocks, block, ...).  Pad rows carry id -1 and,
+    with ``row_part`` (the IVF layout), the last row's partition (the
+    ``part`` plane, edge-padded so a block's partition span is that of
+    its real rows).  Callers that search repeatedly build this once per
+    materialization.  When the row count is already a whole number of
+    blocks the layout is a view of ``state``'s tensors, so the corpus is
+    not copied.
+
+    ``full_width=True`` keeps the block width at ``row_block`` even when
+    the segment has fewer rows, as a delta segment laid after a main
+    layout of that width needs (:func:`append_stream_blocks`).
 
     ``dim_groups`` > 1 selects the PDX vertical layout: the lead dims split
     per :func:`_group_plan` and ``xl`` becomes (n_blocks, G, block, dg),
@@ -127,7 +146,7 @@ def build_stream_blocks(state: dict, row_block: int,
     zero-padded."""
     x_lead = state["x_lead"]
     n = x_lead.shape[0]
-    B = min(row_block, n)
+    B = row_block if full_width else min(row_block, n)
     nb = -(-n // B)
     pad = nb * B - n
 
@@ -136,6 +155,11 @@ def build_stream_blocks(state: dict, row_block: int,
             widths = (0, 0) * (a.dim() - 1) + (0, pad)
             a = torch.nn.functional.pad(a, widths, value=value)
         return a.reshape(nb, B, *a.shape[1:])
+
+    def rows_edge(a):
+        if pad:
+            a = torch.cat([a, a[-1:].expand(pad)])
+        return a.reshape(nb, B)
 
     ids = state.get("row_ids")
     if ids is None:
@@ -147,6 +171,8 @@ def build_stream_blocks(state: dict, row_block: int,
         "tsq": rows(state["tail_sq"]),
         "ids": rows(ids.to(torch.int32), value=-1),
     }
+    if "row_part" in state:     # partition-major layout for IVF probing
+        xs["part"] = rows_edge(state["row_part"].to(torch.int32))
     if "codes" in state:        # PQ codes for the opq rule: uint8 as given
         codes = state["codes"]
         if codes.dtype != torch.uint8:
@@ -165,10 +191,34 @@ def build_stream_blocks(state: dict, row_block: int,
     return xs
 
 
-def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, B, D):
+def append_stream_blocks(main: dict, delta_state: dict) -> dict:
+    """Concatenate a small delta segment's blocks after a main layout.
+
+    The delta layout is built at the MAIN block width (``full_width``), so
+    the result is one (nb_main + nb_delta, B, ...) stack the block loop
+    walks end to end: the running tau tightened over the main segment
+    carries into the delta blocks, and no cross-segment merge is needed at
+    query time.  ``delta_state`` (on the main layout's device) must carry
+    ``row_ids`` (global ids of the appended rows) and the same optional
+    keys (``row_part``, ``codes``) as the main layout, and inherits its
+    PDX group count.  The concatenation copies the main blocks."""
+    B = main["xl"].shape[-2]
+    G = main["xl"].shape[1] if main["xl"].dim() == 4 else 1
+    delta = build_stream_blocks(delta_state, B, full_width=True, dim_groups=G)
+    missing = set(main) ^ set(delta)
+    if missing:
+        raise ValueError(
+            f"delta segment layout keys differ from main: {missing}")
+    return {key: torch.cat([main[key], delta[key]]) for key in main}
+
+
+def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, B, D,
+                 pr=None, pspan=None):
     """Walk every corpus row block for one query chunk (the reference's
-    ``lax.scan`` of the fixed ``step``).  Returns (dists (c, k), ids
-    (c, k), survivors (c,), passed (c,), dropped_min_est (c,), dims (c,))."""
+    ``lax.scan`` of the fixed ``step``).  ``pr`` (c, nprobe) is the chunk's
+    IVF probe and ``pspan`` the layout's per-block partition span
+    (:func:`_partition_span`).  Returns (dists (c, k), ids (c, k),
+    survivors (c,), passed (c,), dropped_min_est (c,), dims (c,))."""
     dev = ql.device
     c = ql.shape[0]
     k = cfg.k
@@ -187,6 +237,20 @@ def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, B, D):
                     else state["tail_sq"].min())
     rows = torch.arange(c, device=dev)[:, None]
     iota = torch.arange(B, device=dev)[None, :]
+    if pr is not None:
+        # the probe gate, formed once per chunk: hits (c, nb) marks the
+        # blocks whose partition span [pmin, pmax] holds a partition the
+        # query probes, rowhits (c, nb, B) the rows of probed partitions
+        # (a gather of the chunk's probed-partition mask), and the tau of
+        # an unprobed block (a tensor, so the gate fills nothing a step)
+        pmin, pmax, part_flat, n_part = pspan
+        tau_skip = torch.full((c,), -1.0, device=dev)
+        prl = pr.long()
+        hits = ((prl[:, None, :] >= pmin[None, :, None])
+                & (prl[:, None, :] <= pmax[None, :, None])).any(-1)
+        probed = torch.zeros((c, n_part), dtype=torch.bool, device=dev)
+        probed.scatter_(1, prl, True)
+        rowhits = probed[:, part_flat].reshape(c, -1, B)
 
     # ---- PDX vertical layout (DESIGN.md §8) -------------------------------
     grouped = xs["xl"].dim() == 4
@@ -204,6 +268,17 @@ def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, B, D):
         # device tensors built once per chunk: the block loop copies nothing
         scales_g = scale.reshape(1).expand(Gr).contiguous()
         widths_g = _widths(d1, dgp, dev)
+
+    def candidates(valid, rowhit, n_ok, n_okf):
+        """The rows each query may complete, (c, B) or (1, B), and their
+        count per query as int32 and float32: every valid row of the
+        block, or with a probe those of probed partitions.  Formed only
+        where a path needs them, so the kernel path pays no op for it."""
+        if rowhit is None:
+            return valid[None, :], n_ok, n_okf
+        okm = valid[None, :] & rowhit
+        n_done = okm.sum(-1, dtype=torch.int32)
+        return okm, n_done, n_done.to(torch.float32)
 
     def observed(score, n_keep: int, width: int):
         """The ``width`` smallest scores, masked-observer style: returns
@@ -236,7 +311,7 @@ def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, B, D):
         return (new_d, new_i, new_tau,
                 alive.sum(-1, dtype=torch.int32), dropped)
 
-    def pdx_screen(blk, tau, tau_k, valid):
+    def pdx_screen(blk, tau, tau_k, ok):
         """Grouped progressive screen on the inline path (the reference's
         ``_pdx_screen``): group 0 prices every row, survivors compact to
         the per-query top-R with an observer of the best estimate the R-cut
@@ -244,7 +319,7 @@ def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, B, D):
         each whose running partial crosses tau.  A partial over any dim
         prefix is a lower bound, so a frozen row needs no certificate."""
         xg, lsg = blk["xl"], blk["lsg"]               # (G, B, dg), (G, B)
-        enter = valid[None, :] & (tau_k >= 0.0)[:, None]     # (c, B)
+        enter = ok & (tau_k >= 0.0)[:, None]                  # (c, B)
         contrib0 = torch.clamp_min(
             lsg[0][None, :] - 2.0 * (qlg[0] @ xg[0].T)
             + qgsq[0][:, None], 0.0)                          # (c, B)
@@ -314,10 +389,14 @@ def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, B, D):
         if cfg.kind == "ddcres":
             # partial <= tau_k is implied by the Eq. 7 estimate test below
             tau_k = tau + slack - qe["qtail_sq"] - tail_min
+        rowhit = None
+        if pr is not None:
+            tau_k = torch.where(hits[:, b], tau_k, tau_skip)
+            rowhit = rowhits[:, b]
 
         if grouped and not cfg.use_kernel:
             cand, acc, keep, est, dropped0, dims_scr = pdx_screen(
-                blk, tau, tau_k, valid)
+                blk, tau, tau_k, candidates(valid, rowhit, n_ok, n_okf)[0])
             passed = passed + keep.sum(-1, dtype=torch.int32)
             best_d, best_i, tau, completed, dropped = complete_compacted(
                 best_d, best_i, tau, keep, est, acc, cand, dropped0, blk)
@@ -335,7 +414,8 @@ def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, B, D):
             est = adist.T / cfg.theta                         # (c, B)
             keep = (est <= tau[:, None]) & valid[None, :]
             partial = None
-            dims_scr = n_okf * float(qe["lut"].shape[1])
+            dims_scr = candidates(valid, rowhit, n_ok, n_okf)[2] * float(
+                qe["lut"].shape[1])
         elif cfg.use_kernel:
             if grouped:
                 p, kp, cnt, ad = dco_scan_grouped_op(
@@ -347,7 +427,8 @@ def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, B, D):
                                              block_d=block_d)
             partial, keep = p.T, kp.T.bool()                  # (c, B)
             est = partial * scale
-            passed_b = cnt.sum(0, dtype=torch.int32)  # kernel keep counts
+            if rowhit is None:          # the kernel's keep counts
+                passed_b = cnt.sum(0, dtype=torch.int32)
             dims_scr = ad.sum(0)        # measured dims entered per query
         else:
             partial = torch.clamp_min(
@@ -355,8 +436,12 @@ def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, B, D):
                 + ql_sq[:, None], 0.0)                        # (c, B)
             est = partial * scale
             keep = (est <= tau_k[:, None]) & valid[None, :]
-            # the flat screen reads all d1 lead dims of every valid row
-            dims_scr = torch.where(tau_k >= 0.0, n_okf, 0.0) * float(d1)
+            # the flat screen reads all d1 lead dims of every candidate
+            # row of a probed block (tau_k < 0 marks a block the probe
+            # skips)
+            dims_scr = torch.where(
+                tau_k >= 0.0, candidates(valid, rowhit, n_ok, n_okf)[2],
+                0.0) * float(d1)
         if cfg.kind == "ddcres":
             # full-distance estimate (core.methods Eq. 7) refines the
             # conservative partial screen and drives compaction
@@ -364,6 +449,8 @@ def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, B, D):
                    + qe["qtail_sq"][:, None] - slack[:, None])
             keep = keep & (est <= tau[:, None])
             passed_b = None
+        if rowhit is not None:
+            keep = keep & rowhit
         if passed_b is None:
             passed_b = keep.sum(-1, dtype=torch.int32)
 
@@ -371,12 +458,13 @@ def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, B, D):
             exact = partial + torch.clamp_min(
                 blk["tsq"][None, :] - 2.0 * (qt @ blk["xt"].T)
                 + qt_sq[:, None], 0.0)
-            exact = torch.where(valid[None, :], exact, _INF)
+            okm, n_done, n_okq = candidates(valid, rowhit, n_ok, n_okf)
+            exact = torch.where(okm, exact, _INF)
             best_d, best_i = _merge_topk(
                 best_d, best_i, exact, blk["ids"][None, :].expand(c, B), k)
-            surv = surv + n_ok
-            passed = passed + n_ok
-            dims = dims + n_okf * float(D)
+            surv = surv + n_done
+            passed = passed + n_done
+            dims = dims + n_okq * float(D)
             continue
 
         best_d, best_i, tau, completed, dropped = complete_screened(
@@ -389,17 +477,30 @@ def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, B, D):
     return best_d, best_i, surv, passed, dmin, dims
 
 
+def _partition_span(xs: dict, probe):
+    """Per-block partition span (pmin (nb,), pmax (nb,)) of a partition-
+    major layout, its ``part`` plane flattened, and the width of a
+    probed-partition mask.  The width is read back to the host: one sync
+    per batch, before the block loop."""
+    part = xs["part"]
+    n_part = int(torch.maximum(part.max(), probe.max())) + 1
+    return (part.amin(1).long(), part.amax(1).long(),
+            part.reshape(-1).long(), n_part)
+
+
 def _stream_topk_padded(state: dict, xs: dict, q_lead, q_tail,
-                        q_extra: dict, cfg: DcoEngineConfig):
+                        q_extra: dict, probe, cfg: DcoEngineConfig):
     """All query chunks of a batch whose size is a whole number of
     chunks, concatenated (the reference's ``lax.map`` over chunks)."""
     D = q_lead.shape[1] + q_tail.shape[1]
     B = xs["xl"].shape[-2]
     nq = q_lead.shape[0]
     c = min(cfg.query_chunk, nq)
+    pspan = None if probe is None else _partition_span(xs, probe)
     outs = [
         _scan_blocks(cfg, state, xs, q_lead[s:s + c], q_tail[s:s + c],
-                     {key: v[s:s + c] for key, v in q_extra.items()}, B, D)
+                     {key: v[s:s + c] for key, v in q_extra.items()}, B, D,
+                     None if probe is None else probe[s:s + c], pspan)
         for s in range(0, nq, c)]
     return tuple(torch.cat([o[j] for o in outs]) for j in range(6))
 
@@ -411,7 +512,9 @@ def stream_topk(state: dict, q_lead, q_tail, cfg: DcoEngineConfig,
 
     q_lead (Q, d1), q_tail (Q, D - d1) tensors on the state's device.
     ``state`` is a ``torch_engine.build_device_state`` export, optionally
-    with ``row_ids`` and (opq rule) ``codes``.  ``blocks`` is an optional
+    with ``row_ids`` (original ids when rows were permuted), ``row_part``
+    with ``probe`` (Q, nprobe) partition ids for IVF probing, and (opq
+    rule) ``codes``.  ``blocks`` is an optional
     pre-built :func:`build_stream_blocks` layout; with it, ``state`` needs
     only the per-rule scalars and, for ddcres, ``tail_min`` (the least
     tail energy of the real rows).  Ragged batches pad to a
@@ -427,9 +530,6 @@ def stream_topk(state: dict, q_lead, q_tail, cfg: DcoEngineConfig,
     R-cut's observer folded into ``dropped_min_est``; fdscan and opq force
     G = 1.  Cached ``blocks`` must have the group count
     :func:`_effective_groups` resolves for ``cfg``, else ``ValueError``."""
-    if probe is not None:
-        raise NotImplementedError(
-            "IVF probing is not ported yet (ROADMAP A5)")
     if deadline_ts is not None:
         raise NotImplementedError(
             "anytime deadlines are not ported yet (ROADMAP A8)")
@@ -458,5 +558,11 @@ def stream_topk(state: dict, q_lead, q_tail, cfg: DcoEngineConfig,
             return torch.nn.functional.pad(v, (0, 0) * (v.dim() - 1) + (0, pad))
         q_lead, q_tail = padq(q_lead), padq(q_tail)
         q_extra = {key: padq(v) for key, v in q_extra.items()}
-    out = _stream_topk_padded(state, blocks, q_lead, q_tail, q_extra, cfg)
+        if probe is not None:
+            probe = padq(probe)
+    if probe is not None and "part" not in blocks:
+        raise ValueError("IVF probing needs a partition-major layout: "
+                         "build the blocks from a state with row_part")
+    out = _stream_topk_padded(state, blocks, q_lead, q_tail, q_extra, probe,
+                              cfg)
     return tuple(o[:nq] for o in out)

@@ -126,7 +126,7 @@ def test_add_rebuilds_and_serves_new_rows(sift_small):
                       schedule=SchedulePolicy(**POLICY))
     sess.search(ds.Q[:4], K)
     sess.add(ds.Q[:2])                  # the queries themselves join
-    assert sess.last_write_mode == "rebuild" and sess.n == 2002
+    assert sess.last_write_mode == "delta" and sess.n == 2002
     res = sess.search(ds.Q[:2], K)
     np.testing.assert_array_equal(res.ids[:, 0], [2000, 2001])
     with pytest.raises(ValueError):
@@ -161,13 +161,12 @@ def test_backend_holds_the_corpus_once(name, groups, sift_small):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(index="ivf"), "A5"), (dict(index="hnsw"), "A4"),
+    (dict(index="hnsw"), "A4"),
     (dict(backend="host"), "A4"), (dict(mesh=object()), "A12"),
     (dict(serving=True), "A11"), (dict(path="idx.bin"), "A11"),
     (dict(schedule=SchedulePolicy(adaptive=True)), "A7"),
     (dict(schedule=SchedulePolicy(guardrails=True)), "A10"),
     (dict(schedule=SchedulePolicy(dim_groups=4, adaptive=True)), "A7"),
-    (dict(schedule=SchedulePolicy(engine="two_stage")), "A1"),
 ])
 def test_unsupported_options_raise(kwargs, item, sift_small):
     with pytest.raises(NotImplementedError, match=item):

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card.  These tests need a CUDA card and skip without one; the module
-imports no jax, so it also runs where only PyTorch is installed:
+card, and the paths that launch them on new inputs (a launch no query
+probes, the IVF streaming scan, a delta session) against the CPU or a
+merged session.  These tests need a CUDA card and skip without one; the
+module imports no jax, so it also runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -335,3 +337,114 @@ def test_dco_scan_op_device_operations(cuda_device, block_n, ops_expected):
              if getattr(e, "device_type", None) == cuda]
     assert len(names) == ops_expected, names
     assert any("dco_scan_flat_kernel" in k for k in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grouped", [False, True])
+def test_all_unprobed_launch_matches_plain(cuda_device, grouped):
+    """A block no query of the chunk probes: every tau is -1, as the IVF
+    gate sets it.  At the main path's shape (4096 x 16 x 128; PDX 4 groups
+    of 32) the launch gives its plain version's outputs bit for bit, with
+    keep, counts and dims all zero."""
+    rng = np.random.default_rng(_seed("cuda-unprobed", grouped))
+    n, q, d1 = 4096, 16, 128
+    tau = torch.full((q,), -1.0, device=cuda_device)
+    nr = torch.tensor([n], dtype=torch.int32, device=cuda_device)
+    if grouped:
+        G, dg = 4, 32
+        xt, qt, _, wt = _grouped_inputs(rng, n, q, G, dg, d1, cuda_device)
+        sc = torch.ones(G, device=cuda_device)
+        before = dco_mod.grouped_launches
+        got = ops.dco_scan_grouped_op(xt, qt, tau, sc, wt, nr)
+        assert dco_mod.grouped_launches == before + 1
+        want = dco_mod.dco_scan_grouped_plain(xt, qt, tau, sc, wt, nr,
+                                              block_n=256)
+    else:
+        xt, qt = _t(rng.integers(-4, 5, (n, d1)).astype(np.float32),
+                    rng.integers(-4, 5, (q, d1)).astype(np.float32),
+                    device=cuda_device)
+        sc = torch.ones(1, device=cuda_device)
+        before = dco_mod.launches
+        got = ops.dco_scan_op(xt, qt, tau, sc, nr, block_n=256)
+        assert dco_mod.launches == before + 1
+        want = dco_mod.dco_scan_plain(xt, qt, tau, sc,
+                                      ops._widths(d1, 128, cuda_device), nr,
+                                      block_n=256, block_d=128)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    _, keep, counts, dims = got
+    assert not keep.any() and not counts.any() and not dims.any()
+
+
+def _ivf_layout(rng, n, D, d1, n_list):
+    """Integer-valued rows (every float32 sum exact, so the card and the
+    CPU agree bit for bit) laid out partition-major over ``n_list``
+    partitions of uneven size."""
+    from repro_torch.core.torch_engine import build_device_state
+    X = rng.integers(-4, 5, (n, D)).astype(np.float32)
+    part = np.sort(rng.integers(0, n_list, n))
+    perm = rng.permutation(n)            # ids are not the row order
+    st = build_device_state({"Xrot": X[perm]}, d1, "cpu")
+    st["row_ids"] = torch.as_tensor(perm.astype(np.int32))
+    st["row_part"] = torch.as_tensor(part.astype(np.int32))
+    return st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 4])
+def test_ivf_stream_topk_card_matches_cpu(cuda_device, groups):
+    """IVF stream_topk on the card (the CUDA kernels) against the same call
+    on the CPU (their plain versions): all six outputs equal."""
+    from repro_torch.core.stream_engine import stream_topk
+    from repro_torch.core.torch_engine import DcoEngineConfig
+    rng = np.random.default_rng(_seed("cuda-ivf", groups))
+    n, D, d1, n_list, nq = 3000, 64, 32, 12, 21
+    st = _ivf_layout(rng, n, D, d1, n_list)
+    Q = rng.integers(-4, 5, (nq, D)).astype(np.float32)
+    probe = np.stack([rng.choice(n_list, 3, replace=False)
+                      for _ in range(nq)]).astype(np.int32)
+    cfg = DcoEngineConfig(kind="lb", d1=d1, k=10, query_chunk=8,
+                          row_block=512, block_capacity=512,
+                          use_kernel=True, dim_groups=groups)
+    args = (Q[:, :d1], Q[:, d1:], probe)
+    want = stream_topk(st, *(torch.as_tensor(a) for a in args[:2]), cfg,
+                       probe=torch.as_tensor(args[2]))
+    launches = (dco_mod.launches, dco_mod.grouped_launches)
+    got = stream_topk({k: v.to(cuda_device) for k, v in st.items()},
+                      *(torch.as_tensor(a, device=cuda_device)
+                        for a in args[:2]), cfg,
+                      probe=torch.as_tensor(args[2], device=cuda_device))
+    torch.cuda.synchronize()
+    assert (dco_mod.grouped_launches if groups > 1 else dco_mod.launches) > (
+        launches[1] if groups > 1 else launches[0])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index,groups", [("flat", 1), ("flat", 4),
+                                          ("ivf", 1)])
+def test_delta_session_card_matches_merged(cuda_device, index, groups):
+    """A session on the card after a delta add answers as a session freshly
+    materialized on the same fitted method (IVF at nprobe = n_list)."""
+    from repro_torch.api import SchedulePolicy, SearchSession, open_index
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(1536, 48)).astype(np.float32)
+    Q = rng.normal(size=(12, 48)).astype(np.float32)
+    pol = SchedulePolicy(d1=24, query_chunk=4, row_block=256,
+                         block_capacity=256, dim_groups=groups)
+    params = {"n_list": 16} if index == "ivf" else None
+    sess = open_index(X[:1200], index=index, method="PDScanning+",
+                      schedule=pol, index_params=params, device=cuda_device)
+    sess.search(Q, 10, nprobe=16)
+    sess.add(X[1200:])
+    assert sess.last_write_mode == "delta"
+    rd = sess.search(Q, 10, nprobe=16)
+    assert sess.backend._delta_blocks["xl"].is_cuda
+    merged = SearchSession(sess.method, pol, index_kind=index,
+                           index=sess.index, device=cuda_device)
+    rm = merged.search(Q, 10, nprobe=16)
+    np.testing.assert_array_equal(rd.ids, rm.ids)
+    np.testing.assert_allclose(rd.dists, rm.dists, rtol=1e-5, atol=1e-5)
+    assert not rd.stats.extra["uncertified_mask"].any()

@@ -242,7 +242,8 @@ def test_stream_topk_refuses_unported_paths(sift_small):
     ql = torch.zeros(2, D1)
     qt = torch.zeros(2, sift_small.dim - D1)
     cfg = DcoEngineConfig(d1=D1, k=2)
-    with pytest.raises(NotImplementedError, match="A5"):
+    # a probe is served once the layout is partition-major
+    with pytest.raises(ValueError, match="partition-major"):
         stream_topk(st, ql, qt, cfg, probe=torch.zeros(2, 1))
     with pytest.raises(NotImplementedError, match="A8"):
         stream_topk(st, ql, qt, cfg, deadline_ts=1.0)
