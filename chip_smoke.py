@@ -9,15 +9,27 @@ Phases, one JSON line each:
   3. parity   each kernel against its plain PyTorch version on the card,
               at the main path's launch shapes, and the grouped kernel at
               G = 1 against the flat one;
-  4. main     the flat streaming search at GIST1M shape (1M x 960 f32,
+  4. graph    PDScanning+ fitted on the 1M corpus below: the engine's
+              block walk run eagerly on the card (its walls taken first,
+              before any CUDA graph of the process) against the walk
+              captured once as a CUDA graph a query chunk and replayed
+              (capture seconds, graph nodes, pool bytes, launches a
+              replay), in five interleaved pairs, all six outputs equal;
+              the session served by the same graph; an arm at
+              query_chunk = 100; and the top-k selection against the
+              stable sort it replaced, on the engine's real score rows;
+  5. main     the flat streaming search at GIST1M shape (1M x 960 f32,
               100 queries, k = 10, the default SchedulePolicy) for
               PDScanning+ (dco_scan) and DDCopq (pq_lookup), with the
               kernels' launch counts over one batch, QPS, recall against a
               float64 brute-force ground truth and the device memory held;
-  5. pdx      the same PDScanning+ method, unrefitted, served from the PDX
+              every stream session from here on: its timed batches replay
+              the graph captured by its first batch, and no batch
+              captures another;
+  6. pdx      the same PDScanning+ method, unrefitted, served from the PDX
               layout (SchedulePolicy(dim_groups=4), dco_scan_grouped) with
               the same record, its ids held against the flat path's;
-  6. ivf      an IVF index over the 1M corpus (n_list = 4096, the 4 sqrt(N)
+  7. ivf      an IVF index over the 1M corpus (n_list = 4096, the 4 sqrt(N)
               rule of Faiss's wiki for about 1M vectors; nprobe = 64) built
               on the host, served on the card by the same fitted
               PDScanning+ (flat: dco_scan; PDX: dco_scan_grouped) and
@@ -28,18 +40,23 @@ Phases, one JSON line each:
               ids held against the port's host IVF (IVFIndex.search through
               scan_topk) for every query, and 0 uncertified at the row
               block's budget;
-  7. delta    the LSM write path: PDScanning+ fitted on 1M - 4,096 rows,
+  8. delta    the LSM write path: PDScanning+ fitted on 1M - 4,096 rows,
               the last 4,096 added (the "delta" mode), its ids held against
               a freshly materialized session on the same method, the next
               add a "merge"; then an IVF delta at 100k rows (n_list = 64,
               nprobe = n_list) held against the host IVF;
-  8. two_stage the 1M PDScanning+ on engine="two_stage" (no kernel): QPS,
+  9. two_stage the 1M PDScanning+ on engine="two_stage" (no kernel): QPS,
               recall, per-query survivors against its capacity, ids held
               against the streaming engine's where nothing was cut;
-  9. rules    all 8 methods at 100k x 960 with the same queries, and each
+ 10. host     backend="host" (the numpy scan) over the first 100k rows
+              with 10 queries, its ids held against the torch backend's;
+              HNSW built on the first 3,000 rows with FDScanning and
+              PDScanning+ (build seconds, DCOs and dims scanned), recall@10
+              of its walk;
+ 11. rules    all 8 methods at 100k x 960 with the same queries, and each
               method that groups again at dim_groups = 4 (and PDScanning+
               on the inline R-cut path);
- 10. profile  for each 1M session (flat, PDX, DDCopq), served again from
+ 12. profile  for each 1M session (flat, PDX, DDCopq), served again from
               its fitted method: one batch under torch.profiler (device
               operations, zero fills, CUDA runtime calls, device-busy share
               against the phase's unprofiled wall), then its kernel's time
@@ -89,6 +106,11 @@ DELTA_ROWS = 4096                # SchedulePolicy.delta_merge_threshold
 #: 512 left some uncertified at 1M on the card (lists of up to 1,026
 #: rows).  The default budget's share is logged beside it.
 IVF_BLOCK_CAPACITY = 4096
+HOST_QUERIES = 10                # the numpy scan takes about 1 s a query
+HNSW_ROWS = 3000                 # a graph built row by row in Python
+HNSW_PARAMS = {"m": 16, "ef_construction": 100}
+HNSW_EF = 64
+GRAPH_PAIRS = 5                  # interleaved eager / graph batches
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12          # H100 SXM data sheet, fp32 outside the TCs
 
@@ -386,6 +408,9 @@ def run_method(X, Q, gt, method, dev, *, fitted=None, schedule=None,
     sess.search(Q, K, nprobe=nprobe)            # materializes the layout
     first_s = time.perf_counter() - t0
     torch.cuda.synchronize()
+    graphs = sess.backend._graphs
+    captured = set(map(id, graphs.values()))
+    replays = sum(g.replays for g in graphs.values())
     dco_mod.launches = dco_mod.grouped_launches = pq_mod.launches = 0
     t0 = time.perf_counter()
     res = sess.search(Q, K, nprobe=nprobe)      # ends in a device->host copy
@@ -397,6 +422,13 @@ def run_method(X, Q, gt, method, dev, *, fitted=None, schedule=None,
         t0 = time.perf_counter()
         res = sess.search(Q, K, nprobe=nprobe)
         walls.append(time.perf_counter() - t0)
+    if sess.backend._resolved_engine() == "stream":
+        # the timed batches replay the graph the first batch captured
+        chunks = -(-Q.shape[0] // min(sess.policy.query_chunk, Q.shape[0]))
+        check(set(map(id, graphs.values())) == captured
+              and sum(g.replays for g in graphs.values()) - replays
+              == 3 * chunks, f"{method}: a timed batch did not replay the "
+              "captured block walk")
     ex = res.stats.extra
     rec = {
         "method": method, "dim_groups": sess.policy.dim_groups,
@@ -420,6 +452,7 @@ def run_method(X, Q, gt, method, dev, *, fitted=None, schedule=None,
         "device_bytes_before": before,
         "device_bytes_peak": torch.cuda.max_memory_allocated(dev),
         "launches_per_batch": launches,
+        "graphs": [graph_record(g) for g in graphs.values()],
     }
     codes = (sess.backend._blocks or {}).get("codes")
     if codes is not None:           # DDCopq: the PQ codes' share of it
@@ -459,7 +492,8 @@ def profile_batch(sess, Q, wall_s: float, nprobe: int = NPROBE) -> dict:
                 fills += e.count if "FillFunctor" in e.key else 0
             top.append((us, e.count, e.key[:60]))
         elif e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel",
-                               "cudaMemcpy", "cudaMemset")):
+                               "cudaGraphLaunch", "cudaMemcpy",
+                               "cudaMemset")):
             runtime += e.count
     top.sort(reverse=True)
     return {
@@ -498,13 +532,18 @@ def device_ops(fn) -> int:
     """The device operations one call of ``fn`` issues: the nodes of a CUDA
     graph that captures it (``fn`` warmed up first).  A graph, unlike a
     profiler session, sees every operation whatever ran before it."""
-    import ctypes
     import torch
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
+    return graph_nodes(graph)
+
+
+def graph_nodes(graph) -> int:
+    """The nodes of a CUDA graph captured with ``keep_graph=True``."""
+    import ctypes
     libcuda = ctypes.CDLL("libcuda.so.1")
     libcuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                         ctypes.POINTER(ctypes.c_size_t)]
@@ -513,6 +552,27 @@ def device_ops(fn) -> int:
                                   ctypes.byref(count))
     check(err == 0, f"cuGraphGetNodes failed ({err})")
     return count.value
+
+
+def graph_pool_bytes(graph):
+    """Device bytes reserved by a CUDA graph's private memory pool (the
+    segments the caching allocator tags with its pool id), or None when
+    this PyTorch's memory snapshot has no pool ids."""
+    import torch
+    segments = torch.cuda.memory_snapshot()
+    if segments and "segment_pool_id" not in segments[0]:
+        return None
+    pool = tuple(graph.pool())
+    return sum(seg["total_size"] for seg in segments
+               if tuple(seg["segment_pool_id"]) == pool)
+
+
+def graph_record(g) -> dict:
+    """What one captured block walk (stream_engine._ChunkGraph) holds."""
+    return {"capture_s": g.capture_s, "nodes": graph_nodes(g.graph),
+            "pool_bytes": graph_pool_bytes(g.graph),
+            "launches_per_replay": list(g.launches), "replays": g.replays,
+            "chunk": int(g.inputs["ql"].shape[0])}
 
 
 def time_dco_scan(sess, Q, res, dev):
@@ -1005,6 +1065,283 @@ def phase_two_stage(X, Q, gt, pdsp, flat_ids, dev):
     return rec
 
 
+def selection_agreement(be, ql_t, tau, dev):
+    """The top-k selection (stream_engine._smallest) against the stable
+    sort it replaced, on the engine's real score rows of the 1M flat
+    session: the masked estimates of the first query chunk over seven row
+    blocks spread through the corpus (the completion cut, C + 1 of
+    B columns), and the (chunk, N) estimate rows of the two-stage engine
+    (its anchor and capacity cuts).  Equal columns are required where the
+    rows hold no -0.0 (the sort put it beside +0.0, the reference's
+    top_k below it); the times of both on the (chunk, N) rows too."""
+    import torch
+    from repro_torch.core.stream_engine import _smallest
+    from repro_torch.kernels import ops
+    blocks = be._blocks
+    c = be._config(K).query_chunk
+    q, tau = ql_t[:c], tau[:c]
+    nb = blocks["xl"].shape[0]
+    sc = torch.ones(1, device=dev)
+    rows = []
+    for b in range(0, nb, -(-nb // 7)):
+        nr = (blocks["ids"][b] >= 0).sum(dtype=torch.int32)
+        p, kp, _, _ = ops.dco_scan_op(blocks["xl"][b], q, tau, sc, nr,
+                                      block_n=256, block_d=128)
+        rows.append((torch.where(kp.T.bool(), p.T, float("inf")), 129))
+    x = blocks["xl"].reshape(-1, blocks["xl"].shape[-1])
+    est = torch.clamp_min(blocks["lsq"].reshape(1, -1) - 2.0 * (q @ x.T)
+                          + (q * q).sum(1)[:, None], 0.0)
+    est = torch.where(blocks["ids"].reshape(1, -1) >= 0, est, float("inf"))
+    rows += [(est, K), (est, 2048)]
+    out = {"rows": 0, "rows_equal": 0, "rows_with_negative_zero": 0}
+    for score, n in rows:
+        _, idx = _smallest(score, n)
+        _, sidx = torch.sort(score, dim=1, stable=True)
+        same = (idx == sidx[:, :n]).all(1)
+        negz = ((score == 0) & torch.signbit(score)).any(1)
+        out["rows"] += score.shape[0]
+        out["rows_equal"] += int(same.sum())
+        out["rows_with_negative_zero"] += int(negz.sum())
+        check(bool(same[~negz].all()), f"the selection and the stable sort "
+              f"disagree on a score row without -0.0 (width "
+              f"{score.shape[1]}, n {n})")
+    out["two_stage_row_width"] = int(est.shape[1])
+    out["selection_ms_n2048"] = cuda_ms(lambda: _smallest(est, 2048), reps=10)
+    out["stable_sort_ms"] = cuda_ms(
+        lambda: torch.sort(est, dim=1, stable=True), reps=10)
+    return out
+
+
+def phase_graph(X, Q, gt, dev):
+    """C1 on the card: the flat PDScanning+ session's block walk run eagerly
+    (the eager chunks of stream_engine._stream_topk_padded) against the
+    walk captured once as a CUDA graph and replayed per chunk
+    (stream_topk with the backend's graph cache).  The eager walls come
+    first: a capture slows every later eager launch of the process.
+    Returns the fitted method."""
+    import numpy as np
+    import torch
+    from repro_torch.api import SchedulePolicy, SearchSession, open_index
+    from repro_torch.core import stream_engine as se
+    from repro_torch.kernels import dco_scan as dco_mod
+    from repro_torch.kernels import pq_lookup as pq_mod
+    from repro_torch.vecdata import recall_at_k
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    sess = open_index(X, method="PDScanning+", device=dev)
+    fit_s = time.perf_counter() - t0
+    be = sess.backend
+    t0 = time.perf_counter()
+    be._materialize()
+    materialize_s = time.perf_counter() - t0
+    cfg = be._config(K)
+    check(cfg.use_kernel, "the session does not screen with the kernel")
+    st, blocks = be._state, be._blocks
+    ql, qt, _ = be._prep_queries(Q)
+    ql_t = torch.as_tensor(np.ascontiguousarray(ql), device=dev)
+    qt_t = torch.as_tensor(np.ascontiguousarray(qt), device=dev)
+    nq, c = Q.shape[0], cfg.query_chunk
+    pad = (-nq) % c
+    qlp = torch.nn.functional.pad(ql_t, (0, 0, 0, pad))
+    qtp = torch.nn.functional.pad(qt_t, (0, 0, 0, pad))
+
+    def eager():
+        out = se._stream_topk_padded(st, blocks, qlp, qtp, {}, None, cfg)
+        torch.cuda.synchronize()
+        return tuple(o[:nq] for o in out)
+
+    def graphed():
+        out = se.stream_topk(st, ql_t, qt_t, cfg, blocks=blocks,
+                             graphs=be._graphs)
+        torch.cuda.synchronize()
+        return out
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return time.perf_counter() - t0, out
+
+    eager()                                     # the allocator's first pass
+    eager_walls = []
+    for _ in range(3):
+        wall, want = timed(eager)
+        eager_walls.append(wall)
+    check(not be._graphs, "a graph was captured before the eager walls")
+    first_s, got = timed(graphed)               # capture, then 7 replays
+    (g,) = be._graphs.values()
+    pairs = []
+    for _ in range(GRAPH_PAIRS):
+        e_wall, again = timed(eager)
+        g_wall, got = timed(graphed)
+        pairs.append([e_wall, g_wall])
+        check(all(torch.equal(a, b) for a, b in zip(again, want)),
+              "the eager walk is not deterministic")
+    names = ("dists", "ids", "survivors", "passed", "dropped_min_est",
+             "dims")
+    equal = {n: bool(torch.equal(a, b)) for n, a, b in zip(names, got, want)}
+    dco_mod.launches = dco_mod.grouped_launches = pq_mod.launches = 0
+    graphed()
+    per_batch = {"dco_scan": dco_mod.launches,
+                 "dco_scan_grouped": dco_mod.grouped_launches,
+                 "pq_lookup": pq_mod.launches}
+    n_blocks = int(blocks["xl"].shape[0])
+    chunks = -(-nq // c)
+    # the session replays the same graph (its search builds the same key)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = sess.search(Q, K)
+        walls.append(time.perf_counter() - t0)
+    want_np = [w.cpu().numpy() for w in want]
+    cert = want_np[4] <= want_np[0][:, -1]
+    rec = {
+        "method": "PDScanning+", "n": int(X.shape[0]), "nq": nq,
+        "fit_s": fit_s, "materialize_s": materialize_s,
+        "row_blocks": n_blocks, "chunks": chunks,
+        "eager_walls_first_s": eager_walls, "first_graph_batch_s": first_s,
+        "pairs_eager_graph_s": pairs,
+        "graph_wins": sum(gw < ew for ew, gw in pairs),
+        "outputs_equal": equal, "graphs": len(be._graphs),
+        **graph_record(g), "launches_per_batch": per_batch,
+        "session_walls_s": walls,
+        "session_qps": float(nq / np.median(walls)),
+        "eager_qps_first": float(nq / np.median(eager_walls)),
+        "recall_at_10": recall_at_k(res.ids, gt),
+        "uncertified_queries": res.stats.extra["uncertified_queries"],
+        "session_ids_equal_eager": bool(np.array_equal(res.ids,
+                                                       want_np[1])),
+        "session_certificate_equal_eager": bool(np.array_equal(
+            res.stats.extra["uncertified_mask"], cert)),
+        "device_bytes_held": torch.cuda.memory_allocated(dev),
+    }
+    # one chunk of 100 queries: one replay of the block walk a batch
+    wide = SearchSession(sess.method, SchedulePolicy(query_chunk=100),
+                         device=dev)
+    t0 = time.perf_counter()
+    wres = wide.search(Q, K)
+    wide_first_s = time.perf_counter() - t0
+    dco_mod.launches = 0
+    wide_walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        wres = wide.search(Q, K)
+        wide_walls.append(time.perf_counter() - t0)
+    (wg,) = wide.backend._graphs.values()
+    stat_keys = ("survivors_mean", "screen_pass_mean", "dims_read_mean",
+                 "uncertified_queries")
+    rec["query_chunk_100"] = {
+        "first_search_s": wide_first_s, "walls_s": wide_walls,
+        "qps": float(nq / np.median(wide_walls)),
+        "dco_scan_launches_3_batches": dco_mod.launches,
+        "ids_equal": bool(np.array_equal(wres.ids, res.ids)),
+        "stats_equal": all(wres.stats.extra[k] == res.stats.extra[k]
+                           for k in stat_keys),
+        **graph_record(wg)}
+    del wide, wres
+    rec["selection"] = selection_agreement(be, ql_t, got[0][:, -1], dev)
+    log("graph", **rec, phase_s=time.perf_counter() - t_phase)
+    check(all(equal.values()), f"the replayed walk differs from the eager "
+          f"walk on the card: {equal}")
+    check(rec["session_ids_equal_eager"]
+          and rec["session_certificate_equal_eager"],
+          "the session's ids or certificate differ from the eager walk")
+    check(per_batch["dco_scan"] == chunks * n_blocks
+          and sum(per_batch.values()) == per_batch["dco_scan"],
+          f"a replayed batch counted {per_batch}, not {chunks * n_blocks} "
+          "dco_scan launches")
+    check(rec["graphs"] == 1, "the session captured more than one graph")
+    check(rec["graph_wins"] >= GRAPH_PAIRS - 1, "the graph's wall was not "
+          f"below the eager walk's in {GRAPH_PAIRS - 1} of {GRAPH_PAIRS} "
+          "pairs")
+    check(rec["recall_at_10"] == 1.0 and rec["uncertified_queries"] == 0.0,
+          "the graphed session is not exact")
+    q100 = rec["query_chunk_100"]
+    check(q100["ids_equal"] and q100["stats_equal"]
+          and q100["dco_scan_launches_3_batches"] == 3 * n_blocks,
+          "query_chunk = 100 changed the result or its launches")
+    check(SchedulePolicy().query_chunk == 16, "the default query chunk moved")
+    method = sess.method
+    del sess, res, be, st, blocks, want, got, again
+    torch.cuda.empty_cache()
+    return method
+
+
+def phase_host(Xr, Q, gt_r, dev):
+    """A1 on the chip machine's host: backend="host" over the first 100k
+    rows against the torch backend on the same fitted method, and HNSW
+    builds with FDScanning and PDScanning+ on the first HNSW_ROWS rows."""
+    import numpy as np
+    import torch
+    from repro_torch.api import SchedulePolicy, SearchSession, open_index
+    from repro_torch.core.engine import ScanStats
+    from repro_torch.core.methods import make_method
+    from repro_torch.search.hnsw import HNSWIndex
+    from repro_torch.vecdata import recall_at_k
+
+    t_phase = time.perf_counter()
+    Qh = Q[:HOST_QUERIES]
+    t0 = time.perf_counter()
+    sess = open_index(Xr, method="PDScanning+", backend="host")
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = sess.search(Qh, K)
+    host_s = time.perf_counter() - t0
+    card = SearchSession(sess.method, SchedulePolicy(), device=dev)
+    cres = card.search(Qh, K)
+    same = same_sets(res.ids, cres.ids)
+    rec = {"n": int(Xr.shape[0]), "nq": HOST_QUERIES, "fit_s": fit_s,
+           "host_search_s": host_s, "host_qps": HOST_QUERIES / host_s,
+           "torch_ids_equal": int(same.sum()),
+           "torch_ids_equal_in_order": int((res.ids == cres.ids).all(1).sum()),
+           "recall_at_10": recall_at_k(res.ids, gt_r[:HOST_QUERIES]),
+           "dims_read_mean": res.stats.extra["dims_read_mean"],
+           "uncertified_queries": res.stats.extra["uncertified_queries"]}
+    del card, cres
+    Xh = np.ascontiguousarray(Xr[:HNSW_ROWS])
+    gt_h = ground_truth(Xh, Q)
+    sched = SchedulePolicy().stage_dims(Xh.shape[1])
+    builds, links = {}, {}
+    for name in ("FDScanning", "PDScanning+"):
+        t0 = time.perf_counter()
+        m = make_method(name).fit(Xh)
+        method_fit_s = time.perf_counter() - t0
+        stats = ScanStats()
+        t0 = time.perf_counter()
+        idx = HNSWIndex(**HNSW_PARAMS).build(Xh, method=m, schedule=sched,
+                                             stats=stats)
+        build_s = time.perf_counter() - t0
+        hs = SearchSession(m, index_kind="hnsw", index=idx, backend="host")
+        t0 = time.perf_counter()
+        hres = hs.search(Q, K, ef=HNSW_EF)
+        search_s = time.perf_counter() - t0
+        links[name] = idx.links
+        builds[name] = {
+            "fit_s": method_fit_s, "build_s": build_s,
+            "build_n_dco": stats.n_dco, "build_dims_scanned":
+                stats.dims_scanned, "build_dims_total": stats.dims_total,
+            "build_pruning_ratio": stats.pruning_ratio,
+            "max_level": idx.max_level, "search_s": search_s,
+            "qps": Q.shape[0] / search_s,
+            "recall_at_10": recall_at_k(hres.ids, gt_h),
+            "search_dims_read_mean": hres.stats.extra["dims_read_mean"]}
+    same_links = sum(
+        all(np.array_equal(a, b) for a, b in zip(la, lb))
+        for la, lb in zip(links["FDScanning"], links["PDScanning+"]))
+    log("host", **rec, hnsw_rows=HNSW_ROWS, hnsw_params=HNSW_PARAMS,
+        hnsw_ef=HNSW_EF, hnsw=builds,
+        hnsw_nodes_with_equal_links=int(same_links),
+        phase_s=time.perf_counter() - t_phase)
+    check(bool(same.all()), "the host backend's ids differ from the torch "
+          f"backend's on {int((~same).sum())} queries")
+    check(rec["recall_at_10"] == 1.0, "the host flat scan is not exact")
+    for name, b in builds.items():
+        check(b["recall_at_10"] >= 0.75, f"HNSW {name} recall@10 "
+              f"{b['recall_at_10']} below 0.75")
+    del sess, res
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1048,8 +1385,9 @@ def main() -> int:
     log("data", shape=list(X.shape), nq=int(Q.shape[0]), gen_s=gen_s,
         ground_truth_s=time.perf_counter() - t0)
 
+    pdsp = phase_graph(X, Q, gt, dev)
     t0 = time.perf_counter()
-    sess, res, rec = run_method(X, Q, gt, "PDScanning+", dev)
+    sess, res, rec = run_method(X, Q, gt, "PDScanning+", dev, fitted=pdsp)
     log("main", **rec, phase_s=time.perf_counter() - t0)
     check(rec["recall_at_10"] == 1.0, "PDScanning+ recall@10 below 1.0")
     check(rec["uncertified_queries"] == 0.0, "PDScanning+ left queries "
@@ -1115,6 +1453,7 @@ def main() -> int:
     phase_delta(X, Q, gt, Xr, gt_r, dev)
     ts_rec = phase_two_stage(X, Q, gt, pdsp, flat_ids, dev)
     del X
+    phase_host(Xr, Q, gt_r, dev)
 
     t0 = time.perf_counter()
     fd_ids = None

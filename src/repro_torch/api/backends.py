@@ -1,4 +1,10 @@
-"""The torch backend behind ``SearchSession``.
+"""The backends behind ``SearchSession``: the torch backend and the host
+backend.
+
+``HostBackend`` is a numpy copy of the reference package's host backend:
+the staged scan (``core.engine.scan_topk``) over a flat corpus, an IVF
+partition probe (``search.ivf.IVFIndex.search``) or an HNSW graph walk
+(``search.hnsw.HNSWIndex.search``), on the host.  It runs no kernel.
 
 ``TorchBackend`` is the counterpart of the reference package's
 ``JaxBackend`` on one device (a CUDA card unless the caller asks for the
@@ -9,8 +15,10 @@ index, and serves batched searches through the streaming engine
 (``SchedulePolicy(engine="two_stage")``) from a row-major layout.
 Inserts take the LSM-style write path: new rows are served from a small
 delta segment scanned after the cached main blocks until the delta
-exceeds ``SchedulePolicy.delta_merge_threshold`` rows.  The adaptive
-policy, guardrails, deadlines and the mesh are not ported yet.
+exceeds ``SchedulePolicy.delta_merge_threshold`` rows.  On a CUDA device
+each query chunk's block walk replays a CUDA graph cached beside the
+layout (``stream_engine._ChunkGraph``).  The adaptive policy (ROADMAP A3),
+deadlines (A4), guardrails (A5) and the mesh (A7) are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,7 +30,8 @@ from repro_torch.core.engine import (EXTRA_COVERAGE, EXTRA_DIMS_READ_MEAN,
                                      EXTRA_SCREEN_PASS_MEAN,
                                      EXTRA_SURVIVORS_MEAN,
                                      EXTRA_UNCERTIFIED_MASK,
-                                     EXTRA_UNCERTIFIED_QUERIES, ScanStats)
+                                     EXTRA_UNCERTIFIED_QUERIES, QueryBatch,
+                                     ScanStats, scan_topk)
 from repro_torch.core.stream_engine import (append_stream_blocks,
                                             build_stream_blocks, stream_topk)
 from repro_torch.core.torch_engine import (DcoEngineConfig,
@@ -52,6 +61,72 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+class HostBackend:
+    """Numpy staged-scan execution over flat / IVF / HNSW candidates."""
+
+    name = "host"
+
+    def __init__(self, method, index_kind: str, index, policy):
+        self.method = method
+        self.index_kind = index_kind
+        self.index = index
+        self.policy = policy
+
+    def invalidate(self):
+        """No-op: nothing is cached on the host path."""
+
+    def notify_append(self, n_new: int, parts=None) -> str:
+        """Inserts need no layout work on the host path (the scan reads the
+        method's live numpy arrays); returns the write mode for telemetry
+        parity with the torch backend."""
+        return "noop"
+
+    def search(self, Q, k: int, *, nprobe: int, ef: int):
+        """Batched staged-scan top-k; returns (dists, ids, stats)."""
+        m = self.method
+        batch = QueryBatch.create(m, Q, self.policy.stage_dims(m.state["D"]))
+        dists = np.empty((len(batch), k), np.float32)
+        ids = np.empty((len(batch), k), np.int64)
+        all_ids = None
+        for qi in range(len(batch)):
+            if self.index_kind == "flat":
+                if all_ids is None:
+                    all_ids = np.arange(m.state["N"])
+                d, i = scan_topk(m, batch, qi, all_ids, k)
+            elif self.index_kind == "ivf":
+                d, i = self.index.search(m, batch, qi, k, nprobe)
+            else:                   # hnsw
+                d, i = self.index.search(m, batch, qi, k, max(ef, k))
+            n = min(k, len(d))
+            dists[qi, :n], ids[qi, :n] = d[:n], i[:n]
+            if n < k:
+                dists[qi, n:], ids[qi, n:] = np.inf, -1
+        self._finalize_stats(batch.stats, len(batch))
+        return dists, ids, batch.stats
+
+    @staticmethod
+    def _finalize_stats(stats, nq: int) -> None:
+        """Fold scan accumulators into the canonical ``extra`` telemetry
+        keys (api.types.STAT_EXTRA_KEYS) so host batches report the same
+        fields as the torch backend.  Every host survivor is exactly
+        completed, so every query is certified and covered.  The adaptive
+        keys come with the adaptive policy (ROADMAP A3): a fixed scan
+        reports none, as the reference's ``finalize_adaptive_extra`` then
+        adds none."""
+        completed = stats.extra.pop("_completed_total", None)
+        if completed is not None:
+            # no completion budget on the host scan: pass == completed
+            stats.extra[EXTRA_SURVIVORS_MEAN] = completed / max(nq, 1)
+            stats.extra[EXTRA_SCREEN_PASS_MEAN] = completed / max(nq, 1)
+        coverage = np.ones(nq, np.float32)
+        stats.extra[EXTRA_COVERAGE] = coverage
+        stats.extra[EXTRA_UNCERTIFIED_MASK] = coverage < 1.0
+        stats.extra[EXTRA_UNCERTIFIED_QUERIES] = float(
+            (coverage < 1.0).mean())
+        stats.extra[EXTRA_DIMS_READ_MEAN] = (
+            stats.dims_scanned / max(stats.n_dco, 1))
+
+
 class TorchBackend:
     """Streaming DCO search over a flat or IVF-probed corpus on one torch
     device, with an LSM-style delta segment for inserts."""
@@ -72,6 +147,9 @@ class TorchBackend:
         self._groups = 1            # PDX dim groups of that layout
         self._list_sizes = None     # IVF partition sizes (probe stats)
         self._cfg_cache: dict = {}  # k -> DcoEngineConfig
+        # captured block walks (stream_engine._ChunkGraph) over the cached
+        # layout; a graph holds its addresses, so it goes with the layout
+        self._graphs: dict = {}
         # ---- LSM-style delta segment ----
         self._n_main = 0            # rows in the materialized main layout
         self._delta_parts = np.empty(0, np.int32)   # IVF parts of delta rows
@@ -91,6 +169,7 @@ class TorchBackend:
         self._groups = 1
         self._list_sizes = None
         self._cfg_cache.clear()
+        self._graphs.clear()
         self._n_main = 0
         self._delta_parts = np.empty(0, np.int32)
         self._delta_blocks = self._delta_state = None
@@ -197,6 +276,7 @@ class TorchBackend:
             dstate["row_part"] = dev(parts)
         if codes is not None:
             dstate["codes"] = dev(codes)
+        self._graphs.clear()        # they walk the layout being replaced
         self._delta_blocks = append_stream_blocks(self._blocks, dstate)
         # thread the combined tail-norm minimum so the ddcres screen stays
         # as loose as fitted
@@ -381,7 +461,8 @@ class TorchBackend:
                     cand_per_q = cand_per_q + (
                         self._delta_parts[None, :nd, None]
                         == probed[:, None, :]).any(-1).sum(1)
-            out = stream_topk(st, ql_t, qt_t, cfg, qe_t, probe, blocks=blocks)
+            out = stream_topk(st, ql_t, qt_t, cfg, qe_t, probe, blocks=blocks,
+                              graphs=self._graphs)
             d, i, surv, passed, dmin, dims_read = (o.cpu().numpy()
                                                    for o in out)
         stats = ScanStats(n_dco=int(cand_per_q.sum()),
@@ -422,12 +503,13 @@ class TorchBackend:
 
 def make_backend(name: str, method, policy, *, index_kind: str = "flat",
                  index=None, device=None):
-    """Construct the executor for ``name``; only ``"torch"`` is ported."""
+    """Construct the executor for ``name``: ``"torch"`` (the device
+    engines on ``device``) or ``"host"`` (the numpy scan; ``device`` is
+    not used)."""
     if name == "torch":
         return TorchBackend(method, policy, index_kind=index_kind,
                             index=index, device=device)
     if name == "host":
-        raise NotImplementedError(
-            "backend='host' (the numpy staged scan) is not ported yet "
-            "(ROADMAP A4)")
-    raise ValueError(f"unknown backend {name!r} (expected 'torch')")
+        return HostBackend(method, index_kind, index, policy)
+    raise ValueError(f"unknown backend {name!r} (expected 'torch' or "
+                     "'host')")

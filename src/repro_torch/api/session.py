@@ -1,7 +1,8 @@
 """The facade: ``open_index(...)`` -> ``SearchSession``.
 
-Counterpart of the reference package's ``api/session.py`` for the
-streaming search on a torch device, over a flat or an IVF index:
+Counterpart of the reference package's ``api/session.py``: the streaming
+search on a torch device over a flat or an IVF index, and the numpy host
+backend over a flat, IVF or HNSW index:
 
     sess = open_index(X, method="PDScanning+")       # fits, runs on CUDA
     res = sess.search(Q, k=10)                       # res.ids (nq, k)
@@ -14,6 +15,9 @@ streaming search on a torch device, over a flat or an IVF index:
                      schedule=SchedulePolicy(dim_groups=4))
     two = open_index(X, method="PDScanning+",        # the one-shot engine
                      schedule=SchedulePolicy(engine="two_stage"))
+    hnsw = open_index(X, index="hnsw", method="PDScanning+",
+                      backend="host", index_params={"m": 16})
+    res = hnsw.search(Q, k=10, ef=64)                # the host graph walk
 
 Options the port does not serve yet raise ``NotImplementedError`` naming
 their ROADMAP item.
@@ -27,9 +31,11 @@ import numpy as np
 from repro_torch.api.backends import make_backend, resolve_device
 from repro_torch.api.types import SchedulePolicy, SearchResult
 from repro_torch.core.methods import ALL_METHODS, make_method
+from repro_torch.search.hnsw import HNSWIndex
 from repro_torch.search.ivf import IVFIndex
 
-INDEX_KINDS = ("flat", "ivf")
+INDEX_KINDS = ("flat", "ivf", "hnsw")
+BACKENDS = ("torch", "host")
 METHODS = tuple(ALL_METHODS)
 
 
@@ -37,22 +43,23 @@ def _unsupported(policy: SchedulePolicy) -> None:
     """Refuse schedule options whose engine paths are not ported yet."""
     if policy.adaptive:     # with dim_groups > 1 too: the adaptive PDX escape
         raise NotImplementedError(
-            "SchedulePolicy(adaptive=True) is not ported yet (ROADMAP A7)")
+            "SchedulePolicy(adaptive=True) is not ported yet (ROADMAP A3)")
     if policy.guardrails is not None and policy.guardrails is not False:
         raise NotImplementedError(
-            "SchedulePolicy(guardrails=...) is not ported yet (ROADMAP A10)")
+            "SchedulePolicy(guardrails=...) is not ported yet (ROADMAP A5)")
     if policy.engine not in ("stream", "two_stage"):
         raise ValueError(f"SchedulePolicy(engine={policy.engine!r}): "
                          "expected 'stream' or 'two_stage'")
     if policy.faults is not None:
         raise NotImplementedError(
-            "SchedulePolicy(faults=...) is not ported yet (ROADMAP A8)")
+            "SchedulePolicy(faults=...) is not ported yet (ROADMAP A4)")
 
 
 class SearchSession:
-    """A fitted method + built index + the torch backend, behind batched
-    calls.  ``index_kind`` is ``"flat"`` (``index`` None) or ``"ivf"``
-    (``index`` a built ``IVFIndex``)."""
+    """A fitted method + built index + a backend, behind batched calls.
+    ``index_kind`` is ``"flat"`` (``index`` None), ``"ivf"`` (``index`` a
+    built ``IVFIndex``) or ``"hnsw"`` (a built ``HNSWIndex``, host backend
+    only); ``backend`` is ``"torch"`` (on ``device``) or ``"host"``."""
 
     def __init__(self, method, policy: SchedulePolicy | None = None, *,
                  index_kind: str = "flat", index=None,
@@ -60,6 +67,9 @@ class SearchSession:
         if index_kind not in INDEX_KINDS:
             raise ValueError(
                 f"index must be one of {INDEX_KINDS}, got {index_kind!r}")
+        if index_kind == "hnsw" and backend != "host":
+            raise ValueError("HNSW graph walks are host-side indexes: "
+                             "serve index_kind='hnsw' with backend='host'")
         self.method = method
         self.index_kind = index_kind
         self.index = index
@@ -82,18 +92,18 @@ class SearchSession:
 
     @property
     def backend_name(self) -> str:
-        """Executing backend: ``"torch"``."""
+        """Executing backend: ``"torch"`` or ``"host"``."""
         return self.backend.name
 
     def search(self, Q, k: int = 10, *, nprobe: int = 16, ef: int = 64,
                deadline_s: float | None = None) -> SearchResult:
         """Batched top-k for all rows of ``Q``; one online prep for the
         whole batch.  ``nprobe`` is the IVF probe width (ignored by a flat
-        index); ``ef`` is accepted for parity with the reference (unused
-        here: HNSW is not ported)."""
+        index); ``ef`` is the HNSW walk's candidate list width (ignored by
+        flat and IVF)."""
         if deadline_s is not None:
             raise NotImplementedError(
-                "search(deadline_s=...) is not ported yet (ROADMAP A8)")
+                "search(deadline_s=...) is not ported yet (ROADMAP A4)")
         Q = np.atleast_2d(np.asarray(Q))
         if Q.dtype.kind not in "fiu":
             raise ValueError(
@@ -115,7 +125,8 @@ class SearchSession:
         without refitting transforms, then assign the rows into the index.
         Below ``policy.delta_merge_threshold`` rows they land in a delta
         segment scanned after the cached main block layout (no
-        re-materialization); the write mode taken is readable as
+        re-materialization); an HNSW index links them into its graph
+        (``HNSWIndex.insert_batch``).  The write mode taken is readable as
         ``session.last_write_mode``."""
         Xnew = np.atleast_2d(np.asarray(Xnew))
         if Xnew.dtype.kind not in "fiu":
@@ -137,11 +148,16 @@ class SearchSession:
                 "computed against it, so it is rejected before any state "
                 "changes")
         parts = None
-        start = self.n
-        self.method.append(Xnew)
-        if self.index_kind == "ivf":
-            parts = self.index.insert(
-                np.arange(start, start + Xnew.shape[0]), Xnew)
+        if self.index_kind == "hnsw":
+            # insert_batch appends to the method itself, then links
+            self.index.insert_batch(self.method, Xnew,
+                                    schedule=self.policy.stage_dims(self.dim))
+        else:
+            start = self.n
+            self.method.append(Xnew)
+            if self.index_kind == "ivf":
+                parts = self.index.insert(
+                    np.arange(start, start + Xnew.shape[0]), Xnew)
         self.last_write_mode = self.backend.notify_append(
             Xnew.shape[0], parts=parts)
         return self
@@ -154,41 +170,45 @@ def open_index(X=None, *, index: str = "flat", method: str = "DADE",
                index_params: dict | None = None,
                train_queries=None, train_k: int = 10, seed: int = 0,
                device=None, mesh=None, serving: bool = False, path=None):
-    """Fit ``method`` on ``X``, build ``index`` and return a ready session
-    on ``device`` (default: the CUDA card; without one this raises
-    ``RuntimeError`` — pass ``device="cpu"`` to run on the CPU).
+    """Fit ``method`` on ``X``, build ``index`` and return a ready session.
+    The torch backend (the default) runs on ``device`` (default: the CUDA
+    card; without one this raises ``RuntimeError`` — pass ``device="cpu"``
+    to run on the CPU); ``backend="host"`` runs the numpy scan on the host.
 
     ``method`` is one of the paper's 8 (``METHODS``); training-based
     methods (DDCpca/DDCopq) are trained on ``train_queries`` (default: a
     sample of X rows) for ``k=train_k``.  ``index="ivf"`` builds an
-    ``IVFIndex(**index_params)`` (default ``n_list=64``) probed on the
-    device."""
-    if index == "hnsw":
-        raise NotImplementedError(
-            "index='hnsw' is not ported yet (ROADMAP A4, the host indexes)")
+    ``IVFIndex(**index_params)`` (default ``n_list=64``), probed on the
+    device by the torch backend; ``index="hnsw"`` an
+    ``HNSWIndex(**index_params)`` by DCO-screened insertion, walked by the
+    host backend only."""
     if index not in INDEX_KINDS:
         raise ValueError(f"index must be one of {INDEX_KINDS}, got {index!r}")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (expected one of "
+                         f"{BACKENDS})")
+    # fail before paying for an index the backend can't serve
+    if backend == "torch" and index == "hnsw":
+        raise ValueError(
+            f"backend='torch' serves index='flat' or 'ivf' (got {index!r}); "
+            "HNSW graph walks are host-side indexes (backend='host')")
     if mesh is not None:
         raise NotImplementedError("mesh sharding is not ported yet "
-                                  "(ROADMAP A12)")
+                                  "(ROADMAP A7)")
     if serving:
         raise NotImplementedError("the serving front is not ported yet "
-                                  "(ROADMAP A11)")
+                                  "(ROADMAP A6)")
     if path is not None:
         raise NotImplementedError("snapshots and the delta WAL are not "
-                                  "ported yet (ROADMAP A11)")
-    if backend == "host":
-        raise NotImplementedError("backend='host' is not ported yet "
-                                  "(ROADMAP A4)")
-    if backend != "torch":
-        raise ValueError(f"unknown backend {backend!r} (expected 'torch')")
+                                  "ported yet (ROADMAP A6)")
     if X is None:
         raise ValueError("open_index(): pass vectors X to build an index")
     if method not in ALL_METHODS:
         raise ValueError(f"method must be one of {METHODS}, got {method!r}")
     policy = schedule if schedule is not None else SchedulePolicy()
     _unsupported(policy)
-    device = resolve_device(device)     # fail before paying for the fit
+    if backend == "torch":
+        device = resolve_device(device)     # fail before paying for the fit
     X = np.ascontiguousarray(np.atleast_2d(X), np.float32)
     m = make_method(method, **{"seed": seed, **(method_params or {})})
     m.fit(X)
@@ -199,10 +219,13 @@ def open_index(X=None, *, index: str = "flat", method: str = "DADE",
                                          replace=False)]
         m.train(np.asarray(train_queries, np.float32), train_k,
                 policy.stage_dims(X.shape[1]))
+    params = dict(index_params or {})
     idx = None
     if index == "ivf":
-        params = dict(index_params or {})
         params.setdefault("n_list", 64)
         idx = IVFIndex(**params).build(X)
+    elif index == "hnsw":
+        idx = HNSWIndex(**params).build(X, method=m,
+                                        schedule=policy.stage_dims(X.shape[1]))
     return SearchSession(m, policy, index_kind=index, index=idx,
                          backend=backend, device=device)

@@ -9,7 +9,7 @@ the method's screening stages run with real compaction (survivors only
 move to the next stage), then exact distances are completed in original
 coordinates and merged into the running top-k, whose k-th distance is the
 DCO threshold ``tau``.  It is the oracle the IVF index searches through.
-The adaptive host policy (ROADMAP A7) and anytime deadlines (A8) are not
+The adaptive host policy (ROADMAP A3) and anytime deadlines (A4) are not
 ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -113,13 +113,13 @@ def scan_topk(method, batch: QueryBatch, qi: int, cand_ids, k, *,
     ``qi`` of ``batch``.  Stats accumulate into ``batch.stats``.
 
     ``policy`` with ``adaptive=True`` (the host fdscan fallback, ROADMAP
-    A7) and ``deadline_ts`` (anytime mode, A8) are not ported yet."""
+    A3) and ``deadline_ts`` (anytime mode, A4) are not ported yet."""
     if policy is not None and getattr(policy, "adaptive", False):
         raise NotImplementedError(
-            "the adaptive host policy is not ported yet (ROADMAP A7)")
+            "the adaptive host policy is not ported yet (ROADMAP A3)")
     if deadline_ts is not None:
         raise NotImplementedError(
-            "anytime deadlines are not ported yet (ROADMAP A8)")
+            "anytime deadlines are not ported yet (ROADMAP A4)")
     D = method.state["D"]
     ctx, stats = batch.ctx, batch.stats
     stages = method.stage_dims(batch.schedule)

@@ -17,16 +17,19 @@ order:
   merge       completed rows fold into a per-query top-k whose k-th
               distance tightens tau for every later block.
 
-``lax.scan`` / ``lax.map`` of the reference become Python loops over the
-cached blocks and the query chunks.  The block loop never synchronises
-with the host: ``nrows`` reaches the kernel as a 1-element device tensor
-and no value is read back per block.
+``lax.scan`` / ``lax.map`` of the reference become a Python loop over the
+cached blocks (:func:`_scan_blocks`, one query chunk) and one over the
+chunks.  The block loop never synchronises with the host: ``nrows``
+reaches the kernel as a 1-element device tensor and no value is read back
+per block.  On a CUDA device the block loop of a chunk is captured once
+as a CUDA graph and replayed for every chunk (:class:`_ChunkGraph`), as
+the reference compiles its ``lax.scan`` once; on the CPU it runs
+eagerly.
 
 Ties: XLA's ``top_k`` puts the lower index first among equal values, and
-``torch.topk`` promises no order, so every ``top_k`` of the reference is a
-stable ascending sort here (:func:`_smallest`).  A full sort of a
-(chunk, row_block) tile costs more than a top-k selection; that cost is a
-later performance item.
+``torch.topk`` promises no order, so every ``top_k`` of the reference is
+a ``torch.topk`` over a unique composite (value, column) key here
+(:func:`_smallest`): a partial selection, not a sort of the row.
 
 PDX vertical layout (``dim_groups`` > 1, DESIGN.md §8): the lead dims of a
 block are split into contiguous dim groups, ``xl`` (n_blocks, G, block, dg)
@@ -48,17 +51,20 @@ appended rows is laid out at the main layout's block width and its blocks
 concatenated after the main ones, so one running tau walks both.
 
 Not ported yet (each raises ``NotImplementedError``): anytime deadlines
-(ROADMAP A8) and the adaptive policy (A7), with it the adaptive PDX
+(ROADMAP A4) and the adaptive policy (A3), with it the adaptive PDX
 escape.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.core.torch_engine import DcoEngineConfig
+from repro_torch.kernels import dco_scan as _dco_mod
+from repro_torch.kernels import pq_lookup as _pq_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels.ops import (_widths, dco_scan_grouped_op,
                                      dco_scan_op, pq_lookup_op)
@@ -106,14 +112,26 @@ def _final_scale(cfg: DcoEngineConfig, state: dict, D: int, device):
         s = 1.0 / max(cfg.theta, 1e-9)
     else:
         raise ValueError(cfg.kind)
-    return torch.tensor(s, dtype=torch.float32, device=device)
+    # a fill, not a copy from the host: the walk is captured in a CUDA graph
+    return torch.full((), s, dtype=torch.float32, device=device)
 
 
 def _smallest(a, n: int):
-    """The ``n`` smallest entries of each row, ascending, lower index first
-    among ties — what the reference's ``lax.top_k(-a, n)`` selects."""
-    vals, idx = torch.sort(a, dim=1, stable=True)
-    return vals[:, :n], idx[:, :n]
+    """The ``n`` smallest entries of each float32 row, ascending, lower index
+    first among ties — what the reference's ``lax.top_k(-a, n)`` selects —
+    by a partial selection, not a sort of the row.
+
+    Each entry becomes one int64 key: the high 32 bits the order-preserving
+    int32 image of its float bits (as they are when non-negative, the low
+    31 bits flipped when negative, so -0.0 falls just below +0.0 as in
+    XLA's total order), the low 32 bits its column.  Keys are unique, so
+    ``torch.topk`` has no tie to break and its order is the reference's."""
+    bits = a.contiguous().view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    cols = torch.arange(a.shape[1], dtype=torch.int64, device=a.device)
+    _, idx = torch.topk((ordered << 32) | cols, n, dim=1, largest=False,
+                        sorted=True)
+    return torch.gather(a, 1, idx), idx
 
 
 def _merge_topk(best_d, best_i, new_d, new_i, k: int):
@@ -212,15 +230,20 @@ def append_stream_blocks(main: dict, delta_state: dict) -> dict:
     return {key: torch.cat([main[key], delta[key]]) for key in main}
 
 
-def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, B, D,
-                 pr=None, pspan=None):
+def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, pr=None,
+                 n_part: int = 0):
     """Walk every corpus row block for one query chunk (the reference's
     ``lax.scan`` of the fixed ``step``).  ``pr`` (c, nprobe) is the chunk's
-    IVF probe and ``pspan`` the layout's per-block partition span
-    (:func:`_partition_span`).  Returns (dists (c, k), ids (c, k),
-    survivors (c,), passed (c,), dropped_min_est (c,), dims (c,))."""
+    IVF probe and ``n_part`` the width of its probed-partition mask
+    (:func:`_probe_width`).  The same body runs eagerly on the CPU and is
+    captured into a CUDA graph on the card (:class:`_ChunkGraph`), so it
+    reads nothing back to the host and makes no host-to-device copy.
+    Returns (dists (c, k), ids (c, k), survivors (c,), passed (c,),
+    dropped_min_est (c,), dims (c,))."""
     dev = ql.device
     c = ql.shape[0]
+    B = xs["xl"].shape[-2]
+    D = ql.shape[1] + qt.shape[1]
     k = cfg.k
     C = min(cfg.block_capacity, B)
     Cp = min(C + 1, B)      # +1 slot observes the best DROPPED estimate
@@ -242,8 +265,11 @@ def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, B, D,
         # blocks whose partition span [pmin, pmax] holds a partition the
         # query probes, rowhits (c, nb, B) the rows of probed partitions
         # (a gather of the chunk's probed-partition mask), and the tau of
-        # an unprobed block (a tensor, so the gate fills nothing a step)
-        pmin, pmax, part_flat, n_part = pspan
+        # an unprobed block (a tensor, so the gate fills nothing a step);
+        # a block's partition span is [pmin, pmax] of its part plane
+        part = xs["part"]
+        pmin, pmax = part.amin(1).long(), part.amax(1).long()
+        part_flat = part.reshape(-1).long()
         tau_skip = torch.full((c,), -1.0, device=dev)
         prl = pr.long()
         hits = ((prl[:, None, :] >= pmin[None, :, None])
@@ -477,37 +503,123 @@ def _scan_blocks(cfg: DcoEngineConfig, state, xs, ql, qt, qe, B, D,
     return best_d, best_i, surv, passed, dmin, dims
 
 
-def _partition_span(xs: dict, probe):
-    """Per-block partition span (pmin (nb,), pmax (nb,)) of a partition-
-    major layout, its ``part`` plane flattened, and the width of a
-    probed-partition mask.  The width is read back to the host: one sync
-    per batch, before the block loop."""
-    part = xs["part"]
-    n_part = int(torch.maximum(part.max(), probe.max())) + 1
-    return (part.amin(1).long(), part.amax(1).long(),
-            part.reshape(-1).long(), n_part)
+def _probe_width(xs: dict, probe) -> int:
+    """The width of a probed-partition mask over a partition-major layout:
+    read back to the host, one sync per batch, before the block walk."""
+    return int(torch.maximum(xs["part"].max(), probe.max())) + 1
+
+
+def _chunk_inputs(q_lead, q_tail, q_extra: dict, probe, s: int, c: int):
+    """The per-chunk inputs of :func:`_scan_blocks`, rows [s, s + c)."""
+    chunk = {"ql": q_lead[s:s + c], "qt": q_tail[s:s + c]}
+    chunk.update({"qe." + key: v[s:s + c] for key, v in q_extra.items()})
+    if probe is not None:
+        chunk["pr"] = probe[s:s + c]
+    return chunk
+
+
+def _walk_chunk(cfg, state, xs, chunk: dict, n_part: int):
+    qe = {key[3:]: v for key, v in chunk.items() if key.startswith("qe.")}
+    return _scan_blocks(cfg, state, xs, chunk["ql"], chunk["qt"], qe,
+                        chunk.get("pr"), n_part)
+
+
+#: the kernel launch counters a captured walk replays (module, attribute)
+_COUNTERS = ((_dco_mod, "launches"), (_dco_mod, "grouped_launches"),
+             (_pq_mod, "launches"))
+
+
+def _launch_counts() -> tuple:
+    return tuple(getattr(m, name) for m, name in _COUNTERS)
+
+
+def _add_launches(counts) -> None:
+    for (m, name), n in zip(_COUNTERS, counts):
+        setattr(m, name, getattr(m, name) + n)
+
+
+class _ChunkGraph:
+    """One query chunk's whole block walk (:func:`_scan_blocks`: every row
+    block's screen, kernel launch, cut, completion and merge) captured
+    once as a CUDA graph and replayed for each chunk of every batch, the
+    port's counterpart of the reference's compiled ``lax.scan``.
+
+    The chunk's queries (and probe) are copied into static input buffers
+    before each replay; the six outputs live in the graph's private memory
+    pool and are copied out after it, as the next replay overwrites them.
+    The graph holds the addresses of the layout and state tensors, so it
+    keeps both alive.  Capture follows ``torch.cuda.graph``'s rule: one
+    eager walk of the chunk on the capture's side stream first (it builds
+    the kernel library, fills the wrappers' caches and the cuBLAS
+    workspaces), then the capture on that stream.  The wrappers count a
+    kernel where Python calls them, which during capture launches nothing,
+    so the counts a capture took are taken back and added on every replay.
+    A failed capture or replay raises."""
+
+    def __init__(self, cfg, state, xs, chunk: dict, n_part: int):
+        dev = chunk["ql"].device
+        self.inputs = {key: v.clone() for key, v in chunk.items()}
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            _walk_chunk(cfg, state, xs, self.inputs, n_part)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(self.graph, stream=side):
+            self.outputs = _walk_chunk(cfg, state, xs, self.inputs, n_part)
+        self.graph.instantiate()
+        self.capture_s = time.perf_counter() - t0
+        self.launches = tuple(a - b for a, b in zip(_launch_counts(), before))
+        _add_launches(-n for n in self.launches)
+        self.keep = (state, xs)
+        self.replays = 0
+
+    def run(self, chunk: dict, out: tuple, s: int) -> None:
+        """Replay on ``chunk`` and copy the outputs to rows [s, s + c) of
+        ``out``."""
+        for key, v in chunk.items():
+            self.inputs[key].copy_(v)
+        self.graph.replay()
+        self.replays += 1
+        _add_launches(self.launches)
+        for o, g in zip(out, self.outputs):
+            o[s:s + g.shape[0]].copy_(g)
 
 
 def _stream_topk_padded(state: dict, xs: dict, q_lead, q_tail,
-                        q_extra: dict, probe, cfg: DcoEngineConfig):
+                        q_extra: dict, probe, cfg: DcoEngineConfig,
+                        graphs: dict | None = None):
     """All query chunks of a batch whose size is a whole number of
-    chunks, concatenated (the reference's ``lax.map`` over chunks)."""
-    D = q_lead.shape[1] + q_tail.shape[1]
-    B = xs["xl"].shape[-2]
+    chunks, concatenated (the reference's ``lax.map`` over chunks).  With
+    ``graphs`` (a CUDA batch) each chunk replays the captured walk cached
+    there under (layout, state, cfg, chunk shapes, mask width), capturing
+    it on first use; without, the chunks are walked eagerly (the CPU)."""
     nq = q_lead.shape[0]
     c = min(cfg.query_chunk, nq)
-    pspan = None if probe is None else _partition_span(xs, probe)
-    outs = [
-        _scan_blocks(cfg, state, xs, q_lead[s:s + c], q_tail[s:s + c],
-                     {key: v[s:s + c] for key, v in q_extra.items()}, B, D,
-                     None if probe is None else probe[s:s + c], pspan)
-        for s in range(0, nq, c)]
-    return tuple(torch.cat([o[j] for o in outs]) for j in range(6))
+    n_part = 0 if probe is None else _probe_width(xs, probe)
+    chunks = [_chunk_inputs(q_lead, q_tail, q_extra, probe, s, c)
+              for s in range(0, nq, c)]
+    if graphs is None:
+        outs = [_walk_chunk(cfg, state, xs, ch, n_part) for ch in chunks]
+        return tuple(torch.cat([o[j] for o in outs]) for j in range(6))
+    key = (id(xs), id(state), cfg, n_part,
+           tuple((name, tuple(v.shape), v.dtype) for name, v in
+                 chunks[0].items()))
+    if key not in graphs:
+        graphs[key] = _ChunkGraph(cfg, state, xs, chunks[0], n_part)
+    g = graphs[key]
+    out = tuple(torch.empty((nq, *o.shape[1:]), dtype=o.dtype,
+                            device=o.device) for o in g.outputs)
+    for s, ch in zip(range(0, nq, c), chunks):
+        g.run(ch, out, s)
+    return out
 
 
 def stream_topk(state: dict, q_lead, q_tail, cfg: DcoEngineConfig,
                 q_extra: dict | None = None, probe=None, blocks=None,
-                deadline_ts: float | None = None):
+                deadline_ts: float | None = None, graphs: dict | None = None):
     """Streaming top-k over the corpus for a batch of rotated queries.
 
     q_lead (Q, d1), q_tail (Q, D - d1) tensors on the state's device.
@@ -529,13 +641,19 @@ def stream_topk(state: dict, q_lead, q_tail, cfg: DcoEngineConfig,
     ``cfg.dim_groups`` > 1 serves the scan from the PDX layout, with the
     R-cut's observer folded into ``dropped_min_est``; fdscan and opq force
     G = 1.  Cached ``blocks`` must have the group count
-    :func:`_effective_groups` resolves for ``cfg``, else ``ValueError``."""
+    :func:`_effective_groups` resolves for ``cfg``, else ``ValueError``.
+
+    On a CUDA device each query chunk replays one CUDA graph of the whole
+    block walk (:class:`_ChunkGraph`).  ``graphs`` is the cache of those
+    graphs that a caller keeps beside ``blocks`` and drops with them (a
+    graph holds the layout's addresses); without it the graphs live for
+    this call only.  On the CPU the chunks are walked eagerly."""
     if deadline_ts is not None:
         raise NotImplementedError(
-            "anytime deadlines are not ported yet (ROADMAP A8)")
+            "anytime deadlines are not ported yet (ROADMAP A4)")
     if cfg.policy is not None and getattr(cfg.policy, "adaptive", False):
         raise NotImplementedError(
-            "the adaptive policy is not ported yet (ROADMAP A7)")
+            "the adaptive policy is not ported yet (ROADMAP A3)")
     q_extra = dict(q_extra or {})
     if cfg.use_kernel is None:
         cfg = dataclasses.replace(cfg, use_kernel=q_lead.is_cuda)
@@ -563,6 +681,10 @@ def stream_topk(state: dict, q_lead, q_tail, cfg: DcoEngineConfig,
     if probe is not None and "part" not in blocks:
         raise ValueError("IVF probing needs a partition-major layout: "
                          "build the blocks from a state with row_part")
+    if not q_lead.is_cuda:
+        graphs = None
+    elif graphs is None:
+        graphs = {}
     out = _stream_topk_padded(state, blocks, q_lead, q_tail, q_extra, probe,
-                              cfg)
+                              cfg, graphs)
     return tuple(o[:nq] for o in out)

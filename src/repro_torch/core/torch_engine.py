@@ -8,7 +8,7 @@ query rotation and the legacy one-shot engine ``two_stage_topk``
 (query_chunk, N) estimate matrix per chunk with one ``torch.matmul`` and
 runs no hand-written kernel, as the reference forms it outside any Pallas
 kernel.  The streaming engine (``core.stream_engine``) is the default
-device path; the distributed wrapper is not ported yet (ROADMAP A12).
+device path; the distributed wrapper is not ported yet (ROADMAP A7).
 
 Per query chunk the two-stage engine computes
 

@@ -1,7 +1,8 @@
 """The port's facade (repro_torch.api) against the reference facade
-(repro.api, backend="jax") for all 8 methods, the options the port refuses,
-its device rule, the fitted-state converters, and the guard that keeps the
-port free of jax and of the reference package."""
+(repro.api, backend="jax") for all 8 methods, the host backend against the
+reference's (flat, IVF and HNSW), the options the port refuses, its device
+rule, the fitted-state converters, and the guard that keeps the port free
+of jax and of the reference package."""
 import re
 import subprocess
 import sys
@@ -161,14 +162,16 @@ def test_backend_holds_the_corpus_once(name, groups, sift_small):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(index="hnsw"), "A4"),
-    (dict(backend="host"), "A4"), (dict(mesh=object()), "A12"),
-    (dict(serving=True), "A11"), (dict(path="idx.bin"), "A11"),
-    (dict(schedule=SchedulePolicy(adaptive=True)), "A7"),
-    (dict(schedule=SchedulePolicy(guardrails=True)), "A10"),
-    (dict(schedule=SchedulePolicy(dim_groups=4, adaptive=True)), "A7"),
+    (dict(schedule=SchedulePolicy(faults=object())), "A4"),
+    (dict(backend="host", schedule=SchedulePolicy(adaptive=True)), "A3"),
+    (dict(mesh=object()), "A7"),
+    (dict(serving=True), "A6"), (dict(path="idx.bin"), "A6"),
+    (dict(schedule=SchedulePolicy(adaptive=True)), "A3"),
+    (dict(schedule=SchedulePolicy(guardrails=True)), "A5"),
+    (dict(schedule=SchedulePolicy(dim_groups=4, adaptive=True)), "A3"),
 ])
 def test_unsupported_options_raise(kwargs, item, sift_small):
+    """Each option the port does not serve yet names its ROADMAP item."""
     with pytest.raises(NotImplementedError, match=item):
         open_index(sift_small.X[:256], method="PDScanning+", device="cpu",
                    **kwargs)
@@ -176,7 +179,7 @@ def test_unsupported_options_raise(kwargs, item, sift_small):
 
 def test_deadline_search_raises(sift_small):
     sess = open_index(sift_small.X[:256], method="FDScanning", device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="A4"):
         sess.search(sift_small.Q[:2], K, deadline_s=1.0)
 
 
@@ -212,3 +215,79 @@ def test_importing_the_port_loads_no_jax():
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "False"
+
+
+# ------------------------------------------------------------ host -------
+HOST_METHODS = ("FDScanning", "PDScanning+", "DADE")
+HOST_PARAMS = {"flat": None, "ivf": {"n_list": 16},
+               "hnsw": {"m": 8, "ef_construction": 32}}
+
+
+def _same_stats(a, b):
+    assert b.n_dco == a.n_dco and b.n_true == a.n_true
+    assert b.dims_scanned == a.dims_scanned
+    assert b.dims_total == a.dims_total
+    assert set(b.extra) == set(a.extra)
+    for key, v in a.extra.items():
+        np.testing.assert_array_equal(np.asarray(b.extra[key]),
+                                      np.asarray(v), err_msg=key)
+
+
+@pytest.mark.parametrize("index", ["flat", "ivf", "hnsw"])
+@pytest.mark.parametrize("name", HOST_METHODS)
+def test_host_backend_matches_reference(index, name, sift_small):
+    """backend='host' against the reference's host backend on the same
+    corpus and seed: the same ids, distances and ScanStats, extra keys
+    included; an add() takes write mode "noop" and both sessions still
+    agree."""
+    X, Q = sift_small.X[:600], sift_small.Q[:6]
+    params = HOST_PARAMS[index]
+    sj = jax_open_index(X, index=index, method=name, backend="host",
+                        index_params=params)
+    st = open_index(X, index=index, method=name, backend="host",
+                    index_params=params)
+    assert st.backend_name == "host"
+    for _ in range(2):
+        rj = sj.search(Q, K, nprobe=4, ef=40)
+        rt = st.search(Q, K, nprobe=4, ef=40)
+        assert rt.backend == "host"
+        np.testing.assert_array_equal(rt.ids, rj.ids)
+        np.testing.assert_array_equal(rt.dists, rj.dists)
+        _same_stats(rj.stats, rt.stats)
+        sj.add(sift_small.X[600:650])
+        st.add(sift_small.X[600:650])
+        assert st.last_write_mode == "noop" and st.n == sj.n
+
+
+@pytest.mark.parametrize("index", ["flat", "ivf"])
+@pytest.mark.parametrize("name", ["FDScanning", "PDScanning+"])
+def test_host_backend_equals_torch_backend_on_exact_rules(index, name,
+                                                          sift_small):
+    """On the exact rules the host scan and the torch engine on the CPU
+    return the same ids, flat and IVF (at the same nprobe)."""
+    X, Q = sift_small.X[:2000], sift_small.Q[:8]
+    params = {"n_list": 16} if index == "ivf" else None
+    pol = SchedulePolicy(**POLICY)
+    host = open_index(X, index=index, method=name, backend="host",
+                      schedule=pol, index_params=params).search(Q, K,
+                                                               nprobe=5)
+    dev = open_index(X, index=index, method=name, device="cpu", schedule=pol,
+                     index_params=params).search(Q, K, nprobe=5)
+    np.testing.assert_array_equal(np.sort(host.ids, 1), np.sort(dev.ids, 1))
+    np.testing.assert_allclose(np.sort(host.dists, 1), np.sort(dev.dists, 1),
+                               rtol=1e-3, atol=1e-2)
+
+
+def test_torch_backend_refuses_hnsw(sift_small):
+    """HNSW graph walks stay on the host, as the reference's device
+    backend refuses them too."""
+    from repro_torch.api import SearchSession
+    X = sift_small.X[:256]
+    with pytest.raises(ValueError, match="host"):
+        open_index(X, index="hnsw", method="PDScanning+", device="cpu",
+                   index_params={"m": 4, "ef_construction": 8})
+    with pytest.raises(ValueError, match="host"):
+        SearchSession(ref_make_method("PDScanning+"), index_kind="hnsw",
+                      device="cpu")
+    with pytest.raises(ValueError, match="backend"):
+        open_index(X, method="PDScanning+", backend="jax")

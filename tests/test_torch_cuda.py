@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card, and the paths that launch them on new inputs (a launch no query
+card, the paths that launch them on new inputs (a launch no query
 probes, the IVF streaming scan, a delta session) against the CPU or a
-merged session.  These tests need a CUDA card and skip without one; the
+merged session, the block walk captured as a CUDA graph against the same
+walk run eagerly on the card, and the top-k selection against a stable
+sort.  These tests need a CUDA card and skip without one; the
 module imports no jax, so it also runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -448,3 +450,145 @@ def test_delta_session_card_matches_merged(cuda_device, index, groups):
     np.testing.assert_array_equal(rd.ids, rm.ids)
     np.testing.assert_allclose(rd.dists, rm.dists, rtol=1e-5, atol=1e-5)
     assert not rd.stats.extra["uncertified_mask"].any()
+
+
+# ---------------------------------------------------- the captured walk ---
+def _graph_session(index, method, groups=1, n=1536, D=48, seed=0):
+    """A small session on the card: integer-valued rows, so every float32
+    sum is exact and the eager walk and the graph must agree bit for
+    bit; IVF at the default completion budget (128)."""
+    from repro_torch.api import SchedulePolicy, open_index
+    rng = np.random.default_rng(_seed("cuda-graph", index, method, groups))
+    X = rng.integers(-4, 5, (n, D)).astype(np.float32)
+    Q = rng.integers(-4, 5, (8, D)).astype(np.float32)
+    pol = SchedulePolicy(d1=24, query_chunk=4, row_block=256,
+                         dim_groups=groups)
+    params = {"n_list": 16} if index == "ivf" else None
+    sess = open_index(X[:1200], index=index, method=method, schedule=pol,
+                      index_params=params, device="cuda", seed=seed)
+    return sess, X, Q
+
+
+def _engine_args(sess, Q, nprobe=4):
+    """The arguments the backend hands stream_topk for ``Q``."""
+    be = sess.backend
+    dev = be.device
+
+    def t(a, dtype=np.float32):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype), device=dev)
+
+    ql, qt, qe = be._prep_queries(Q)
+    probe = None
+    if sess.index_kind == "ivf":
+        probe = t(be._probe(Q, nprobe)[0], np.int32)
+    blocks, st = be._blocks, be._state
+    if be.delta_rows:
+        blocks, st = be._delta_blocks, be._delta_state
+    return (st, t(ql), t(qt), be._config(10), {k: t(v) for k, v in
+                                              qe.items()}, probe, blocks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["flat", "pdx", "ddcopq", "ivf", "delta"])
+def test_graph_replay_equals_eager_walk(cuda_device, case):
+    """stream_topk on the card (one captured walk, replayed per chunk)
+    against the eager walk of the same chunks on the card: all six outputs
+    (dists, ids, survivors, passed, dropped_min_est, dims) equal, and the
+    replays count each chunk's kernel launches."""
+    from repro_torch.core import stream_engine as se
+    method = "DDCopq" if case == "ddcopq" else "PDScanning+"
+    sess, X, Q = _graph_session("ivf" if case == "ivf" else "flat", method,
+                                groups=4 if case == "pdx" else 1)
+    sess.search(Q, 10, nprobe=4)
+    if case == "delta":
+        sess.add(X[1200:1300])
+        assert sess.last_write_mode == "delta"
+        sess.search(Q, 10)
+    st, ql, qt, cfg, qe, probe, blocks = _engine_args(sess, Q)
+    graphs = {}
+    got = se.stream_topk(st, ql, qt, cfg, qe, probe, blocks=blocks,
+                         graphs=graphs)
+    want = se._stream_topk_padded(st, blocks, ql, qt, qe, probe, cfg)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    (graph,) = graphs.values()
+    kernel = {"pdx": 1, "ddcopq": 2}.get(case, 0)
+    n_blocks = blocks["xl"].shape[0]
+    assert graph.launches[kernel] == n_blocks
+    assert sum(graph.launches) == n_blocks
+    before = se._launch_counts()
+    again = se.stream_topk(st, ql, qt, cfg, qe, probe, blocks=blocks,
+                           graphs=graphs)
+    after = se._launch_counts()
+    assert after[kernel] - before[kernel] == 2 * n_blocks    # 2 chunks
+    assert len(graphs) == 1
+    for g, w in zip(again, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_graph_cache_follows_the_layout(cuda_device):
+    """The backend keeps its graphs with its layout: an add() into the
+    delta segment makes the next search capture a new graph over the
+    combined layout (and answer as a freshly opened session), and
+    invalidate() leaves no graph behind."""
+    from repro_torch.api import SearchSession
+    sess, X, Q = _graph_session("flat", "PDScanning+")
+    be = sess.backend
+    sess.search(Q, 10)
+    assert len(be._graphs) == 1
+    (first,) = be._graphs.values()
+    assert first.keep[1] is be._blocks
+    sess.add(X[1200:1300])
+    res = sess.search(Q, 10)
+    (graph,) = be._graphs.values()
+    assert graph is not first and graph.keep[1] is be._delta_blocks
+    fresh = SearchSession(sess.method, sess.policy, device="cuda")
+    want = fresh.search(Q, 10)
+    np.testing.assert_array_equal(res.ids, want.ids)
+    np.testing.assert_array_equal(res.dists, want.dists)
+    be.invalidate()
+    assert be._graphs == {}
+    again = sess.search(Q, 10)
+    np.testing.assert_array_equal(again.ids, want.ids)
+    assert len(be._graphs) == 1
+
+
+@pytest.mark.cuda
+def test_graph_ragged_batch_matches_cpu(cuda_device):
+    """A batch whose row count is not a whole number of chunks (7 queries,
+    chunks of 4) on the card: the rows of the aligned batch of 8, exactly
+    (each query's walk is its own: ids, distances, certificate flags),
+    and the CPU session's ids."""
+    from repro_torch.api import SearchSession
+    sess, _, Q = _graph_session("flat", "PDScanning+")
+    got = sess.search(Q[:7], 10)
+    aligned = sess.search(Q, 10)
+    np.testing.assert_array_equal(got.ids, aligned.ids[:7])
+    np.testing.assert_array_equal(got.dists, aligned.dists[:7])
+    np.testing.assert_array_equal(got.stats.extra["uncertified_mask"],
+                                  aligned.stats.extra["uncertified_mask"][:7])
+    cpu = SearchSession(sess.method, sess.policy, device="cpu")
+    want = cpu.search(Q[:7], 10)
+    np.testing.assert_array_equal(got.ids, want.ids)
+    # the rotated queries are not integer-valued: sums in another order
+    np.testing.assert_allclose(got.dists, want.dists, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,n", [(138, 10), (4096, 129), (4106, 10),
+                                     (2 ** 20, 2048)])
+def test_smallest_agrees_with_stable_sort_on_the_card(cuda_device, width, n):
+    """The selection on the card against a stable ascending sort, on score
+    rows shaped as the engine's (estimates with ties, +inf where screened
+    out, no signed zeros): the same values and columns."""
+    from repro_torch.core.stream_engine import _smallest
+    rng = np.random.default_rng(_seed("cuda-smallest", width, n))
+    a = rng.integers(0, 50, (16, width)).astype(np.float32) / 8
+    a[rng.random(a.shape) < 0.6] = np.inf
+    at = torch.as_tensor(a, device=cuda_device)
+    vals, idx = _smallest(at, n)
+    svals, sidx = torch.sort(at, dim=1, stable=True)
+    assert torch.equal(idx, sidx[:, :n])
+    assert torch.equal(vals, svals[:, :n])

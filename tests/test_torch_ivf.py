@@ -82,9 +82,9 @@ def test_scan_topk_refuses_unported_options(sift_small):
     class Adaptive:
         adaptive = True
 
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A3"):
         scan_topk(port_m, batch, 0, np.arange(100), K, policy=Adaptive())
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="A4"):
         scan_topk(port_m, batch, 0, np.arange(100), K, deadline_ts=1.0)
 
 
@@ -268,7 +268,7 @@ def test_facade_ivf_default_lists_and_hnsw_refused(sift_small):
     X = sift_small.X[:1000]
     sess = open_index(X, index="ivf", method="PDScanning+", device="cpu")
     assert sess.index.n_list == 64 and len(sess.index.lists) == 64
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(ValueError, match="host"):
         open_index(X, index="hnsw", method="PDScanning+", device="cpu")
     with pytest.raises(ValueError, match="index must be"):
         open_index(X, index="lsh", method="PDScanning+", device="cpu")

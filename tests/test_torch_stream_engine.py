@@ -245,7 +245,7 @@ def test_stream_topk_refuses_unported_paths(sift_small):
     # a probe is served once the layout is partition-major
     with pytest.raises(ValueError, match="partition-major"):
         stream_topk(st, ql, qt, cfg, probe=torch.zeros(2, 1))
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="A4"):
         stream_topk(st, ql, qt, cfg, deadline_ts=1.0)
 
 
