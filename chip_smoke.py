@@ -48,15 +48,33 @@ Phases, one JSON line each:
   9. two_stage the 1M PDScanning+ on engine="two_stage" (no kernel): QPS,
               recall, per-query survivors against its capacity, ids held
               against the streaming engine's where nothing was cut;
- 10. host     backend="host" (the numpy scan) over the first 100k rows
+ 10. adaptive SchedulePolicy(adaptive=True) at 1M on the fitted
+              PDScanning+: the dataset's queries flat and PDX (ids held
+              against the fixed session's, no dco_scan launch), 100 OOD
+              queries (make_ood_queries, severity 1.0; ids held against an
+              FDScanning session's, beside the fixed screen's record), and
+              DDCopq (pq_lookup launches in the graph); each batch's six
+              outputs and report held against the eager walk of the same
+              chunks, fallback blocks, forced chunks, QPS;
+ 11. anytime  the flat PDScanning+ at anytime_block_group = 8: the grouped
+              walk eagerly and as a graph a group span, a 60 s deadline
+              (outputs equal to the non-deadline batch, coverage 1.0,
+              launches, syncs) and a 10 ms one (coverage in (0, 1), every
+              query uncertified, within the full wall plus one group);
+              one 60 s batch on the PDX layout;
+ 12. host     backend="host" (the numpy scan) over the first 100k rows
               with 10 queries, its ids held against the torch backend's;
               HNSW built on the first 3,000 rows with FDScanning and
               PDScanning+ (build seconds, DCOs and dims scanned), recall@10
               of its walk;
- 11. rules    all 8 methods at 100k x 960 with the same queries, and each
+ 13. guardrails an 18-batch "recovering" drift scenario at 100k through a
+              guarded PDScanning+ session: the breaker opens during the
+              drift, every demoted batch gives an FDScanning session's
+              ids, and it closes again after;
+ 14. rules    all 8 methods at 100k x 960 with the same queries, and each
               method that groups again at dim_groups = 4 (and PDScanning+
               on the inline R-cut path);
- 12. profile  for each 1M session (flat, PDX, DDCopq), served again from
+ 15. profile  for each 1M session (flat, PDX, DDCopq), served again from
               its fitted method: one batch under torch.profiler (device
               operations, zero fills, CUDA runtime calls, device-busy share
               against the phase's unprofiled wall), then its kernel's time
@@ -75,9 +93,12 @@ Phases, one JSON line each:
               slower on the host for the rest of the process
               (scripts/pdx_ab.py measures it), which would bias the QPS of
               later phases.  The IVF flat sessions (at both completion
-              budgets) and the two-stage session are profiled too,
-              without a kernel timing.
-Then the kernel table, the nvidia-smi line and the result line.  Every
+              budgets), the two-stage session and the adaptive arms (in
+              distribution, OOD beside the fixed screen, DDCopq) are
+              profiled too, without a kernel timing.
+Then the kernel table (with each kernel's launches a batch on the main,
+IVF, adaptive and anytime paths), the nvidia-smi line and the result
+line.  Every
 check raises on failure, so the script exits nonzero; without a CUDA card,
 or without the repo beside it, it prints no result and exits nonzero.
 """
@@ -113,6 +134,15 @@ HNSW_EF = 64
 GRAPH_PAIRS = 5                  # interleaved eager / graph batches
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12          # H100 SXM data sheet, fp32 outside the TCs
+ANYTIME_GROUP = 8                # SchedulePolicy.anytime_block_group
+GENEROUS_S = 60.0                # a deadline no batch reaches
+TIGHT_S = 0.010                  # a deadline the first group already passes
+DRIFT_BATCHES = 18               # thirds: in distribution, OOD, back
+#: breaker pacing for an 18-batch scenario: two drifted batches with
+#: evidence trip it, two clean canaries re-promote it, and every flip
+#: waits two batches; a quarter of the queries audited, four at a time
+DRIFT_GUARDRAIL = dict(min_dwell=2, trip_after=2, promote_after=2,
+                       audit_rate=0.25, audit_batch=4)
 
 
 def log(phase: str, **kw) -> None:
@@ -1342,6 +1372,335 @@ def phase_host(Xr, Q, gt_r, dev):
     torch.cuda.empty_cache()
 
 
+def padded_inputs(sess, Q, dev, anytime=False):
+    """The engine's inputs for ``Q`` as the backend hands them to
+    stream_topk, padded to whole query chunks (what the engine's inner
+    drivers take): (state, blocks, q_lead, q_tail, extras, cfg, nq)."""
+    import numpy as np
+    import torch
+    be = sess.backend
+    cfg = be._config(K, anytime=anytime)
+    ql, qt, qe = be._prep_queries(Q)
+    nq = ql.shape[0]
+    pad = (-nq) % min(cfg.query_chunk, nq)
+
+    def t(a):
+        a = torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+        return torch.nn.functional.pad(a, (0, 0) * (a.dim() - 1) + (0, pad))
+    return (be._state, be._blocks, t(ql), t(qt),
+            {key: t(v) for key, v in qe.items()}, cfg, nq)
+
+
+def adaptive_vs_eager(sess, Q, dev):
+    """The adaptive batch replayed from the session's graphs against the
+    same chunks walked eagerly on the card (stream_engine._adaptive_topk
+    without a graph cache): which outputs are equal, the eager wall, and
+    the chunks the seed sent to the full-scan body."""
+    import torch
+    from repro_torch.core import stream_engine as se
+    st, blocks, ql, qt, qe, cfg, nq = padded_inputs(sess, Q, dev)
+    be = sess.backend
+    got = se._adaptive_topk(st, blocks, ql, qt, qe, None, cfg, nq,
+                            be._graphs)
+    t0 = time.perf_counter()
+    want = se._adaptive_topk(st, blocks, ql, qt, qe, None, cfg, nq, None)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    names = ("dists", "ids", "survivors", "passed", "dropped_min_est",
+             "dims")
+    equal = {n: bool(torch.equal(a, b))
+             for n, a, b in zip(names, got[:6], want[:6])}
+    equal.update({key: bool(torch.equal(got[6][key], want[6][key]))
+                  for key in want[6]})
+    forced = sum(g.replays for key, g in be._graphs.items() if key[4])
+    return {"equal_to_eager": equal, "eager_wall_s": eager_s,
+            "forced_graphs": sum(1 for key in be._graphs if key[4]),
+            "switching_graphs": sum(1 for key in be._graphs if not key[4]),
+            "forced_replays": forced}
+
+
+def adaptive_record(rec, res) -> dict:
+    """The adaptive arm's record: run_method's plus the policy's report."""
+    ex = res.stats.extra
+    return dict(rec, fallback_blocks_mean=ex.get("fallback_blocks"),
+                est_saved_flops=ex.get("est_saved_flops"),
+                rule_timeline_mean=(
+                    float(sum(ex["rule_timeline"]) / len(ex["rule_timeline"]))
+                    if "rule_timeline" in ex else None))
+
+
+def phase_adaptive(X, Q, gt, pdsp, opq, opq_ids, fixed, dev):
+    """A3 on the card at 1M x 960 (DESIGN.md §5), reusing the fitted
+    PDScanning+ and DDCopq: in-distribution queries through the adaptive
+    session against the fixed one (``fixed``: the main phase's flat ids,
+    distances and record; flat and PDX), out-of-distribution
+    queries (make_ood_queries, severity 1.0) through the adaptive, the
+    fixed and an FDScanning session, and DDCopq adaptive (pq_lookup in
+    the graph); each adaptive batch held against the eager walk of the
+    same chunks on the card.  Returns the OOD queries and the records."""
+    import numpy as np
+    import torch
+    from repro_torch.api import SchedulePolicy
+    from repro_torch.vecdata import make_ood_queries
+
+    t_phase = time.perf_counter()
+    ada = SchedulePolicy(adaptive=True)
+    recs = {}
+    # -- in distribution: adaptive against fixed, flat and PDX -----------
+    fixed_ids, fixed_dists, frec = fixed
+    for label, schedule in (("id", ada),
+                            ("id_pdx", SchedulePolicy(adaptive=True,
+                                                      dim_groups=4))):
+        sess, res, rec = run_method(X, Q, gt, "PDScanning+", dev,
+                                    fitted=pdsp, schedule=schedule)
+        rec = adaptive_record(rec, res)
+        rec.update(adaptive_vs_eager(sess, Q, dev),
+                   ids_equal_fixed=bool(np.array_equal(res.ids, fixed_ids)),
+                   dists_equal_fixed=bool(np.array_equal(res.dists,
+                                                         fixed_dists)),
+                   fixed_qps=frec["qps"])
+        log("adaptive", arm=label, **rec)
+        recs[label] = rec
+        check(rec["ids_equal_fixed"], f"adaptive {label}: ids differ from "
+              "the fixed session's")
+        check(all(rec["equal_to_eager"].values()), f"adaptive {label}: the "
+              f"graph differs from the eager walk: {rec['equal_to_eager']}")
+        launches = rec["launches_per_batch"]
+        check(launches["dco_scan"] == 0 == launches["dco_scan_grouped"],
+              f"adaptive {label} launched a dco_scan kernel: {launches}")
+        del sess, res
+        torch.cuda.empty_cache()
+    # -- out of distribution: adaptive, fixed and FDScanning -------------
+    t0 = time.perf_counter()
+    Qo = make_ood_queries(X, Q.shape[0], severity=1.0)
+    gen_s = time.perf_counter() - t0
+    gt_o = ground_truth(X, Qo)
+    sess, res, rec = run_method(X, Qo, gt_o, "FDScanning", dev)
+    fd_ids, fd_rec = res.ids, rec
+    del sess, res
+    torch.cuda.empty_cache()
+    sess, res, rec = run_method(X, Qo, gt_o, "PDScanning+", dev, fitted=pdsp)
+    fixed_o = rec
+    del sess, res
+    torch.cuda.empty_cache()
+    sess, res, rec = run_method(X, Qo, gt_o, "PDScanning+", dev, fitted=pdsp,
+                                schedule=ada)
+    rec = adaptive_record(rec, res)
+    same = same_sets(res.ids, fd_ids)
+    rec.update(adaptive_vs_eager(sess, Qo, dev), ood_gen_s=gen_s,
+               ids_equal_fdscan=int(same.sum()),
+               ids_equal_fdscan_in_order=int((res.ids == fd_ids).all(1).sum()),
+               fixed=fixed_o, fdscan=fd_rec,
+               full_scan_body_beats_screening=rec["qps"] > fixed_o["qps"])
+    log("adaptive", arm="ood", **rec)
+    recs["ood"] = rec
+    check(bool(same.all()), f"adaptive OOD ids differ from FDScanning's on "
+          f"{int((~same).sum())} queries")
+    check(rec["recall_at_10"] == 1.0 and rec["uncertified_queries"] == 0.0,
+          "adaptive OOD is not exact and certified")
+    check(all(rec["equal_to_eager"].values()), "adaptive OOD: the graph "
+          f"differs from the eager walk: {rec['equal_to_eager']}")
+    del sess, res
+    torch.cuda.empty_cache()
+    # -- DDCopq adaptive: pq_lookup inside the graph ----------------------
+    sess, res, rec = run_method(X, Q, gt, "DDCopq", dev, fitted=opq,
+                                schedule=ada)
+    rec = adaptive_record(rec, res)
+    rec.update(adaptive_vs_eager(sess, Q, dev))
+    from repro_torch.kernels import pq_lookup as pq_mod
+    sess.search(Q, K, deadline_s=GENEROUS_S)    # captures a graph a span
+    pq_mod.launches = 0
+    anyt = sess.search(Q, K, deadline_s=GENEROUS_S)
+    rec["anytime"] = {
+        "pq_lookup_launches": pq_mod.launches,
+        "coverage": float(anyt.stats.extra["coverage"].min()),
+        "ids_equal_fixed": bool(np.array_equal(anyt.ids, opq_ids))}
+    log("adaptive", arm="ddcopq", **rec)
+    recs["ddcopq"] = rec
+    check(rec["launches_per_batch"]["pq_lookup"] > 0, "adaptive DDCopq "
+          "launched no pq_lookup kernel")
+    check(all(rec["equal_to_eager"].values()), "adaptive DDCopq: the graph "
+          f"differs from the eager walk: {rec['equal_to_eager']}")
+    check(rec["anytime"]["ids_equal_fixed"]
+          and rec["anytime"]["coverage"] == 1.0,
+          "a generous deadline on DDCopq differs from the fixed batch")
+    del sess, res, anyt
+    torch.cuda.empty_cache()
+    log("adaptive_done", seconds=time.perf_counter() - t_phase)
+    return Qo, recs
+
+
+def phase_anytime(X, Q, gt, pdsp, dev):
+    """A4 on the card at 1M x 960: the flat PDScanning+ session with
+    anytime_block_group = 8.  The grouped walk run eagerly (engine level)
+    and replayed a graph a group span; a generous deadline against the
+    non-deadline batch (ids, distances, coverage, launches); a tight one
+    (coverage, certificate, wall); then one generous batch of the PDX
+    layout for dco_scan_grouped's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.api import SchedulePolicy, SearchSession
+    from repro_torch.core import stream_engine as se
+    from repro_torch.kernels import dco_scan as dco_mod
+
+    t_phase = time.perf_counter()
+    pol = SchedulePolicy(anytime_block_group=ANYTIME_GROUP)
+    sess = SearchSession(pdsp, pol, device=dev)
+    base = sess.search(Q, K)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        base = sess.search(Q, K)
+        walls.append(time.perf_counter() - t0)
+    nb = int(sess.backend._blocks["xl"].shape[0])
+    st, blocks, ql, qt, qe, cfg, nq = padded_inputs(sess, Q, dev,
+                                                    anytime=True)
+    eager_walls, eager_equal = [], True
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = se._anytime_topk(st, blocks, ql, qt, qe, None, cfg, nq,
+                               time.monotonic() + GENEROUS_S, ANYTIME_GROUP,
+                               None)
+        eager_walls.append(time.perf_counter() - t0)
+        eager_equal &= (out[6] == 1.0 and np.array_equal(
+            out[1].cpu().numpy(), base.ids))
+    before = len(sess.backend._graphs)
+    t0 = time.perf_counter()
+    sess.search(Q, K, deadline_s=GENEROUS_S)   # captures a graph a span
+    first_s = time.perf_counter() - t0
+    spans = [g for key, g in sess.backend._graphs.items()
+             if key[5] is not None]
+    dco_mod.launches = 0
+    gen_walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        gen = sess.search(Q, K, deadline_s=GENEROUS_S)
+        gen_walls.append(time.perf_counter() - t0)
+    launches = dco_mod.launches // 3
+    tight, tight_walls = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        r = sess.search(Q, K, deadline_s=TIGHT_S)
+        tight_walls.append(time.perf_counter() - t0)
+        tight.append(r)
+    full_wall = float(np.median(gen_walls))
+    groups = -(-nb // ANYTIME_GROUP)
+    cov = [float(r.stats.extra["coverage"][0]) for r in tight]
+    rec = {
+        "method": "PDScanning+", "n": int(X.shape[0]), "nq": int(nq),
+        "block_group": ANYTIME_GROUP, "row_blocks": nb, "groups": groups,
+        "plain_walls_s": walls,
+        "plain_qps": float(nq / np.median(walls)),
+        "eager_walls_s": eager_walls, "eager_equal_plain": bool(eager_equal),
+        "graph_first_batch_s": first_s, "graphs_captured": len(spans),
+        "graph_nodes_first_span": graph_nodes(spans[0].graph),
+        "graph_pool_bytes_spans": sum(graph_pool_bytes(g.graph) or 0
+                                      for g in spans),
+        "generous_deadline_s": GENEROUS_S, "generous_walls_s": gen_walls,
+        "generous_qps": float(nq / full_wall),
+        "generous_syncs_per_batch": groups,
+        "generous_ids_equal": bool(np.array_equal(gen.ids, base.ids)),
+        "generous_dists_equal": bool(np.array_equal(gen.dists, base.dists)),
+        "generous_coverage_min": float(gen.stats.extra["coverage"].min()),
+        "generous_uncertified": gen.stats.extra["uncertified_queries"],
+        "dco_scan_launches_per_batch": launches,
+        "tight_deadline_s": TIGHT_S, "tight_walls_s": tight_walls,
+        "tight_coverage": cov,
+        "tight_syncs_per_batch": [round(c * nb / ANYTIME_GROUP) for c in cov],
+        "tight_uncertified": [r.stats.extra["uncertified_queries"]
+                              for r in tight],
+        "graphs_before_deadline_batches": before,
+    }
+    del sess, base, gen, tight
+    torch.cuda.empty_cache()
+    # the PDX layout's anytime walk: dco_scan_grouped in every group
+    psess = SearchSession(pdsp, SchedulePolicy(
+        dim_groups=4, anytime_block_group=ANYTIME_GROUP), device=dev)
+    pbase = psess.search(Q, K)
+    psess.search(Q, K, deadline_s=GENEROUS_S)
+    dco_mod.grouped_launches = 0
+    pgen = psess.search(Q, K, deadline_s=GENEROUS_S)
+    rec["pdx"] = {"dco_scan_grouped_launches_per_batch":
+                  dco_mod.grouped_launches,
+                  "ids_equal": bool(np.array_equal(pgen.ids, pbase.ids)),
+                  "coverage_min": float(pgen.stats.extra["coverage"].min())}
+    log("anytime", **rec, phase_s=time.perf_counter() - t_phase)
+    check(rec["eager_equal_plain"], "the eager anytime walk differs from "
+          "the non-deadline batch")
+    check(rec["generous_ids_equal"] and rec["generous_dists_equal"]
+          and rec["generous_coverage_min"] == 1.0,
+          "a generous deadline differs from the non-deadline batch")
+    check(launches == nb * (-(-nq // 16)), f"a generous anytime batch "
+          f"launched {launches} dco_scan kernels")
+    check(all(0.0 < c < 1.0 for c in cov), f"a tight deadline gave "
+          f"coverage {cov}")
+    check(all(u == 1.0 for u in rec["tight_uncertified"]),
+          "a tight deadline left queries certified")
+    check(max(tight_walls) < full_wall * (1 + 1 / groups),
+          f"a tight deadline returned after {max(tight_walls)} s, not "
+          f"within the full wall {full_wall} s plus one group")
+    check(rec["pdx"]["ids_equal"] and rec["pdx"]["coverage_min"] == 1.0
+          and rec["pdx"]["dco_scan_grouped_launches_per_batch"] > 0,
+          "the PDX anytime walk differs or launched no dco_scan_grouped")
+    del psess, pbase, pgen
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_guardrails(Xr, dev):
+    """A5 on the card at 100k rows: a "recovering" drift scenario
+    (make_drift_scenario, DRIFT_BATCHES batches of 100 queries) through a
+    guarded PDScanning+ session; every batch the breaker served demoted is
+    held against an FDScanning session; the breaker must trip during the
+    drift and re-promote after it."""
+    import numpy as np
+    from repro_torch.api import GuardrailConfig, SchedulePolicy, open_index
+    from repro_torch.vecdata import make_drift_scenario
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    stream = make_drift_scenario(Xr, 100, DRIFT_BATCHES,
+                                 scenario="recovering", severity=1.0)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sess = open_index(Xr, method="PDScanning+", device=dev,
+                      schedule=SchedulePolicy(
+                          guardrails=GuardrailConfig(**DRIFT_GUARDRAIL)))
+    fit_s = time.perf_counter() - t0
+    fd = open_index(Xr, method="FDScanning", device=dev)
+    batches = []
+    demoted_equal = True
+    for b, Qb in enumerate(stream):
+        t0 = time.perf_counter()
+        res = sess.search(Qb, K)
+        wall = time.perf_counter() - t0
+        ex = res.stats.extra
+        row = {"batch": b, "state": ex["breaker_state"], "wall_s": wall,
+               "drift_score": ex["drift_score"],
+               "audit_recall": ex["audit_recall"],
+               "uncertified": ex.get("uncertified_queries")}
+        if ex["breaker_state"] != "closed":
+            ref = fd.search(Qb, K)
+            same = same_sets(res.ids, ref.ids)
+            row["fdscan_ids_equal"] = int(same.sum())
+            row["fdscan_ids_equal_in_order"] = int(
+                (res.ids == ref.ids).all(1).sum())
+            demoted_equal &= bool(same.all())
+        batches.append(row)
+    report = sess.guardrails()
+    states = [r["state"] for r in batches]
+    seq = [(t["from"], t["to"]) for t in report["transitions"]]
+    log("guardrails", n=int(Xr.shape[0]), nq=100, scenario="recovering",
+        n_batches=DRIFT_BATCHES, config=DRIFT_GUARDRAIL, gen_s=gen_s,
+        fit_s=fit_s, batches=batches, report=report,
+        phase_s=time.perf_counter() - t_phase)
+    check("open" in states, "the breaker never opened during the drift")
+    check(demoted_equal, "a demoted batch's ids differ from FDScanning's")
+    check(("half_open", "closed") in seq and report["state"] == "closed",
+          f"the breaker did not re-promote after the drift: {seq}")
+    return {"states": states, "transitions": report["transitions"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1401,7 +1760,8 @@ def main() -> int:
           "inline screen")
     # the PDX layout serves the same fitted method: hold one layout at a
     # time, so the flat session goes first
-    pdsp, flat_ids, flat_rec = sess.method, res.ids, rec
+    pdsp, flat_ids, flat_dists, flat_rec = (sess.method, res.ids, res.dists,
+                                            rec)
     del sess, res
     torch.cuda.empty_cache()
 
@@ -1443,7 +1803,7 @@ def main() -> int:
         inline_recall_at_10=inline_recall)
     check(agree >= 0.99 and abs(inline_recall - rec["recall_at_10"]) <= 0.01,
           "DDCopq results differ between pq_lookup and the plain gather")
-    opq, opq_rec = sess.method, rec
+    opq, opq_rec, opq_ids = sess.method, rec, res.ids
     del sess, res, ds
     torch.cuda.empty_cache()
 
@@ -1452,8 +1812,12 @@ def main() -> int:
     gt_r = ground_truth(Xr, Q)
     phase_delta(X, Q, gt, Xr, gt_r, dev)
     ts_rec = phase_two_stage(X, Q, gt, pdsp, flat_ids, dev)
+    Qo, ada_recs = phase_adaptive(X, Q, gt, pdsp, opq, opq_ids,
+                                  (flat_ids, flat_dists, flat_rec), dev)
+    any_rec = phase_anytime(X, Q, gt, pdsp, dev)
     del X
     phase_host(Xr, Q, gt_r, dev)
+    phase_guardrails(Xr, dev)
 
     t0 = time.perf_counter()
     fd_ids = None
@@ -1525,13 +1889,39 @@ def main() -> int:
                             float(np.median(rec["search_walls_s"]))))
         del sess
         torch.cuda.empty_cache()
+    # the adaptive arms: the switching walk (in distribution), the
+    # full-scan body (OOD) beside the fixed screen and FDScanning on the
+    # same OOD batch, and DDCopq's switching walk with pq_lookup
+    ada = SchedulePolicy(adaptive=True)
+    for label, fitted, schedule, Qx, rec in (
+            ("adaptive_id", pdsp, ada, Q, ada_recs["id"]),
+            ("adaptive_ood", pdsp, ada, Qo, ada_recs["ood"]),
+            ("fixed_ood", pdsp, SchedulePolicy(), Qo, ada_recs["ood"]["fixed"]),
+            ("adaptive_ddcopq", opq, ada, Q, ada_recs["ddcopq"])):
+        sess = SearchSession(fitted, schedule, device=dev)
+        sess.search(Qx, K)                      # materializes the layout
+        log("profile", method=rec["method"], label=label,
+            **profile_batch(sess, Qx,
+                            float(np.median(rec["search_walls_s"]))))
+        del sess
+        torch.cuda.empty_cache()
     log("profile_done", seconds=time.perf_counter() - t0)
 
-    # launches on the IVF path of each kernel, beside the main path's
-    for kernel, label in (("dco_scan", "flat"), ("dco_scan_grouped", "pdx"),
-                          ("pq_lookup", "DDCopq")):
+    # launches on the IVF, adaptive and anytime paths of each kernel,
+    # beside the main path's
+    for kernel, label, ada_label in (("dco_scan", "flat", "id"),
+                                     ("dco_scan_grouped", "pdx", "id_pdx"),
+                                     ("pq_lookup", "DDCopq", "ddcopq")):
         rows[kernel]["launches_ivf"] = \
             ivf_recs[label]["launches_per_batch"][kernel]
+        rows[kernel]["launches_adaptive"] = \
+            ada_recs[ada_label]["launches_per_batch"][kernel]
+    rows["dco_scan"]["launches_anytime"] = \
+        any_rec["dco_scan_launches_per_batch"]
+    rows["dco_scan_grouped"]["launches_anytime"] = \
+        any_rec["pdx"]["dco_scan_grouped_launches_per_batch"]
+    rows["pq_lookup"]["launches_anytime"] = \
+        ada_recs["ddcopq"]["anytime"]["pq_lookup_launches"]
     kernels = [
         dict(name="dco_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/dco_scan.cu",

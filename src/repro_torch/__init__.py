@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of the DCO vector-search system.
 
-The streaming DCO search over a flat or IVF-probed corpus, with its delta
-write path, runs on one NVIDIA H100 through hand-written CUDA kernels
-(``kernels/csrc``); every other module is plain PyTorch or numpy.  Entry
-point: ``repro_torch.api.open_index``.
+The streaming DCO search over a flat or IVF-probed corpus, fixed or under
+the adaptive policy, with anytime deadlines, the guardrail breaker and
+its delta write path, runs on one NVIDIA H100 through hand-written CUDA
+kernels (``kernels/csrc``); every other module is plain PyTorch or numpy.
+Entry point: ``repro_torch.api.open_index``.
 """

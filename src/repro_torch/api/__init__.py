@@ -9,4 +9,6 @@ from repro_torch.api.session import (INDEX_KINDS, METHODS,  # noqa: F401
                                      SearchSession, open_index)
 from repro_torch.api.types import (STAT_EXTRA_KEYS,  # noqa: F401
                                    SchedulePolicy, SearchResult)
-from repro_torch.core.engine import ScanStats  # noqa: F401
+from repro_torch.core.engine import QueryBatch, ScanStats  # noqa: F401
+from repro_torch.core.guardrails import (BREAKER_STATES,  # noqa: F401
+                                         Guardrail, GuardrailConfig)

@@ -17,30 +17,64 @@ Inserts take the LSM-style write path: new rows are served from a small
 delta segment scanned after the cached main blocks until the delta
 exceeds ``SchedulePolicy.delta_merge_threshold`` rows.  On a CUDA device
 each query chunk's block walk replays a CUDA graph cached beside the
-layout (``stream_engine._ChunkGraph``).  The adaptive policy (ROADMAP A3),
-deadlines (A4), guardrails (A5) and the mesh (A7) are not ported yet.
+layout (``stream_engine._ChunkGraph``).
+
+Both backends serve the adaptive policy (``SchedulePolicy(adaptive=True)``,
+``core.policy``), anytime deadlines (``search(deadline_s=)``) with the
+fault hooks of ``testing.faults``, and the guardrail breaker
+(``SchedulePolicy(guardrails=)``, ``core.guardrails``), whose demoted path
+on the torch backend is the streaming engine's full-scan body.  The mesh
+(ROADMAP A7) is not ported yet.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.core import transforms as T
 from repro_torch.core.engine import (EXTRA_COVERAGE, EXTRA_DIMS_READ_MEAN,
+                                     EXTRA_EST_SAVED_FLOPS,
+                                     EXTRA_FALLBACK_BLOCKS,
+                                     EXTRA_RULE_TIMELINE,
                                      EXTRA_SCREEN_PASS_MEAN,
                                      EXTRA_SURVIVORS_MEAN,
                                      EXTRA_UNCERTIFIED_MASK,
                                      EXTRA_UNCERTIFIED_QUERIES, QueryBatch,
                                      ScanStats, scan_topk)
+from repro_torch.core.policy import PolicyConfig, finalize_adaptive_extra
 from repro_torch.core.stream_engine import (append_stream_blocks,
                                             build_stream_blocks, stream_topk)
 from repro_torch.core.torch_engine import (DcoEngineConfig,
                                            build_device_state, two_stage_topk)
+from repro_torch.testing import faults
 
 
 #: per-row device tensors that build_stream_blocks turns into the blocks
 _ROW_KEYS = ("x_lead", "x_tail", "lead_sq", "tail_sq", "row_ids", "row_part",
              "codes")
+
+
+def _arm_guardrail(method, index_kind: str, policy, backend: str):
+    """Build the per-(method, backend) breaker when the schedule asks for
+    one (DESIGN.md §9).  HNSW walks have no scan-shaped certified fallback
+    to demote to (rejected); ``FDScanning`` already IS the certified full
+    scan, so there is nothing to guard (silently unarmed)."""
+    gcfg = getattr(policy, "guardrails", None)
+    if gcfg is None or gcfg is False:
+        return None
+    if index_kind == "hnsw":
+        raise ValueError(
+            "guardrails demote scan-shaped searches (index='flat'/'ivf') to "
+            "a certified full scan; an HNSW graph walk has no such fallback "
+            "(DESIGN.md §9)")
+    if method.name == "FDScanning":
+        return None
+    from repro_torch.core.guardrails import Guardrail, GuardrailConfig
+    if gcfg is True:
+        gcfg = GuardrailConfig()
+    return Guardrail(gcfg, method, backend)
 
 
 def _code_dtype(n_codes: int):
@@ -71,6 +105,12 @@ class HostBackend:
         self.index_kind = index_kind
         self.index = index
         self.policy = policy
+        # adaptive fdscan fallback (DESIGN.md §5) for the scan-shaped index
+        # kinds; HNSW graph walks screen tiny per-hop batches and ignore it
+        self._pol = PolicyConfig.from_schedule(policy)
+        # demoted serving: every candidate block completes exactly
+        self._pol_demoted = PolicyConfig(adaptive=True, force_fallback=True)
+        self.guardrail = _arm_guardrail(method, index_kind, policy, "host")
 
     def invalidate(self):
         """No-op: nothing is cached on the host path."""
@@ -81,9 +121,46 @@ class HostBackend:
         parity with the torch backend."""
         return "noop"
 
-    def search(self, Q, k: int, *, nprobe: int, ef: int):
-        """Batched staged-scan top-k; returns (dists, ids, stats)."""
+    def search(self, Q, k: int, *, nprobe: int, ef: int,
+               deadline_s: float | None = None):
+        """Batched staged-scan top-k; returns (dists, ids, stats).
+
+        ``deadline_s`` (seconds of wall budget for the whole batch) arms
+        anytime mode (DESIGN.md §7): the scan checks the clock between
+        candidate blocks, queries past the budget return their running
+        top-k, and per-query ``coverage`` (candidate blocks scanned, 1.0 =
+        complete) lands in ``stats.extra`` with partial queries flagged in
+        ``uncertified_mask``.  With ``SchedulePolicy(guardrails=...)``
+        armed, non-deadline batches route through the breaker (DESIGN.md
+        §9); deadline calls bypass it."""
+        faults.check_search(faults.active(self.policy))
+        g = self.guardrail
+        if g is not None and deadline_s is None:
+            return g.run(
+                Q, k,
+                screen=lambda q: self._search(q, k, nprobe=nprobe, ef=ef),
+                certified=lambda q: self._search(q, k, nprobe=nprobe, ef=ef,
+                                                 demoted=True),
+                plan=faults.active(self.policy))
+        return self._search(Q, k, nprobe=nprobe, ef=ef,
+                            deadline_s=deadline_s)
+
+    def _search(self, Q, k: int, *, nprobe: int, ef: int,
+                deadline_s: float | None = None, demoted: bool = False):
+        """The scan itself; ``demoted=True`` serves every candidate block
+        by the exhaustive exact completion (``PolicyConfig(force_fallback)``
+        pins the host policy's fallback mode: the guardrail's certified
+        path)."""
         m = self.method
+        t_end = None
+        if deadline_s is not None:
+            if self.index_kind == "hnsw":
+                raise ValueError(
+                    "anytime deadlines interrupt scan-shaped searches "
+                    "(index='flat'/'ivf'); an HNSW graph walk has no block "
+                    "boundary to stop at (DESIGN.md §7)")
+            t_end = time.monotonic() + float(deadline_s)
+        pol = self._pol_demoted if demoted else self._pol
         batch = QueryBatch.create(m, Q, self.policy.stage_dims(m.state["D"]))
         dists = np.empty((len(batch), k), np.float32)
         ids = np.empty((len(batch), k), np.int64)
@@ -92,9 +169,11 @@ class HostBackend:
             if self.index_kind == "flat":
                 if all_ids is None:
                     all_ids = np.arange(m.state["N"])
-                d, i = scan_topk(m, batch, qi, all_ids, k)
+                d, i = scan_topk(m, batch, qi, all_ids, k, policy=pol,
+                                 deadline_ts=t_end)
             elif self.index_kind == "ivf":
-                d, i = self.index.search(m, batch, qi, k, nprobe)
+                d, i = self.index.search(m, batch, qi, k, nprobe,
+                                         policy=pol, deadline_ts=t_end)
             else:                   # hnsw
                 d, i = self.index.search(m, batch, qi, k, max(ef, k))
             n = min(k, len(d))
@@ -108,23 +187,26 @@ class HostBackend:
     def _finalize_stats(stats, nq: int) -> None:
         """Fold scan accumulators into the canonical ``extra`` telemetry
         keys (api.types.STAT_EXTRA_KEYS) so host batches report the same
-        fields as the torch backend.  Every host survivor is exactly
-        completed, so every query is certified and covered.  The adaptive
-        keys come with the adaptive policy (ROADMAP A3): a fixed scan
-        reports none, as the reference's ``finalize_adaptive_extra`` then
-        adds none."""
+        fields as the torch backend."""
         completed = stats.extra.pop("_completed_total", None)
         if completed is not None:
             # no completion budget on the host scan: pass == completed
             stats.extra[EXTRA_SURVIVORS_MEAN] = completed / max(nq, 1)
             stats.extra[EXTRA_SCREEN_PASS_MEAN] = completed / max(nq, 1)
+        # every host survivor is exactly completed -> certified, UNLESS an
+        # anytime deadline cut the scan short: unscanned candidate blocks
+        # may hold true neighbors, so partial queries are uncertified
+        cov = stats.extra.pop("_coverage", None)
         coverage = np.ones(nq, np.float32)
+        if cov is not None:
+            coverage[:len(cov)] = np.asarray(cov, np.float32)
         stats.extra[EXTRA_COVERAGE] = coverage
         stats.extra[EXTRA_UNCERTIFIED_MASK] = coverage < 1.0
         stats.extra[EXTRA_UNCERTIFIED_QUERIES] = float(
             (coverage < 1.0).mean())
         stats.extra[EXTRA_DIMS_READ_MEAN] = (
             stats.dims_scanned / max(stats.n_dco, 1))
+        finalize_adaptive_extra(stats)
 
 
 class TorchBackend:
@@ -146,7 +228,9 @@ class TorchBackend:
         self._d1 = None
         self._groups = 1            # PDX dim groups of that layout
         self._list_sizes = None     # IVF partition sizes (probe stats)
-        self._cfg_cache: dict = {}  # k -> DcoEngineConfig
+        # (k, anytime, demoted) -> DcoEngineConfig
+        self._cfg_cache: dict = {}
+        self.guardrail = _arm_guardrail(method, index_kind, policy, "torch")
         # captured block walks (stream_engine._ChunkGraph) over the cached
         # layout; a graph holds its addresses, so it goes with the layout
         self._graphs: dict = {}
@@ -176,9 +260,12 @@ class TorchBackend:
         self._delta_dirty = False
 
     def _resolved_engine(self) -> str:
-        """The engine ``search`` runs: opq and IVF probing are stream-only.
-        Requires a materialized ``_dstate``."""
-        if self._dstate["kind"] == "opq" or self.index_kind == "ivf":
+        """The engine ``search`` runs: opq, IVF probing, the adaptive policy
+        and the guardrail's demotion are stream-only.  Requires a
+        materialized ``_dstate``."""
+        if (self._dstate["kind"] == "opq" or self.index_kind == "ivf"
+                or PolicyConfig.from_schedule(self.policy) is not None
+                or self.guardrail is not None):
             return "stream"
         return self.policy.engine
 
@@ -355,9 +442,17 @@ class TorchBackend:
         self._state = {key: v.to(self.device) for key, v in state.items()
                        if key not in _ROW_KEYS}
 
-    def _config(self, k: int) -> DcoEngineConfig:
-        if k in self._cfg_cache:
-            return self._cfg_cache[k]
+    def _config(self, k: int, anytime: bool = False,
+                demoted: bool = False) -> DcoEngineConfig:
+        """The engine config for ``k``, cached: a deadline call (``anytime``)
+        runs the fixed walk, so it strips the policy, as fdscan does (it has
+        nothing to fall back to); a ``demoted`` one (the guardrail's open
+        breaker and its audits) pins ``force_fallback``.  An adaptive
+        policy screens inline except on opq, whose ``pq_lookup`` keeps its
+        kernel."""
+        key = (k, anytime, demoted)
+        if key in self._cfg_cache:
+            return self._cfg_cache[key]
         ds, p = self._dstate, self.policy
         kw = dict(kind=ds["kind"], d1=self._d1, k=k, capacity=p.capacity,
                   query_chunk=p.query_chunk, tau_slack=p.tau_slack,
@@ -372,10 +467,17 @@ class TorchBackend:
             kw["theta"] = self._ratio_theta(k)
         elif ds["kind"] == "opq":
             kw["theta"] = float(ds["theta"])
-        if kw["use_kernel"] is None:
+        if demoted:
+            kw["policy"] = PolicyConfig(adaptive=True, force_fallback=True,
+                                        fallback_margin=p.fallback_margin)
+        elif ds["kind"] != "fdscan" and not anytime:
+            kw["policy"] = PolicyConfig.from_schedule(p)
+        if kw.get("policy") is not None and ds["kind"] != "opq":
+            kw["use_kernel"] = False
+        elif kw["use_kernel"] is None:
             kw["use_kernel"] = self.device.type == "cuda"
         cfg = DcoEngineConfig(**kw)
-        self._cfg_cache[k] = cfg
+        self._cfg_cache[key] = cfg
         return cfg
 
     def _ratio_theta(self, k: int) -> float:
@@ -419,16 +521,56 @@ class TorchBackend:
         return probed.astype(np.int32), self._list_sizes[probed].sum(1)
 
     # -- search --------------------------------------------------------------
-    def search(self, Q, k: int, *, nprobe: int = 16, ef: int = 64):
+    def search(self, Q, k: int, *, nprobe: int = 16, ef: int = 64,
+               deadline_s: float | None = None):
         """Batched device top-k; returns (dists, ids, stats).  ``nprobe``
         is the IVF probe width; ``ef`` is accepted for signature parity
-        with the reference's host backend (unused)."""
+        with the host backend (unused).
+
+        ``deadline_s`` (seconds of wall budget for the whole batch) arms
+        the streaming engine's anytime mode (DESIGN.md §7): the corpus is
+        walked in ``SchedulePolicy.anytime_block_group`` block groups with
+        a wall check at each boundary, an expired budget returns the
+        running top-k, and the scanned fraction lands in
+        ``stats.extra["coverage"]`` with partial queries flagged
+        uncertified (the adaptive policy is stripped for the call).
+
+        With ``SchedulePolicy(guardrails=...)`` armed, non-deadline batches
+        route through the breaker (DESIGN.md §9): drift is scored, a
+        sampled audit shadow-runs the forced full scan, and an OPEN breaker
+        serves the whole batch through it.  Deadline calls bypass it."""
+        faults.check_search(faults.active(self.policy))
+        g = self.guardrail
+        if g is not None and deadline_s is None:
+            return g.run(
+                Q, k,
+                screen=lambda q: self._search(q, k, nprobe=nprobe),
+                certified=lambda q: self._search(q, k, nprobe=nprobe,
+                                                 demoted=True),
+                plan=faults.active(self.policy))
+        return self._search(Q, k, nprobe=nprobe, deadline_s=deadline_s)
+
+    def _search(self, Q, k: int, *, nprobe: int,
+                deadline_s: float | None = None, demoted: bool = False):
+        """The engine dispatch itself; ``demoted=True`` swaps in the
+        forced-fallback config (every chunk runs the full-scan body: the
+        guardrail's certified path)."""
         if self._dstate is None:
             self._materialize()
         if self.delta_rows and (self._delta_dirty
                                 or self._delta_blocks is None):
             self._build_delta()
-        cfg = self._config(k)
+        t_end = None
+        if deadline_s is not None:
+            t_end = time.monotonic() + float(deadline_s)
+        cfg = self._config(k, anytime=t_end is not None, demoted=demoted)
+        engine = self._resolved_engine()
+        if t_end is not None:
+            engine = "stream"       # only the streaming engine serves it
+        if engine == "stream" and self._blocks is None:
+            # a two-stage session's deadline call: lay the blocks out once
+            self._blocks = build_stream_blocks(self._state,
+                                               self.policy.row_block)
         ql, qt, qe = self._prep_queries(Q)
         nq, N, D = ql.shape[0], self.method.state["N"], self.method.state["D"]
 
@@ -439,9 +581,9 @@ class TorchBackend:
         ql_t, qt_t = dev(ql), dev(qt)
         qe_t = {key: dev(v) for key, v in qe.items()}
         cand_per_q = np.full(nq, N, np.float64)
-        passed = dmin = dims_read = None
+        passed = dmin = dims_read = report = coverage = None
         n_anchor = 0                # two_stage completes k anchors per query
-        if self._resolved_engine() == "two_stage":
+        if engine == "two_stage":
             out = two_stage_topk(self._state, ql_t, qt_t, cfg, qe_t)
             # one transfer back per output, after the whole batch is queued
             d, i, surv = (o.cpu().numpy() for o in out)
@@ -462,7 +604,17 @@ class TorchBackend:
                         self._delta_parts[None, :nd, None]
                         == probed[:, None, :]).any(-1).sum(1)
             out = stream_topk(st, ql_t, qt_t, cfg, qe_t, probe, blocks=blocks,
+                              deadline_ts=t_end,
+                              block_group=self.policy.anytime_block_group,
                               graphs=self._graphs)
+            if cfg.policy is not None:
+                out, report = out[:6], {key: v.cpu().numpy()
+                                        for key, v in out[6].items()}
+            elif t_end is not None:
+                out, coverage = out[:6], out[6]
+                # a partial scan touched only this share of the corpus:
+                # charge candidate work pro rata
+                cand_per_q = cand_per_q * coverage
             d, i, surv, passed, dmin, dims_read = (o.cpu().numpy()
                                                    for o in out)
         stats = ScanStats(n_dco=int(cand_per_q.sum()),
@@ -482,12 +634,29 @@ class TorchBackend:
                 self._certify(stats, d, dmin)
         if dims_read is not None:
             # the streaming scan measured its own reads (screen dims
-            # entered plus completed tails)
+            # entered plus completed tails; full rows in fallback blocks)
             stats.dims_scanned = float(np.asarray(dims_read,
                                                   np.float64).sum())
         stats.extra[EXTRA_DIMS_READ_MEAN] = (
             stats.dims_scanned / max(stats.n_dco, 1))
-        stats.extra[EXTRA_COVERAGE] = np.ones(nq, np.float32)
+        if report is not None:
+            stats.extra[EXTRA_FALLBACK_BLOCKS] = float(
+                report["fallback_blocks"].mean())
+            stats.extra[EXTRA_EST_SAVED_FLOPS] = float(
+                report["est_saved_flops"].sum())
+            stats.extra[EXTRA_RULE_TIMELINE] = [
+                float(v) for v in report["rule_timeline"]]
+        # anytime coverage: the whole batch advances together, so every
+        # query shares the scanned fraction; a partial scan is uncertified
+        # even where the certificate held over the scanned prefix
+        cov_arr = np.full(nq, 1.0 if coverage is None else coverage,
+                          np.float32)
+        stats.extra[EXTRA_COVERAGE] = cov_arr
+        mask = stats.extra.get(EXTRA_UNCERTIFIED_MASK)
+        if mask is not None and coverage is not None and coverage < 1.0:
+            stats.extra[EXTRA_UNCERTIFIED_MASK] = mask | (cov_arr < 1.0)
+            stats.extra[EXTRA_UNCERTIFIED_QUERIES] = float(
+                stats.extra[EXTRA_UNCERTIFIED_MASK].mean())
         return (np.asarray(d, np.float32), np.asarray(i, np.int64), stats)
 
     @staticmethod

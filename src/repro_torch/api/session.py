@@ -18,9 +18,15 @@ backend over a flat, IVF or HNSW index:
     hnsw = open_index(X, index="hnsw", method="PDScanning+",
                       backend="host", index_params={"m": 16})
     res = hnsw.search(Q, k=10, ef=64)                # the host graph walk
+    ada = open_index(X, method="PDScanning+",        # the adaptive policy
+                     schedule=SchedulePolicy(adaptive=True))
+    res = ada.search(Q, k=10, deadline_s=0.05)       # anytime: coverage
+    grd = open_index(X, method="PDScanning+",        # the guardrail breaker
+                     schedule=SchedulePolicy(guardrails=True))
+    print(grd.guardrails()["state"])
 
-Options the port does not serve yet raise ``NotImplementedError`` naming
-their ROADMAP item.
+The mesh (ROADMAP A7), the serving front and snapshots (A6) are not ported
+yet and raise ``NotImplementedError`` naming their item.
 """
 from __future__ import annotations
 
@@ -39,20 +45,10 @@ BACKENDS = ("torch", "host")
 METHODS = tuple(ALL_METHODS)
 
 
-def _unsupported(policy: SchedulePolicy) -> None:
-    """Refuse schedule options whose engine paths are not ported yet."""
-    if policy.adaptive:     # with dim_groups > 1 too: the adaptive PDX escape
-        raise NotImplementedError(
-            "SchedulePolicy(adaptive=True) is not ported yet (ROADMAP A3)")
-    if policy.guardrails is not None and policy.guardrails is not False:
-        raise NotImplementedError(
-            "SchedulePolicy(guardrails=...) is not ported yet (ROADMAP A5)")
+def _check_engine(policy: SchedulePolicy) -> None:
     if policy.engine not in ("stream", "two_stage"):
         raise ValueError(f"SchedulePolicy(engine={policy.engine!r}): "
                          "expected 'stream' or 'two_stage'")
-    if policy.faults is not None:
-        raise NotImplementedError(
-            "SchedulePolicy(faults=...) is not ported yet (ROADMAP A4)")
 
 
 class SearchSession:
@@ -74,7 +70,7 @@ class SearchSession:
         self.index_kind = index_kind
         self.index = index
         self.policy = policy if policy is not None else SchedulePolicy()
-        _unsupported(self.policy)
+        _check_engine(self.policy)
         self.backend = make_backend(backend, method, self.policy,
                                     index_kind=index_kind, index=index,
                                     device=device)
@@ -100,10 +96,15 @@ class SearchSession:
         """Batched top-k for all rows of ``Q``; one online prep for the
         whole batch.  ``nprobe`` is the IVF probe width (ignored by a flat
         index); ``ef`` is the HNSW walk's candidate list width (ignored by
-        flat and IVF)."""
-        if deadline_s is not None:
-            raise NotImplementedError(
-                "search(deadline_s=...) is not ported yet (ROADMAP A4)")
+        flat and IVF).
+
+        ``deadline_s`` arms anytime search (DESIGN.md §7): the scan stops
+        after the last row block (torch: block group) that finishes within
+        ``deadline_s`` seconds of wall time and returns the running top-k
+        as a partial result.  Partial queries report ``coverage < 1.0`` and
+        a set ``uncertified_mask`` bit in ``result.stats.extra``; with a
+        generous deadline the result equals the non-deadline path's bit
+        for bit.  Flat/IVF only (HNSW walks reject it)."""
         Q = np.atleast_2d(np.asarray(Q))
         if Q.dtype.kind not in "fiu":
             raise ValueError(
@@ -115,8 +116,14 @@ class SearchSession:
                 f"search(): {bad} of {Q.shape[0]} queries contain NaN/Inf "
                 "values; distances to non-finite queries are meaningless "
                 "and would poison the running top-k threshold")
+        if deadline_s is not None and deadline_s <= 0.0:
+            raise ValueError(
+                f"search(): deadline_s must be > 0 (got {deadline_s}); the "
+                "engines always finish at least one block group, so a "
+                "non-positive budget cannot mean 'return nothing'")
         t0 = time.perf_counter()
-        dists, ids, stats = self.backend.search(Q, k, nprobe=nprobe, ef=ef)
+        dists, ids, stats = self.backend.search(Q, k, nprobe=nprobe, ef=ef,
+                                                deadline_s=deadline_s)
         return SearchResult(dists, ids, stats, time.perf_counter() - t0,
                             self.backend.name)
 
@@ -162,6 +169,15 @@ class SearchSession:
             Xnew.shape[0], parts=parts)
         return self
 
+    def guardrails(self) -> dict | None:
+        """Guardrail snapshot (DESIGN.md §9) when the session was opened
+        with ``SchedulePolicy(guardrails=...)``: breaker state, drift and
+        audit EWMAs, audit counters and the transition log.  ``None`` when
+        no guardrail is armed (FDScanning sessions included: they are
+        already the certified fallback)."""
+        g = getattr(self.backend, "guardrail", None)
+        return None if g is None else g.report()
+
 
 def open_index(X=None, *, index: str = "flat", method: str = "DADE",
                backend: str = "torch",
@@ -206,7 +222,7 @@ def open_index(X=None, *, index: str = "flat", method: str = "DADE",
     if method not in ALL_METHODS:
         raise ValueError(f"method must be one of {METHODS}, got {method!r}")
     policy = schedule if schedule is not None else SchedulePolicy()
-    _unsupported(policy)
+    _check_engine(policy)
     if backend == "torch":
         device = resolve_device(device)     # fail before paying for the fit
     X = np.ascontiguousarray(np.atleast_2d(X), np.float32)

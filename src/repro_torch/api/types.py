@@ -2,11 +2,10 @@
 
 A copy of the reference package's ``api/types.py`` with the same fields and
 defaults, so one ``SchedulePolicy`` reads the same in both packages.  The
-torch backend serves the fixed-path streaming search over a flat or IVF
-index, row-blocked or in the PDX layout (``dim_groups`` > 1), its delta
-write path and the two-stage engine; the options it does not serve yet
-(adaptive, guardrails, faults) are refused by
-``repro_torch.api.open_index``.
+torch backend serves the streaming search over a flat or IVF index,
+row-blocked or in the PDX layout (``dim_groups`` > 1), fixed or under the
+adaptive policy, with anytime deadlines, fault plans and the guardrail
+breaker, its delta write path and the two-stage engine.
 """
 from __future__ import annotations
 
@@ -145,8 +144,8 @@ class SchedulePolicy:
     ``group_capacity`` bounds the candidates each query carries past group 0
     on the inline (``use_kernel=False``) path (0 = auto:
     max(4*block_capacity, 512)); raise it if ``uncertified_queries``
-    reports R-cut drops.  The torch backend serves PDX on the fixed path;
-    PDX with ``adaptive=True`` is refused with the adaptive policy.
+    reports R-cut drops.  Under ``adaptive=True`` the PDX walk screens
+    inline (the R-cut joins the escape's spill gate).
 
     ``delta_merge_threshold`` governs the jax backend's LSM-style write path
     (DESIGN.md §6): ``add()`` appends rows to a small delta segment that is
@@ -161,8 +160,8 @@ class SchedulePolicy:
     net-negative, recovering when it pays again.  ``fallback_margin`` is
     how much cheaper than a full scan the cost model must predict screening
     to be before it is trusted (>1 = demand headroom; raise it to fall back
-    earlier).  Served by the streaming jax engine and the host flat/IVF
-    scan; ignored by host HNSW walks and rejected on the mesh path.
+    earlier).  Served by the streaming torch engine and the host flat/IVF
+    scan; ignored by host HNSW walks.
 
     ``wal_max_bytes`` rotates the crash-safe delta WAL (DESIGN.md §7/§10):
     once the active segment reaches this many bytes, later ``add()``
@@ -172,17 +171,18 @@ class SchedulePolicy:
     snapshots.  0 = never rotate, the single-segment pre-PR-10 behavior.
 
     ``anytime_block_group`` is the deadline-check granularity of anytime
-    search on the jax backend (DESIGN.md §7): a ``deadline_s`` search runs
-    the streaming scan this many row blocks at a time, syncing with the
-    host between groups to test the wall clock.  Smaller = finer deadline
+    search on the torch backend (DESIGN.md §7): a ``deadline_s`` search
+    runs the streaming scan this many row blocks at a time, synchronizing
+    the device between groups to test the wall clock.  Smaller = finer deadline
     resolution but more device/host round-trips; the first group always
     completes, so a result is returned even for an already-expired
-    deadline.  ``faults`` optionally scopes a ``repro.testing.FaultPlan``
-    to sessions built with this policy (chaos testing; see
-    ``repro.testing.faults``).
+    deadline.  ``faults`` optionally scopes a
+    ``repro_torch.testing.FaultPlan`` to sessions built with this policy
+    (chaos testing; see ``repro_torch.testing.faults``).
 
     ``guardrails`` arms the guardrail layer (DESIGN.md §9): pass a
-    ``repro.core.guardrails.GuardrailConfig`` (or ``True`` for defaults)
+    ``repro_torch.core.guardrails.GuardrailConfig`` (or ``True`` for
+    defaults)
     and the session fits a query-drift sentinel at open time, shadow-audits
     a deterministic ~1/64 query sample against the certified full scan,
     and runs a per-(method, backend) circuit breaker that demotes DCO
@@ -190,7 +190,7 @@ class SchedulePolicy:
     evidence says screening can't be trusted — recovering via half-open
     canary probes.  Supported for scan-shaped searches (index 'flat' or
     'ivf') on both backends; rejected for HNSW (a graph walk has no
-    certified fallback) and on the mesh path; a no-op for FDScanning
+    certified fallback); a no-op for FDScanning
     sessions, which are already the fallback.
     """
 

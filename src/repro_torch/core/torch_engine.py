@@ -47,7 +47,8 @@ class DcoEngineConfig:
     block_capacity: int = 128  # survivors tail-completed per block per query
     use_kernel: bool | None = None  # CUDA kernels for stage 1 (None ->
                                     # only on a CUDA device)
-    policy: object | None = None    # adaptive policy: not ported yet
+    policy: object | None = None    # core.policy.PolicyConfig: the
+                                    # adaptive fdscan fallback
     dim_groups: int = 1        # PDX layout: lead dim groups (1 = flat)
     group_capacity: int = 0    # PDX R-cut budget of the inline path
                                # (0 = max(4 * block_capacity, 512))

@@ -158,6 +158,84 @@ def load_dataset(name: str, *, scale: float = 1.0, seed: int = 0) -> VectorDatas
     return ds
 
 
+def make_ood_queries(X: np.ndarray, nq: int, *, severity: float = 1.0,
+                     seed: int = 123) -> np.ndarray:
+    """The OOD knob: queries whose per-direction energy profile is shifted
+    away from the base corpus spectrum by ``severity``.
+
+    In the principal basis of ``X``, in-distribution data has std
+    ``sqrt(lam_i)`` along direction ``i``.  ``severity=0`` draws queries
+    matching that profile (ID-like); ``severity=1`` draws from the REVERSED
+    profile — energy concentrated in the lowest-variance directions, the
+    modality-shift regime where lower-bound/estimator screening collapses
+    (the paper's §V-B finding, and what drives the adaptive policy's
+    fallback in the tests and ``chip_smoke.py``).  Intermediate values interpolate
+    geometrically.  Query norms are rescaled to the mean base-row norm so
+    thresholds stay in-range (same convention as the built-in ``Q_ood``).
+    """
+    X = np.asarray(X, np.float32)
+    rng = np.random.default_rng((zlib.crc32(b"oodknob") + 7919 * seed) % (2 ** 31))
+    mu = X.mean(0)
+    sub = X[rng.choice(X.shape[0], min(X.shape[0], 20_000), replace=False)] - mu
+    cov = (sub.astype(np.float64).T @ sub) / max(sub.shape[0] - 1, 1)
+    lam, V = np.linalg.eigh(cov)                  # ascending
+    lam = np.maximum(lam[::-1], 1e-12)            # descending spectrum
+    V = V[:, ::-1]
+    std_id = np.sqrt(lam)
+    w = (std_id ** (1.0 - severity)) * (std_id[::-1] ** severity)
+    Z = rng.standard_normal((nq, X.shape[1]))
+    Q = mu + (Z * w) @ V.T
+    Q = Q.astype(np.float32)
+    Q *= (np.linalg.norm(X, axis=1).mean()
+          / max(np.linalg.norm(Q, axis=1).mean(), 1e-9))
+    return np.ascontiguousarray(Q, np.float32)
+
+
+#: Severity profiles of :func:`make_drift_scenario`.
+DRIFT_SCENARIOS = ("gradual", "sudden", "recovering")
+
+
+def make_drift_scenario(X: np.ndarray, nq: int, n_batches: int, *,
+                        scenario: str = "sudden", severity: float = 1.0,
+                        seed: int = 123) -> list:
+    """A stream of query batches whose OOD severity follows a named drift
+    profile — the guardrail layer's workload generator (DESIGN.md §9).
+
+    Returns ``n_batches`` arrays of shape ``(nq, D)``; batch ``b`` is drawn
+    by :func:`make_ood_queries` at that batch's severity (ID-like batches
+    use severity 0.0 — the matched-spectrum draw — so every batch comes
+    from the same generator and only the drift knob moves):
+
+    ``"gradual"``     severity ramps linearly 0 -> ``severity`` over the
+                      stream (slow modality creep; the sentinel EWMA should
+                      cross its threshold mid-stream).
+    ``"sudden"``      first third in-distribution, then a step to
+                      ``severity`` (hard modality switch; breakers must
+                      trip within a few batches).
+    ``"recovering"``  in-distribution, a middle-third excursion at
+                      ``severity``, then back (tests the half-open canary
+                      re-promotion path).
+
+    Each batch gets its own derived seed, so batches are independent draws
+    and the whole stream is reproducible from ``seed``.
+    """
+    if scenario not in DRIFT_SCENARIOS:
+        raise ValueError(
+            f"scenario must be one of {DRIFT_SCENARIOS}, got {scenario!r}")
+    if n_batches < 1:
+        raise ValueError(f"n_batches must be >= 1, got {n_batches}")
+    third = max(1, n_batches // 3)
+    sev = np.zeros(n_batches)
+    if scenario == "gradual":
+        sev = np.linspace(0.0, 1.0, n_batches) * severity
+    elif scenario == "sudden":
+        sev[third:] = severity
+    else:                                   # recovering
+        sev[third:2 * third] = severity
+    return [make_ood_queries(X, nq, severity=float(s), seed=seed + 1000 * b)
+            for b, s in enumerate(sev)]
+
+
 def recall_at_k(found_ids: np.ndarray, gt_ids: np.ndarray) -> float:
     """Paper Eq. (1), averaged over queries."""
     k = gt_ids.shape[1]

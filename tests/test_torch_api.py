@@ -1,7 +1,7 @@
 """The port's facade (repro_torch.api) against the reference facade
 (repro.api, backend="jax") for all 8 methods, the host backend against the
-reference's (flat, IVF and HNSW), the options the port refuses, its device
-rule, the fitted-state converters, and the guard that keeps the port free
+reference's (flat, IVF and HNSW), the options the port refuses and those
+it now serves, its device rule, the fitted-state converters, and the guard that keeps the port free
 of jax and of the reference package."""
 import re
 import subprocess
@@ -15,9 +15,11 @@ import torch
 from repro.api import SchedulePolicy as JaxPolicy
 from repro.api import open_index as jax_open_index
 from repro.core.methods import make_method as ref_make_method
+from repro.testing import FaultPlan as JaxFaultPlan
 from repro.vecdata import load_dataset as ref_load_dataset
 from repro_torch.api import METHODS, SchedulePolicy, open_index
 from repro_torch.convert import method_from_reference, state_from_reference
+from repro_torch.testing import FaultPlan
 from repro_torch.vecdata import load_dataset, recall_at_k
 
 K = 10
@@ -162,13 +164,8 @@ def test_backend_holds_the_corpus_once(name, groups, sift_small):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(schedule=SchedulePolicy(faults=object())), "A4"),
-    (dict(backend="host", schedule=SchedulePolicy(adaptive=True)), "A3"),
     (dict(mesh=object()), "A7"),
     (dict(serving=True), "A6"), (dict(path="idx.bin"), "A6"),
-    (dict(schedule=SchedulePolicy(adaptive=True)), "A3"),
-    (dict(schedule=SchedulePolicy(guardrails=True)), "A5"),
-    (dict(schedule=SchedulePolicy(dim_groups=4, adaptive=True)), "A3"),
 ])
 def test_unsupported_options_raise(kwargs, item, sift_small):
     """Each option the port does not serve yet names its ROADMAP item."""
@@ -177,10 +174,47 @@ def test_unsupported_options_raise(kwargs, item, sift_small):
                    **kwargs)
 
 
-def test_deadline_search_raises(sift_small):
-    sess = open_index(sift_small.X[:256], method="FDScanning", device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        sess.search(sift_small.Q[:2], K, deadline_s=1.0)
+@pytest.mark.parametrize("backend,kw", [
+    ("torch", dict(faults=FaultPlan(slow_block_s=0.0))),
+    ("host", dict(adaptive=True)),
+    ("torch", dict(adaptive=True)),
+    ("torch", dict(guardrails=True)),
+    ("torch", dict(dim_groups=4, adaptive=True)),
+])
+def test_unsupported_options_served(backend, kw, sift_small):
+    """The schedule options the port once refused (a fault plan, the
+    adaptive policy on either backend and on the PDX layout, the
+    guardrail breaker) are served, with the reference facade's ids,
+    distances within rtol 1e-4 and the same adaptive telemetry."""
+    X, Q = sift_small.X[:1024], sift_small.Q[:4]
+    jkw = dict(kw)
+    if "faults" in kw:
+        jkw["faults"] = JaxFaultPlan(slow_block_s=0.0)
+    rj = jax_open_index(X, method="PDScanning+",
+                        backend="jax" if backend == "torch" else "host",
+                        schedule=JaxPolicy(**POLICY, **jkw)).search(Q, K)
+    rt = open_index(X, method="PDScanning+", backend=backend,
+                    device="cpu" if backend == "torch" else None,
+                    schedule=SchedulePolicy(**POLICY, **kw)).search(Q, K)
+    np.testing.assert_array_equal(rt.ids, rj.ids)
+    np.testing.assert_allclose(rt.dists, rj.dists, rtol=1e-4)
+    assert set(rt.stats.extra) == set(rj.stats.extra)
+    for key in ("fallback_blocks", "rule_timeline", "breaker_state"):
+        assert rt.stats.extra.get(key) == rj.stats.extra.get(key), key
+
+
+def test_deadline_search_served(sift_small):
+    """A deadline search is served: with a generous budget the whole
+    corpus is scanned, with the reference facade's ids and coverage."""
+    X, Q = sift_small.X[:256], sift_small.Q[:2]
+    sess = open_index(X, method="FDScanning", device="cpu")
+    res = sess.search(Q, K, deadline_s=1.0)
+    ref = jax_open_index(X, method="FDScanning", backend="jax").search(
+        Q, K, deadline_s=1.0)
+    np.testing.assert_array_equal(res.ids, ref.ids)
+    np.testing.assert_array_equal(res.stats.extra["coverage"],
+                                  ref.stats.extra["coverage"])
+    assert (res.stats.extra["coverage"] == 1.0).all()
 
 
 def test_default_device_needs_a_gpu(sift_small):

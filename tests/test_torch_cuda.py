@@ -592,3 +592,135 @@ def test_smallest_agrees_with_stable_sort_on_the_card(cuda_device, width, n):
     svals, sidx = torch.sort(at, dim=1, stable=True)
     assert torch.equal(idx, sidx[:, :n])
     assert torch.equal(vals, svals[:, :n])
+
+
+# ------------------------------------- the adaptive and anytime walks ---
+def _mixed_queries(sess, X, Q):
+    """Four in-distribution queries, then four out-of-distribution ones
+    (chunks of 4): the seed sends the chunks down different bodies."""
+    from repro_torch.vecdata import make_ood_queries
+    ood = make_ood_queries(X[:1200], 4, severity=1.0, seed=5)
+    return np.concatenate([Q[:4], np.round(ood)]).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["flat", "pdx", "ddcopq", "ivf",
+                                  "forced"])
+def test_adaptive_graph_equals_eager_walk(cuda_device, case):
+    """The adaptive batch on the card (the switching walk and the
+    full-scan body, each a captured graph a chunk) against the same
+    chunks walked eagerly on the card: the six outputs and the report
+    equal; adaptive flat and PDX launch no dco_scan kernel (the inline
+    screen), adaptive DDCopq launches pq_lookup in every block, the
+    full-scan body launches none."""
+    import dataclasses
+
+    from repro_torch.api import SchedulePolicy, SearchSession
+    from repro_torch.core import stream_engine as se
+    from repro_torch.core.policy import PolicyConfig
+    method = "DDCopq" if case == "ddcopq" else "PDScanning+"
+    sess, X, Q = _graph_session("ivf" if case == "ivf" else "flat", method,
+                                groups=4 if case == "pdx" else 1)
+    pol = dataclasses.replace(sess.policy, adaptive=True)
+    sess = SearchSession(sess.method, pol, index_kind=sess.index_kind,
+                         index=sess.index, device="cuda")
+    Q = _mixed_queries(sess, X, Q)
+    sess.search(Q, 10, nprobe=4)
+    st, ql, qt, cfg, qe, probe, blocks = _engine_args(sess, Q)
+    if case == "forced":
+        cfg = dataclasses.replace(cfg, policy=PolicyConfig(
+            force_fallback=True))
+    assert cfg.use_kernel == (case == "ddcopq")
+    graphs = {}
+    before = se._launch_counts()
+    got = se.stream_topk(st, ql, qt, cfg, qe, probe, blocks=blocks,
+                         graphs=graphs)
+    again = se.stream_topk(st, ql, qt, cfg, qe, probe, blocks=blocks,
+                           graphs=graphs)
+    after = se._launch_counts()
+    want = se._adaptive_topk(st, blocks, ql, qt, qe, probe, cfg, 8, None)
+    torch.cuda.synchronize()
+    for out in (got, again):
+        for g, w in zip(out[:6], want[:6]):
+            assert torch.equal(g, w)
+        for key in want[6]:
+            assert torch.equal(out[6][key], want[6][key]), key
+    n_blocks = blocks["xl"].shape[0]
+    launched = [a - b for a, b in zip(after, before)]
+    assert launched[0] == launched[1] == 0          # no dco_scan kernels
+    if case == "ddcopq":
+        # the capture's eager warm-up walks each new graph's chunk once
+        assert launched[2] >= 4 * n_blocks
+    else:
+        assert launched[2] == 0
+    if case == "forced":
+        assert all(key[4] for key in graphs)         # every graph forced
+        assert torch.equal(want[6]["fallback_blocks"],
+                           torch.full_like(want[6]["fallback_blocks"],
+                                           n_blocks))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["flat", "pdx", "ddcopq", "ivf"])
+def test_anytime_groups_equal_the_one_shot_walk(cuda_device, case):
+    """The anytime walk on the card, replayed a graph a group span (the
+    ragged last group its own key) and eagerly: with a deadline that does
+    not fire, the one-shot walk's six outputs bit for bit, coverage 1.0,
+    and the kernel launches of every block."""
+    from repro_torch.core import stream_engine as se
+    method = "DDCopq" if case == "ddcopq" else "PDScanning+"
+    sess, X, Q = _graph_session("ivf" if case == "ivf" else "flat", method,
+                                groups=4 if case == "pdx" else 1)
+    sess.search(Q, 10, nprobe=4)
+    st, ql, qt, cfg, qe, probe, blocks = _engine_args(sess, Q)
+    want = se.stream_topk(st, ql, qt, cfg, qe, probe, blocks=blocks,
+                          graphs={})
+    graphs = {}
+    got = se.stream_topk(st, ql, qt, cfg, qe, probe, blocks=blocks,
+                         deadline_ts=1e18, block_group=2, graphs=graphs)
+    eager = se._anytime_topk(st, blocks, ql, qt, qe, probe, cfg, 8, 1e18,
+                             2, None)
+    torch.cuda.synchronize()
+    assert got[6] == eager[6] == 1.0
+    for g, e, w in zip(got[:6], eager[:6], want):
+        assert torch.equal(g, w) and torch.equal(e, w)
+    n_blocks = blocks["xl"].shape[0]
+    spans = {key[5] for key in graphs}
+    assert spans == {(s, min(2, n_blocks - s))
+                     for s in range(0, n_blocks, 2)}
+    kernel = {"pdx": 1, "ddcopq": 2}.get(case, 0)
+    assert sum(g.launches[kernel] for g in graphs.values()) == n_blocks
+
+
+@pytest.mark.cuda
+def test_adaptive_graph_cache_follows_the_layout(cuda_device):
+    """With an adaptive policy the backend keeps a switching and a
+    full-scan graph beside its layout; add() makes the next search
+    capture over the combined layout and answer as a freshly opened
+    session, and invalidate() leaves no graph behind."""
+    import dataclasses
+
+    from repro_torch.api import SearchSession
+    sess, X, Q = _graph_session("flat", "PDScanning+")
+    pol = dataclasses.replace(sess.policy, adaptive=True)
+    sess = SearchSession(sess.method, pol, device="cuda")
+    be = sess.backend
+    Q = _mixed_queries(sess, X, Q)
+    sess.search(Q, 10)
+    first = set(be._graphs)
+    assert first and all(g.keep[1] is be._blocks
+                         for g in be._graphs.values())
+    sess.add(X[1200:1300])
+    res = sess.search(Q, 10)
+    assert not first & set(be._graphs)
+    assert all(g.keep[1] is be._delta_blocks for g in be._graphs.values())
+    fresh = SearchSession(sess.method, sess.policy, device="cuda")
+    want = fresh.search(Q, 10)
+    np.testing.assert_array_equal(res.ids, want.ids)
+    np.testing.assert_array_equal(res.dists, want.dists)
+    assert (res.stats.extra["fallback_blocks"]
+            == want.stats.extra["fallback_blocks"])
+    be.invalidate()
+    assert be._graphs == {}
+    again = sess.search(Q, 10)
+    np.testing.assert_array_equal(again.ids, want.ids)

@@ -74,18 +74,30 @@ def test_scan_topk_matches_reference(name, sift_small):
             == jb.stats.extra["_completed_total"])
 
 
-def test_scan_topk_refuses_unported_options(sift_small):
-    port_m = method_from_reference(_ref_fitted(sift_small, "PDScanning+",
-                                               500))
-    batch = QueryBatch.create(port_m, sift_small.Q[:1])
-
-    class Adaptive:
-        adaptive = True
-
-    with pytest.raises(NotImplementedError, match="A3"):
-        scan_topk(port_m, batch, 0, np.arange(100), K, policy=Adaptive())
-    with pytest.raises(NotImplementedError, match="A4"):
-        scan_topk(port_m, batch, 0, np.arange(100), K, deadline_ts=1.0)
+def test_scan_topk_serves_policy_and_deadline(sift_small):
+    """The host scan with the adaptive policy (its fdscan fallback) and
+    with a deadline that does not fire: the reference's ids, distances
+    and stats to the last bit, the policy's private accumulator and the
+    coverage list included."""
+    from repro.core.policy import PolicyConfig as JaxPolicyConfig
+    from repro_torch.core.policy import PolicyConfig
+    from repro_torch.vecdata import make_ood_queries
+    ref_m = _ref_fitted(sift_small, "PDScanning+", 2000)
+    port_m = method_from_reference(ref_m)
+    Q = make_ood_queries(sift_small.X[:2000], 3, severity=1.0)
+    jb = JaxBatch.create(ref_m, Q)
+    tb = QueryBatch.create(port_m, Q)
+    for qi in range(3):
+        jd, ji = jax_scan_topk(ref_m, jb, qi, np.arange(2000), K, block=256,
+                               policy=JaxPolicyConfig(), deadline_ts=1e18)
+        td, ti = scan_topk(port_m, tb, qi, np.arange(2000), K, block=256,
+                           policy=PolicyConfig(), deadline_ts=1e18)
+        np.testing.assert_array_equal(ti, ji)
+        np.testing.assert_array_equal(td, jd)
+    assert tb.stats.dims_scanned == jb.stats.dims_scanned
+    assert tb.stats.extra == jb.stats.extra
+    assert tb.stats.extra["_adaptive_acc"]["fb"] > 0
+    assert tb.stats.extra["_coverage"] == [1.0, 1.0, 1.0]
 
 
 # ------------------------------------------------------------- IVFIndex ----

@@ -245,8 +245,13 @@ def test_stream_topk_refuses_unported_paths(sift_small):
     # a probe is served once the layout is partition-major
     with pytest.raises(ValueError, match="partition-major"):
         stream_topk(st, ql, qt, cfg, probe=torch.zeros(2, 1))
-    with pytest.raises(NotImplementedError, match="A4"):
-        stream_topk(st, ql, qt, cfg, deadline_ts=1.0)
+    # a deadline is served: one that does not fire scans every block
+    # and returns the non-deadline outputs with coverage 1.0
+    want = stream_topk(st, ql, qt, cfg)
+    got = stream_topk(st, ql, qt, cfg, deadline_ts=1e18)
+    assert got[6] == 1.0
+    for g, w in zip(got[:6], want):
+        assert torch.equal(g, w)
 
 
 # ---------------------------------------------------------------- PDX -------
