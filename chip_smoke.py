@@ -71,10 +71,43 @@ Phases, one JSON line each:
               guarded PDScanning+ session: the breaker opens during the
               drift, every demoted batch gives an FDScanning session's
               ids, and it closes again after;
- 14. rules    all 8 methods at 100k x 960 with the same queries, and each
+ 14. serving  the serving front (SearchService(slots=16, k=10)) over a
+              fixed PDScanning+ session on the first 991,808 rows, with the
+              fitted PCA: its capacity calibrated on the session itself
+              (steady step, one 1,024-row add and the stall of the step
+              after it, split into the delta build and the capture), then
+              400 Poisson arrivals at 0.7 of that capacity in simulated
+              time (the measured walls of the real steps), one 1,024-row
+              insert every 50 requests (8 inserts in all, the 5th a
+              merge): every ticket served, certified and exact against the
+              rows visible when it was served; latency percentiles,
+              sustained QPS, graphs captured (one, and one a write),
+              dco_scan launches a step, device bytes after the last write;
+ 15. serving_overload the grown session at 2x its steady capacity,
+              max_queue 64, shed_oldest, a deadline of 4 steady steps (the
+              anytime spans captured first): every ticket done, shed or
+              timed out, partial answers uncertified, full certified ones
+              exact;
+ 16. serving_ood the adaptive PDScanning+ session at 1M behind the service,
+              a 50/50 interleave of the dataset's and OOD queries at 0.7 of
+              its own capacity: per class p50/p99, fallback blocks, every
+              answer exact and certified, no dco_scan launch;
+ 17. replica  shard mode over the 1M corpus in 3 sessions (healthy: the flat
+              session's ids; shard 1 dead: coverage 2/3, uncertified, the
+              live shards' top-10; revived: full answers again), then
+              replicate mode over 3 sessions of the first 100k rows (a slow
+              replica hedged; replica 0 killed after 5 dispatches,
+              ejected, revived through half-open), virtual and real walls
+              and the tier's counters;
+ 18. persist  a card session at 95,904 rows saved, three 1,024-row adds in
+              the WAL, a fourth torn mid-frame, the session dropped and
+              loaded back onto the card (the frames replayed "cold", no
+              device work before the first search; the live ids, exact), a
+              bit-flipped snapshot refused;
+ 19. rules    all 8 methods at 100k x 960 with the same queries, and each
               method that groups again at dim_groups = 4 (and PDScanning+
               on the inline R-cut path);
- 15. profile  for each 1M session (flat, PDX, DDCopq), served again from
+ 20. profile  for each 1M session (flat, PDX, DDCopq), served again from
               its fitted method: one batch under torch.profiler (device
               operations, zero fills, CUDA runtime calls, device-busy share
               against the phase's unprofiled wall), then its kernel's time
@@ -97,8 +130,8 @@ Phases, one JSON line each:
               distribution, OOD beside the fixed screen, DDCopq) are
               profiled too, without a kernel timing.
 Then the kernel table (with each kernel's launches a batch on the main,
-IVF, adaptive and anytime paths), the nvidia-smi line and the result
-line.  Every
+IVF, adaptive and anytime paths, and a 16-query step of the serving arm),
+the nvidia-smi line and the result line.  Every
 check raises on failure, so the script exits nonzero; without a CUDA card,
 or without the repo beside it, it prints no result and exits nonzero.
 """
@@ -143,6 +176,20 @@ DRIFT_BATCHES = 18               # thirds: in distribution, OOD, back
 #: waits two batches; a quarter of the queries audited, four at a time
 DRIFT_GUARDRAIL = dict(min_dwell=2, trip_after=2, promote_after=2,
                        audit_rate=0.25, audit_batch=4)
+SERVE_SLOTS = 16                 # SearchService(slots=16): one query chunk
+SERVE_REQUESTS = 400
+SERVE_INSERT_EVERY = 50          # an insert every 50 requests
+SERVE_INSERT_ROWS = 1024
+SERVE_INSERTS = 8                # the first in the calibration, 7 in the run
+LAMBDA_FRACTION = 0.7            # offered load / calibrated capacity
+OVERLOAD_FACTOR = 2.0
+OVERLOAD_QUEUE = 64
+OOD_REQUESTS = 200
+SERVE_SEED = 11
+REPLICAS = 3
+SLOW_REPLICA_S = 0.05            # FaultPlan(slow_replica_s=): virtual
+PERSIST_ADDS = 3
+PERSIST_ROWS = 1024
 
 
 def log(phase: str, **kw) -> None:
@@ -201,24 +248,29 @@ def bound_ms(nbytes: float, flops: float):
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
-def ground_truth(X, Q, k: int = K):
-    """Exact top-k ids by brute force in float64, in row chunks."""
+def distances64(X, Q, dev):
+    """Squared distances of every query to every row, (nq, N) float64,
+    formed on ``dev`` in float64 in row chunks: the ground truth of any
+    visible prefix or subset of the rows is a selection over them."""
     import numpy as np
-    Q64 = Q.astype(np.float64)
-    qn = (Q64 ** 2).sum(1)[:, None]
-    best_d = np.full((Q.shape[0], 0), np.inf)
-    best_i = np.zeros((Q.shape[0], 0), np.int64)
+    import torch
+    q = torch.as_tensor(Q, device=dev, dtype=torch.float64)
+    qn = (q ** 2).sum(1)[:, None]
+    out = np.empty((Q.shape[0], X.shape[0]), np.float64)
     for s in range(0, X.shape[0], 50_000):
-        Xc = X[s:s + 50_000].astype(np.float64)
-        d2 = (Xc ** 2).sum(1)[None, :] - 2.0 * Q64 @ Xc.T + qn
-        d = np.concatenate([best_d, d2], 1)
-        i = np.concatenate([best_i, np.broadcast_to(
-            np.arange(s, s + Xc.shape[0]), d2.shape)], 1)
-        part = np.argpartition(d, k - 1, axis=1)[:, :k]
-        best_d = np.take_along_axis(d, part, 1)
-        best_i = np.take_along_axis(i, part, 1)
-    order = np.argsort(best_d, axis=1)
-    return np.take_along_axis(best_i, order, 1)
+        x = torch.as_tensor(X[s:s + 50_000], device=dev).double()
+        d = (x ** 2).sum(1)[None, :] - 2.0 * q @ x.T + qn
+        out[:, s:s + x.shape[0]] = d.cpu().numpy()
+    return out
+
+
+def nearest(d2, k: int = K):
+    """Exact top-k column ids of each row of a distance matrix, nearest
+    first (a column set to +inf is never picked before a finite one)."""
+    import numpy as np
+    part = np.argpartition(d2, k - 1, axis=1)[:, :k]
+    order = np.argsort(np.take_along_axis(d2, part, 1), axis=1)
+    return np.take_along_axis(part, order, 1)
 
 
 def phase_parity(dev):
@@ -599,7 +651,8 @@ def graph_pool_bytes(graph):
 
 def graph_record(g) -> dict:
     """What one captured block walk (stream_engine._ChunkGraph) holds."""
-    return {"capture_s": g.capture_s, "nodes": graph_nodes(g.graph),
+    return {"warmup_s": g.warmup_s, "capture_s": g.capture_s,
+            "nodes": graph_nodes(g.graph),
             "pool_bytes": graph_pool_bytes(g.graph),
             "launches_per_replay": list(g.launches), "replays": g.replays,
             "chunk": int(g.inputs["ql"].shape[0])}
@@ -1329,7 +1382,7 @@ def phase_host(Xr, Q, gt_r, dev):
            "uncertified_queries": res.stats.extra["uncertified_queries"]}
     del card, cres
     Xh = np.ascontiguousarray(Xr[:HNSW_ROWS])
-    gt_h = ground_truth(Xh, Q)
+    gt_h = nearest(distances64(Xh, Q, dev))
     sched = SchedulePolicy().stage_dims(Xh.shape[1])
     builds, links = {}, {}
     for name in ("FDScanning", "PDScanning+"):
@@ -1437,7 +1490,8 @@ def phase_adaptive(X, Q, gt, pdsp, opq, opq_ids, fixed, dev):
     queries (make_ood_queries, severity 1.0) through the adaptive, the
     fixed and an FDScanning session, and DDCopq adaptive (pq_lookup in
     the graph); each adaptive batch held against the eager walk of the
-    same chunks on the card.  Returns the OOD queries and the records."""
+    same chunks on the card.  Returns the OOD queries, their distances to
+    every row (distances64) and the records."""
     import numpy as np
     import torch
     from repro_torch.api import SchedulePolicy
@@ -1474,7 +1528,8 @@ def phase_adaptive(X, Q, gt, pdsp, opq, opq_ids, fixed, dev):
     t0 = time.perf_counter()
     Qo = make_ood_queries(X, Q.shape[0], severity=1.0)
     gen_s = time.perf_counter() - t0
-    gt_o = ground_truth(X, Qo)
+    d2o = distances64(X, Qo, dev)
+    gt_o = nearest(d2o)
     sess, res, rec = run_method(X, Qo, gt_o, "FDScanning", dev)
     fd_ids, fd_rec = res.ids, rec
     del sess, res
@@ -1527,7 +1582,7 @@ def phase_adaptive(X, Q, gt, pdsp, opq, opq_ids, fixed, dev):
     del sess, res, anyt
     torch.cuda.empty_cache()
     log("adaptive_done", seconds=time.perf_counter() - t_phase)
-    return Qo, recs
+    return Qo, d2o, recs
 
 
 def phase_anytime(X, Q, gt, pdsp, dev):
@@ -1701,6 +1756,707 @@ def phase_guardrails(Xr, dev):
     return {"states": states, "transitions": report["transitions"]}
 
 
+# ---------------------------------------------------------------- serving ---
+def on_card(dev) -> bool:
+    """The A6 phases also run on the CPU (a rehearsal at a tiny size),
+    where nothing launches a kernel or captures a graph."""
+    import torch
+    return torch.device(dev).type == "cuda"
+
+
+def sync(dev) -> None:
+    import torch
+    if on_card(dev):
+        torch.cuda.synchronize(dev)
+
+
+def held_bytes(dev) -> int:
+    """Device bytes allocated (0 off the card)."""
+    import torch
+    return torch.cuda.memory_allocated(dev) if on_card(dev) else 0
+
+
+def free_card(dev) -> None:
+    import torch
+    if on_card(dev):
+        torch.cuda.empty_cache()
+
+
+def percentiles_ms(samples_s) -> dict:
+    """p50/p95/p99 of latencies given in seconds, in ms."""
+    import numpy as np
+    a = np.asarray(list(samples_s), np.float64)
+    return {f"p{p}_ms": float(1e3 * np.quantile(a, p / 100.0))
+            for p in (50, 95, 99)}
+
+
+def new_graphs(be, seen) -> list:
+    """The graphs cached on backend ``be`` that ``seen`` (a WeakSet) has
+    not held yet; they are added to it."""
+    fresh = [g for g in be._graphs.values() if g not in seen]
+    for g in fresh:
+        seen.add(g)
+    return fresh
+
+
+def served_only(resolved) -> list:
+    return [r for r in resolved if r.status == "done"]
+
+
+def simulate(svc, pool, qidx, arrivals, inserts, on_step=None):
+    """A copy of benchmarks/bench_serving.py's discrete-event driver:
+    Poisson arrivals replayed against measured step walls, ``inserts`` =
+    [(request index, rows)] added the instant that request arrives, the
+    add's wall blocking the loop.  Two changes: the clock advances to the
+    batch's latest completion (a step that also expires queued requests
+    lists them first), and each add's record gains the service wall of
+    the step after it.  Returns (resolved requests, {rid: pool index},
+    add records)."""
+    events = [("q", arrivals[i], i) for i in range(len(arrivals))]
+    events += [("w", arrivals[ridx] + 1e-9, chunk)
+               for ridx, chunk in inserts]
+    events.sort(key=lambda e: e[1])
+    t, i, served, rid_to_q, adds, after = 0.0, 0, [], {}, [], None
+    while i < len(events) or svc.pending:
+        while i < len(events) and events[i][1] <= t:
+            kind, te, payload = events[i]
+            i += 1
+            if kind == "q":
+                req = svc.submit(pool[qidx[payload]], now=te)
+                rid_to_q[req.rid] = qidx[payload]
+            else:
+                after = svc.add(payload, now=te)
+                t += after["wall_s"]
+                adds.append(after)
+        if svc.pending:
+            batch = svc.step(now=t)
+            if on_step is not None:
+                on_step(batch)
+            walls = [r.service_s for r in batch if r.service_s is not None]
+            if after is not None and walls:
+                after["next_step_s"] = walls[0]
+                after = None
+            served += batch
+            t = max([t] + [r.t_done for r in batch])
+        elif i < len(events):
+            t = max(t, events[i][1])
+        else:
+            break
+    return served, rid_to_q, adds
+
+
+def calibrate(svc, pool, chunk=None):
+    """A copy of bench_serving.py's _calibrate on the service's own
+    session: a first full step (it lays the corpus out and captures the
+    walk), the steady full-step wall (best of 3), then, given ``chunk``,
+    one add and the stall of the next full step over the steady wall.
+    Returns (steady_s, stall_s, record)."""
+    import weakref
+    be = svc.session.backend
+    seen = weakref.WeakSet()
+
+    def full_step():
+        for j in range(svc.slots):
+            svc.submit(pool[j % len(pool)])
+        wall = svc.step()[0].service_s
+        svc.drain()
+        return wall
+
+    rec = {"first_step_s": full_step()}
+    rec["graphs_first_step"] = len(new_graphs(be, seen))
+    rec["steady_steps_s"] = [full_step() for _ in range(3)]
+    rec["graphs_steady_steps"] = len(new_graphs(be, seen))
+    steady = min(rec["steady_steps_s"])
+    if chunk is None:
+        return steady, 0.0, rec
+    n_builds = len(be.delta_build_s)
+    info = svc.add(chunk)
+    post = full_step()
+    fresh = new_graphs(be, seen)
+    rec.update(add_rows=info["rows"], add_mode=info["mode"],
+               add_wall_s=info["wall_s"], post_add_step_s=post,
+               delta_build_s=be.delta_build_s[n_builds:],
+               warmup_s=[g.warmup_s for g in fresh],
+               capture_s=[g.capture_s for g in fresh],
+               graphs_captured_after_add=len(fresh))
+    return steady, max(post - steady, 0.0), rec
+
+
+def phase_serving(X, Q, d2, pdsp, dev):
+    """The serving front at 1M (A6): PDScanning+ (fixed policy) on the
+    first N - SERVE_INSERTS x SERVE_INSERT_ROWS rows with the fitted PCA
+    of ``pdsp``, SearchService(slots=16, k=10); capacity calibrated on the
+    session with the first insert chunk, then SERVE_REQUESTS Poisson
+    arrivals at LAMBDA_FRACTION of it with one insert every
+    SERVE_INSERT_EVERY requests.  Every ticket must be served, certified
+    and exact against the rows visible when it was served.  Returns the
+    grown session and the record."""
+    import weakref
+
+    import numpy as np
+    from repro_torch.api import SchedulePolicy, SearchSession
+    from repro_torch.core.methods import make_method
+    from repro_torch.kernels import dco_scan as dco_mod
+    from repro_torch.kernels import pq_lookup as pq_mod
+
+    t_phase = time.perf_counter()
+    n = X.shape[0]
+    n_base = n - SERVE_INSERTS * SERVE_INSERT_ROWS
+    chunks = [X[n_base + j * SERVE_INSERT_ROWS:
+                n_base + (j + 1) * SERVE_INSERT_ROWS]
+              for j in range(SERVE_INSERTS)]
+    t0 = time.perf_counter()
+    m = make_method("PDScanning+", pca=pdsp.state["pca"]).fit(X[:n_base])
+    fit_s = time.perf_counter() - t0
+    sess = SearchSession(m, SchedulePolicy(), device=dev)
+    svc = sess.serve(slots=SERVE_SLOTS, k=K)
+    be = sess.backend
+    steady, stall, cal = calibrate(svc, Q, chunks[0])
+    inserts = [(ridx, chunks[j + 1]) for j, ridx in enumerate(
+        range(SERVE_INSERT_EVERY, SERVE_REQUESTS, SERVE_INSERT_EVERY))]
+    # the inserts whose delta passes the merge threshold: the step after
+    # them lays the whole corpus out again, as the calibration's first
+    # step did
+    delta, n_merges = cal["add_rows"], 0
+    for _ in inserts:
+        delta += SERVE_INSERT_ROWS
+        if delta > sess.policy.delta_merge_threshold:
+            n_merges, delta = n_merges + 1, 0
+    # the capacity of the mixed load: full steps at the steady wall, and
+    # for every insert its add (a write blocks the serving loop) and the
+    # stall of the step after it, or for a merge the first step's
+    n_steps = SERVE_REQUESTS / SERVE_SLOTS
+    busy_s = (n_steps * steady
+              + len(inserts) * (cal["add_wall_s"] + stall)
+              + n_merges * (cal["first_step_s"] - steady))
+    lam = LAMBDA_FRACTION * SERVE_REQUESTS / busy_s
+    rng = np.random.default_rng(SERVE_SEED)
+    arrivals = np.cumsum(rng.exponential(1.0 / lam, SERVE_REQUESTS))
+    qidx = [i % Q.shape[0] for i in range(SERVE_REQUESTS)]
+    seen = weakref.WeakSet(be._graphs.values())
+    captures, warmups, step_launches, last = [], [], [], [(0, 0, 0)]
+    n_builds, n_mats = len(be.delta_build_s), len(be.materialize_s)
+
+    def on_step(batch):
+        now = (dco_mod.launches, dco_mod.grouped_launches, pq_mod.launches)
+        step_launches.append([a - b for a, b in zip(now, last[0])])
+        last[0] = now
+        for g in new_graphs(be, seen):
+            warmups.append(g.warmup_s)
+            captures.append(g.capture_s)
+
+    sync(dev)
+    dco_mod.launches = dco_mod.grouped_launches = pq_mod.launches = 0
+    t0 = time.perf_counter()
+    served, rid_to_q, adds = simulate(svc, Q, qidx, arrivals, inserts,
+                                      on_step)
+    real_s = time.perf_counter() - t0
+    launches = {"dco_scan": dco_mod.launches,
+                "dco_scan_grouped": dco_mod.grouped_launches,
+                "pq_lookup": pq_mod.launches}
+    done = [r for r in served if r.status == "done"]
+    gt = {v: nearest(d2[:, :v]) for v in sorted({r.n_visible
+                                                 for r in done})}
+    recall = [float(np.isin(r.ids, gt[r.n_visible][rid_to_q[r.rid]]).mean())
+              for r in done]
+    h = svc.health()
+    lat = [r.latency_s for r in done]
+    makespan = max(r.t_done for r in done) - min(r.t_submit for r in done)
+    rec = {
+        "method": "PDScanning+", "policy": "fixed", "n_base": n_base,
+        "insert_rows": SERVE_INSERT_ROWS, "inserts_in_run": len(inserts),
+        "n_final": int(sess.n), "slots": SERVE_SLOTS, "k": K,
+        "n_requests": SERVE_REQUESTS, "fit_s": fit_s,
+        "calibration": dict(cal, steady_step_s=steady, stall_s=stall,
+                            stall_unattributed_s=stall
+                            - sum(cal["delta_build_s"])
+                            - sum(cal["warmup_s"]) - sum(cal["capture_s"])),
+        "merges_expected": n_merges, "capacity_busy_s": busy_s,
+        "lambda_fraction": LAMBDA_FRACTION, "offered_qps": lam,
+        "sustained_qps": len(done) / makespan, "makespan_s": makespan,
+        "real_s": real_s, **percentiles_ms(lat),
+        "mean_latency_ms": float(1e3 * np.mean(lat)),
+        "mean_batch_size": float(np.mean([r.batch_size for r in done])),
+        "steps": h["steps"], "recall_min": min(recall),
+        "certified_fraction": float(np.mean([r.certified is True
+                                             for r in done])),
+        "adds": [{key: a.get(key) for key in ("rows", "mode", "wall_s",
+                                             "next_step_s")} for a in adds],
+        # an add the loop met again before a step shares that step's
+        # rebuild (next_step_s is None)
+        "writes_before_a_step": sum(a.get("next_step_s") is not None
+                                    for a in adds),
+        "write_modes": dict(svc.write_modes), "merges": be.merges,
+        "delta_build_s": be.delta_build_s[n_builds:],
+        "materialize_s": be.materialize_s[n_mats:],
+        "graphs_captured_in_run": len(captures),
+        "graphs_captured": cal["graphs_first_step"]
+        + cal["graphs_steady_steps"] + cal["graphs_captured_after_add"]
+        + len(captures), "warmup_s": warmups, "capture_s": captures,
+        "launches": launches,
+        # a steady step's launches: the median over the run's steps
+        "launches_per_step": {
+            name: float(np.median([s[j] for s in step_launches]))
+            for j, name in enumerate(("dco_scan", "dco_scan_grouped",
+                                      "pq_lookup"))},
+        "row_blocks": int(be._blocks["xl"].shape[0]),
+        "device_bytes_held": held_bytes(dev),
+        "health": {key: h[key] for key in (
+            "submitted", "completed", "shed", "timeouts", "failures",
+            "partials", "uncertified", "rows_inserted")},
+    }
+    log("serving", **rec, phase_s=time.perf_counter() - t_phase)
+    check(all(r.status == "done" for r in served)
+          and len(served) == SERVE_REQUESTS and h["failures"] == 0,
+          f"serving: not every ticket was served: {rec['health']}")
+    check(rec["certified_fraction"] == 1.0, "serving: a request was "
+          "uncertified")
+    check(rec["recall_min"] == 1.0, "serving: a request's ids differ from "
+          "the exact top-10 of the rows visible when it was served")
+    if on_card(dev):                # kernels and graphs run on the card
+        check(launches["dco_scan"] > 0, "serving launched no dco_scan")
+        want = 2 + rec["writes_before_a_step"]    # first step, calibration
+        check(rec["graphs_captured"] == want,
+              f"serving captured {rec['graphs_captured']} graphs, not one "
+              f"and one a rebuilt layout ({want})")
+    check(sess.n == n, "serving: the corpus did not grow to every row")
+    return sess, rec
+
+
+def phase_serving_overload(sess, Q, d2, steady_s: float, dev):
+    """The grown serving session with no writes at OVERLOAD_FACTOR x its
+    steady capacity: bounded admission (shed_oldest), a deadline of 4
+    steady step walls, every ticket accounted for."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    sess.search(Q[:SERVE_SLOTS], K, deadline_s=GENEROUS_S)   # span graphs
+    warm_s = time.perf_counter() - t0
+    spans = [g for key, g in sess.backend._graphs.items()
+             if key[5] is not None]
+    svc = sess.serve(slots=SERVE_SLOTS, k=K, max_queue=OVERLOAD_QUEUE,
+                     admission="shed_oldest", deadline_s=4 * steady_s)
+    lam = OVERLOAD_FACTOR * SERVE_SLOTS / steady_s
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    arrivals = np.cumsum(rng.exponential(1.0 / lam, SERVE_REQUESTS))
+    qidx = [i % Q.shape[0] for i in range(SERVE_REQUESTS)]
+    t0 = time.perf_counter()
+    resolved, rid_to_q, _ = simulate(svc, Q, qidx, arrivals, [])
+    real_s = time.perf_counter() - t0
+    h = svc.health()
+    done = served_only(resolved)
+    gt = nearest(d2[:, :sess.n])
+    full = [r for r in done if r.coverage == 1.0 and r.certified]
+    partial = [r for r in done if r.coverage < 1.0]
+    recall = [float(np.isin(r.ids, gt[rid_to_q[r.rid]]).mean())
+              for r in full]
+    timed = [r for r in resolved if r.t_done is not None]
+    rec = {
+        "n": int(sess.n), "offered_qps": lam,
+        "overload_factor": OVERLOAD_FACTOR, "max_queue": OVERLOAD_QUEUE,
+        "admission": "shed_oldest", "deadline_s": 4 * steady_s,
+        "warm_deadline_search_s": warm_s, "span_graphs": len(spans),
+        "span_pool_bytes": sum(graph_pool_bytes(g.graph) or 0
+                               for g in spans) if spans else 0,
+        "real_s": real_s,
+        "health": {key: h[key] for key in (
+            "submitted", "completed", "shed", "timeouts", "failures",
+            "partials", "uncertified", "steps", "queue_depth")},
+        "served": len(done), "partials": len(partial),
+        "full_certified": len(full),
+        "recall_min_full": min(recall) if recall else None,
+        "served_latency": percentiles_ms(r.latency_s for r in done)
+        if done else None,
+        "resolved_latency": percentiles_ms(r.latency_s for r in timed),
+        "coverage_min": min((r.coverage for r in done), default=None),
+    }
+    log("serving_overload", **rec, phase_s=time.perf_counter() - t_phase)
+    check(h["submitted"] == SERVE_REQUESTS and h["submitted"] == (
+        h["completed"] + h["shed"] + h["timeouts"] + h["failures"]
+        + h["queue_depth"]) and h["failures"] == 0,
+          f"overload: the tickets do not add up: {rec['health']}")
+    check(all(r.status in ("done", "shed", "timeout") for r in resolved),
+          "overload: a ticket resolved otherwise than done, shed or "
+          "timeout")
+    check(all(r.certified is False for r in partial),
+          "overload: a partial answer kept its certificate")
+    check(not recall or min(recall) == 1.0, "overload: a full, certified "
+          "answer differs from the exact top-10")
+    return rec
+
+
+def phase_serving_ood(X, Q, Qo, d2, d2o, pdsp, dev):
+    """The adaptive PDScanning+ session at 1M behind the service, on a
+    50/50 interleave of the dataset's queries and OOD ones, at
+    LAMBDA_FRACTION of its own calibrated capacity, no writes."""
+    import numpy as np
+    from repro_torch.api import SchedulePolicy, SearchSession
+    from repro_torch.kernels import dco_scan as dco_mod
+    from repro_torch.kernels import pq_lookup as pq_mod
+
+    t_phase = time.perf_counter()
+    nq = Q.shape[0]
+    pool = np.concatenate([Q, Qo])
+    qidx = [(i % nq) + (i % 2) * nq for i in range(OOD_REQUESTS)]
+    sess = SearchSession(pdsp, SchedulePolicy(adaptive=True), device=dev)
+    svc = sess.serve(slots=SERVE_SLOTS, k=K)
+    # the seed sends a chunk to the switching walk or to step_full, one
+    # graph each: capture both before the clock starts (a capture in the
+    # timed run stalls every request queued behind it)
+    t0 = time.perf_counter()
+    for warm in (Q[:SERVE_SLOTS], Qo[:SERVE_SLOTS]):
+        sess.search(warm, K)
+    warm_s = time.perf_counter() - t0
+    steady, _, cal = calibrate(svc, pool[qidx[:SERVE_SLOTS]])
+    graphs = len(sess.backend._graphs)
+    lam = LAMBDA_FRACTION * SERVE_SLOTS / steady
+    rng = np.random.default_rng(SERVE_SEED + 2)
+    arrivals = np.cumsum(rng.exponential(1.0 / lam, OOD_REQUESTS))
+    sync(dev)
+    dco_mod.launches = dco_mod.grouped_launches = pq_mod.launches = 0
+    t0 = time.perf_counter()
+    served, rid_to_q, _ = simulate(svc, pool, qidx, arrivals, [])
+    real_s = time.perf_counter() - t0
+    launches = {"dco_scan": dco_mod.launches,
+                "dco_scan_grouped": dco_mod.grouped_launches,
+                "pq_lookup": pq_mod.launches}
+    gt = np.concatenate([nearest(d2), nearest(d2o)])
+    done = served_only(served)
+    rows = {}
+    for label, is_ood in (("id", False), ("ood", True)):
+        mine = [r for r in done if (rid_to_q[r.rid] >= nq) == is_ood]
+        rows[label] = {
+            "n": len(mine), **percentiles_ms(r.latency_s for r in mine),
+            "recall_min": min(float(np.isin(r.ids, gt[rid_to_q[r.rid]])
+                                    .mean()) for r in mine),
+            "certified_fraction": float(np.mean([r.certified is True
+                                                 for r in mine])),
+            "fallback_blocks_mean": float(np.mean(
+                [r.stats.get("fallback_blocks", 0.0) for r in mine]))}
+    h = svc.health()
+    rec = {"method": "PDScanning+", "policy": "adaptive", "n": int(sess.n),
+           "n_requests": OOD_REQUESTS, "calibration": dict(
+               cal, steady_step_s=steady),
+           "offered_qps": lam, "real_s": real_s,
+           "sustained_qps": len(done) / (max(r.t_done for r in done)
+                                         - min(r.t_submit for r in done)),
+           **percentiles_ms(r.latency_s for r in done),
+           "classes": rows, "launches": launches, "warm_s": warm_s,
+           "graphs_warm": graphs,
+           "graphs_captured_in_run": len(sess.backend._graphs) - graphs,
+           "device_bytes_held": held_bytes(dev),
+           "health": {key: h[key] for key in (
+               "submitted", "completed", "failures", "uncertified")}}
+    log("serving_ood", **rec, phase_s=time.perf_counter() - t_phase)
+    check(len(done) == OOD_REQUESTS and h["failures"] == 0,
+          f"serving_ood: not every ticket was served: {rec['health']}")
+    check(all(rows[c]["recall_min"] == 1.0
+              and rows[c]["certified_fraction"] == 1.0 for c in rows),
+          f"serving_ood: an answer is not exact and certified: {rows}")
+    check(launches["dco_scan"] == 0, "serving_ood launched dco_scan: the "
+          "adaptive walk screens inline")
+    check(rec["graphs_captured_in_run"] == 0, "serving_ood captured a graph "
+          "after its warm-up")
+    del svc, sess
+    free_card(dev)
+    return rec
+
+
+def serve_pass(svc, Q, t0: float):
+    """Submit every row of Q at simulated time ``t0`` and drain; returns
+    the tickets in submission order, the real seconds the pass took and
+    each step's virtual wall."""
+    reqs = [svc.submit(q, now=t0 + 1e-6 * j) for j, q in enumerate(Q)]
+    start = time.perf_counter()
+    out = svc.drain(now=t0)
+    real = time.perf_counter() - start
+    walls = sorted({(r.t_done, r.service_s) for r in out
+                    if r.service_s is not None})
+    return reqs, real, [w for _, w in walls]
+
+
+def tier_record(svc) -> dict:
+    h = svc.health()
+    return {key: h[key] for key in (
+        "submitted", "completed", "failures", "retries", "hedges",
+        "hedge_wins", "hedge_losses", "degraded")} | {
+        "replicas": [{key: rs[key] for key in (
+            "idx", "state", "rows", "dispatches", "served", "failures",
+            "probes", "transitions")} for rs in h["replicas"]]}
+
+
+def phase_replica(X, Q, d2, flat_ids, Xr, dev):
+    """The replica tier: shard mode over the 1M corpus in REPLICAS
+    contiguous shards (healthy, shard 1 dead, revived), then replicate
+    mode over REPLICAS copies of the first N_RULES rows (a slow replica
+    hedged; replica 0 killed after some dispatches, ejected, revived)."""
+    import numpy as np
+    from repro_torch.serving import open_replicated
+    from repro_torch.testing import FaultPlan, faults
+
+    t_phase = time.perf_counter()
+    gt = nearest(d2)
+    # -- shard mode, 1M ---------------------------------------------------
+    t0 = time.perf_counter()
+    svc = open_replicated(X, replicas=REPLICAS, mode="shard",
+                          method="PDScanning+", device=dev,
+                          slots=SERVE_SLOTS, k=K)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for rs in svc.replicas:                 # lay out and capture each shard
+        rs.session.search(Q[:SERVE_SLOTS], K)
+    warm_s = time.perf_counter() - t0
+    shard = {"rows": [rs.rows for rs in svc.replicas], "fit_s": fit_s,
+             "warm_s": warm_s, "device_bytes_held": held_bytes(dev)}
+    reqs, real, walls = serve_pass(svc, Q, 0.0)
+    ids = np.stack([r.ids for r in reqs])
+    shard["healthy"] = {
+        "real_s": real, "virtual_step_s": walls,
+        "ids_equal_flat": int(same_sets(ids, flat_ids).sum()),
+        "ids_equal_flat_in_order": int((ids == flat_ids).all(1).sum()),
+        "recall_at_10": float(np.mean([np.isin(a, b).mean()
+                                       for a, b in zip(ids, gt)])),
+        "certified": int(sum(r.certified is True for r in reqs))}
+    check(all(r.done and r.coverage == 1.0 for r in reqs)
+          and shard["healthy"]["ids_equal_flat"] == Q.shape[0]
+          and shard["healthy"]["certified"] == Q.shape[0],
+          f"shard tier: healthy answers differ: {shard['healthy']}")
+    dead = svc.replicas[1]
+    lo, hi = dead.id_offset, dead.id_offset + dead.rows
+    live = d2.copy()
+    live[:, lo:hi] = np.inf
+    gt_live = nearest(live)
+    del live
+    prev = faults.install(FaultPlan(dead_replica=1))
+    try:
+        reqs, real, walls = serve_pass(svc, Q, 10.0)
+    finally:
+        faults.install(prev)
+    ids = np.stack([r.ids for r in reqs])
+    cov = (X.shape[0] - dead.rows) / X.shape[0]
+    shard["dead_1"] = {
+        "real_s": real, "virtual_step_s": walls,
+        "coverage": sorted({float(r.coverage) for r in reqs}),
+        "coverage_expected": cov,
+        "uncertified": int(sum(r.certified is False for r in reqs)),
+        "degraded": int(sum(r.stats.get("degraded") == 1.0 for r in reqs)),
+        "ids_equal_live_shards": int(same_sets(ids, gt_live).sum()),
+        "ids_equal_live_shards_in_order": int((ids == gt_live).all(1).sum()),
+        "shard_1_state": dead.state}
+    check(all(r.done for r in reqs)
+          and all(abs(r.coverage - cov) < 1e-6 for r in reqs)
+          and shard["dead_1"]["uncertified"] == Q.shape[0]
+          and shard["dead_1"]["degraded"] == Q.shape[0]
+          and shard["dead_1"]["ids_equal_live_shards"] == Q.shape[0],
+          f"shard tier: a dead shard's batches are wrong: {shard['dead_1']}")
+    passes = []
+    for p in range(4):                      # revived: probe, then re-admit
+        reqs, real, walls = serve_pass(svc, Q, 20.0 + 10 * p)
+        passes.append({"real_s": real, "state": dead.state,
+                       "full_coverage": int(sum(r.coverage == 1.0
+                                                for r in reqs))})
+        if dead.state == "closed" and passes[-1]["full_coverage"] == len(Q):
+            break
+    ids = np.stack([r.ids for r in reqs])
+    shard["revived"] = {
+        "passes": passes,
+        "ids_equal_flat": int(same_sets(ids, flat_ids).sum()),
+        "certified": int(sum(r.certified is True for r in reqs))}
+    shard["tier"] = tier_record(svc)
+    log("replica", mode="shard", n=int(X.shape[0]), replicas=REPLICAS,
+        **shard)
+    check(dead.state == "closed" and passes[-1]["full_coverage"] == len(Q)
+          and shard["revived"]["ids_equal_flat"] == Q.shape[0]
+          and shard["revived"]["certified"] == Q.shape[0]
+          and shard["tier"]["failures"] == 0,
+          f"shard tier: revival did not restore full answers: {shard}")
+    del svc, reqs, dead, rs
+    free_card(dev)
+    # -- replicate mode, N_RULES rows ------------------------------------
+    t0 = time.perf_counter()
+    svc = open_replicated(Xr, replicas=REPLICAS, mode="replicate",
+                          method="PDScanning+", device=dev,
+                          slots=SERVE_SLOTS, k=K)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for rs in svc.replicas:
+        rs.session.search(Q[:SERVE_SLOTS], K)
+    warm_s = time.perf_counter() - t0
+    want = svc.replicas[0].session.search(Q, K).ids
+    rep = {"rows": int(Xr.shape[0]), "fit_s": fit_s, "warm_s": warm_s,
+           "device_bytes_held": held_bytes(dev)}
+    reqs, real, walls = serve_pass(svc, Q, 0.0)
+    rep["healthy"] = {"real_s": real, "virtual_step_s": walls}
+    everything = list(reqs)
+    prev = faults.install(FaultPlan(slow_replica=2,
+                                    slow_replica_s=SLOW_REPLICA_S))
+    try:
+        reqs, real, walls = serve_pass(svc, Q, 10.0)
+    finally:
+        faults.install(prev)
+    h = svc.health()
+    everything += reqs
+    rep["slow_2"] = {"real_s": real, "virtual_step_s": walls,
+                     "hedges": h["hedges"], "hedge_wins": h["hedge_wins"],
+                     "hedged_batches_won_by": sorted({
+                         r.stats["replica"] for r in reqs
+                         if r.stats.get("hedged") == 1.0})}
+    check(h["hedges"] >= 1 and h["hedge_wins"] >= 1,
+          f"replicate tier: no hedge fired and won: {rep['slow_2']}")
+    r0 = svc.replicas[0]
+    prev = faults.install(FaultPlan(dead_replica=0, fail_replica_after=5))
+    passes = []
+    try:
+        for p in range(10):         # about two dispatches a pass each
+            reqs, real, walls = serve_pass(svc, Q, 20.0 + 10 * p)
+            everything += reqs
+            passes.append({"real_s": real, "virtual_step_s": walls,
+                           "state": r0.state})
+            if r0.state == "open":
+                break
+    finally:
+        faults.install(prev)
+    rep["dead_0"] = {"passes": passes, "retries": svc.retries,
+                     "failures": svc.failures}
+    passes = []
+    for p in range(10):
+        reqs, real, walls = serve_pass(svc, Q, 200.0 + 10 * p)
+        everything += reqs
+        passes.append({"real_s": real, "state": r0.state})
+        if r0.state == "closed":
+            break
+    rep["revived"] = passes
+    rep["tier"] = tier_record(svc)
+    moves = [(t["from"], t["to"]) for t in r0.breaker.transitions]
+    same = [bool(np.array_equal(r.ids, want[j % Q.shape[0]]))
+            for j, r in enumerate(everything) if r.done]
+    rep["done_ids_equal_single"] = f"{sum(same)}/{len(same)}"
+    gt_r = nearest(d2[:, :Xr.shape[0]])
+    recall = [float(np.isin(r.ids, gt_r[j % Q.shape[0]]).mean())
+              for j, r in enumerate(everything) if r.done]
+    rep["done_recall_min"] = min(recall)
+    log("replica", mode="replicate", n=int(Xr.shape[0]), replicas=REPLICAS,
+        **rep)
+    check(("closed", "open") in moves and ("open", "half_open") in moves
+          and ("half_open", "closed") in moves and r0.state == "closed",
+          f"replicate tier: replica 0 was not ejected and re-admitted: "
+          f"{moves}")
+    check(rep["dead_0"]["retries"] >= 1 and svc.failures == 0,
+          "replicate tier: the dead replica's batch was not retried")
+    check(all(r.done for r in everything) and all(same),
+          "replicate tier: a ticket failed or differs from one session")
+    check(rep["done_recall_min"] == 1.0,
+          f"replicate tier: recall {rep['done_recall_min']} < 1 against "
+          "the float64 ground truth")
+    rec = {"shard": shard, "replicate": rep,
+           "phase_s": time.perf_counter() - t_phase}
+    del svc, reqs, everything
+    free_card(dev)
+    return rec
+
+
+def phase_persist(Xr, Q, d2, dev):
+    """A snapshot of a card session at N_RULES - 4 x PERSIST_ROWS rows,
+    three logged adds, a fourth torn mid-frame, the session dropped, then
+    loaded on the card: the WAL replayed (cold, no device work), the live
+    session's ids, exact; a bit-flipped copy refused."""
+    import os
+    import tempfile
+    import warnings
+
+    import numpy as np
+    from repro_torch.api import IndexLoadError, SearchSession, open_index
+    from repro_torch.testing import SimulatedCrash, faults
+
+    t_phase = time.perf_counter()
+    n0 = Xr.shape[0] - (PERSIST_ADDS + 1) * PERSIST_ROWS
+    rows = [Xr[n0 + j * PERSIST_ROWS:n0 + (j + 1) * PERSIST_ROWS]
+            for j in range(PERSIST_ADDS + 1)]
+    rec = {"n_base": n0, "add_rows": PERSIST_ROWS}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = os.path.join(tmp, "idx.bin")
+        sess = open_index(Xr[:n0], method="PDScanning+", device=dev)
+        sess.search(Q, K)
+        t0 = time.perf_counter()
+        sess.save(path)
+        rec["save_s"] = time.perf_counter() - t0
+        rec["snapshot_bytes"] = os.path.getsize(path)
+        walls = []
+        for chunk in rows[:PERSIST_ADDS]:
+            t0 = time.perf_counter()
+            sess.add(chunk)
+            walls.append(time.perf_counter() - t0)
+        rec["add_walls_s"] = walls
+        crashed = False
+        with faults.inject(torn_frame_keep=0.5):
+            try:
+                sess.add(rows[PERSIST_ADDS])
+            except SimulatedCrash:
+                crashed = True
+        rec["torn_add_raised"] = crashed
+        rec["wal_bytes"] = sess.wal.total_bytes()
+        live = sess.search(Q, K)
+        n_live = sess.n
+        del sess
+        free_card(dev)
+        # the default device is the card; off it the load goes to ``dev``
+        kw = {} if on_card(dev) else {"device": dev}
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            loaded = SearchSession.load(path, **kw)
+        rec["load_s"] = time.perf_counter() - t0
+        rec["load_warnings"] = [str(w.message) for w in caught]
+        be = loaded.backend
+        rec.update(n_loaded=int(loaded.n), device=str(be.device),
+                   replayed_rows=int(be.rows_inserted),
+                   last_write_mode=loaded.last_write_mode,
+                   rows_on_device_before_search=int(be.rows_written),
+                   materialized_before_search=be._dstate is not None)
+        t0 = time.perf_counter()
+        res = loaded.search(Q, K)
+        rec["first_search_after_load_s"] = time.perf_counter() - t0
+        gt = nearest(d2[:, :n_live])
+        rec.update(
+            ids_equal_live=bool(np.array_equal(res.ids, live.ids)),
+            dists_max_rel=float(np.max(np.abs(res.dists - live.dists)
+                                       / np.maximum(np.abs(live.dists),
+                                                    1e-30))),
+            recall_at_10=float(np.mean([np.isin(a, b).mean()
+                                        for a, b in zip(res.ids, gt)])),
+            uncertified=res.stats.extra["uncertified_queries"])
+        raw = bytearray(open(path, "rb").read())
+        raw[len(raw) // 2] ^= 0x01
+        bad = os.path.join(tmp, "flipped.bin")
+        with open(bad, "wb") as f:
+            f.write(raw)
+        del raw
+        try:
+            SearchSession.load(bad, **kw)
+            rec["bitflip_refused"] = False
+        except IndexLoadError as exc:
+            rec["bitflip_refused"] = "checksum mismatch" in exc.cause
+        del loaded, res
+        free_card(dev)
+    log("persist", n=int(Xr.shape[0]), **rec,
+        phase_s=time.perf_counter() - t_phase)
+    check(crashed and any("torn" in w for w in rec["load_warnings"]),
+          "persist: the torn add did not raise SimulatedCrash, or the load "
+          "did not drop its frame")
+    check(rec["n_loaded"] == n0 + PERSIST_ADDS * PERSIST_ROWS == n_live
+          and rec["replayed_rows"] == PERSIST_ADDS * PERSIST_ROWS,
+          f"persist: the WAL replay lost or added rows: {rec}")
+    check(rec["last_write_mode"] == "cold"
+          and not rec["materialized_before_search"]
+          and rec["rows_on_device_before_search"] == 0,
+          "persist: the WAL replay did device work before the first search")
+    check(rec["ids_equal_live"] and rec["recall_at_10"] == 1.0,
+          "persist: the loaded session's ids differ from the live one's")
+    check(rec["bitflip_refused"], "persist: a bit-flipped snapshot loaded")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1739,8 +2495,12 @@ def main() -> int:
     ds = load_dataset("gist", scale=N_MAIN / 30_000)
     X, Q = ds.X, ds.Q
     gen_s = time.perf_counter() - t0
+    # the exact distances of the queries to every row give the ground
+    # truth of any prefix (the first N_RULES rows, the rows visible to a
+    # served request) or subset (the live shards of the replica tier)
     t0 = time.perf_counter()
-    gt = ground_truth(X, Q)
+    d2 = distances64(X, Q, dev)
+    gt = nearest(d2)
     log("data", shape=list(X.shape), nq=int(Q.shape[0]), gen_s=gen_s,
         ground_truth_s=time.perf_counter() - t0)
 
@@ -1809,15 +2569,28 @@ def main() -> int:
 
     ivf, ivf_recs = phase_ivf(X, Q, gt, pdsp, opq, dev)
     Xr = np.ascontiguousarray(X[:N_RULES])
-    gt_r = ground_truth(Xr, Q)
+    gt_r = nearest(d2[:, :N_RULES])
     phase_delta(X, Q, gt, Xr, gt_r, dev)
     ts_rec = phase_two_stage(X, Q, gt, pdsp, flat_ids, dev)
-    Qo, ada_recs = phase_adaptive(X, Q, gt, pdsp, opq, opq_ids,
-                                  (flat_ids, flat_dists, flat_rec), dev)
+    Qo, d2o, ada_recs = phase_adaptive(X, Q, gt, pdsp, opq, opq_ids,
+                                       (flat_ids, flat_dists, flat_rec), dev)
     any_rec = phase_anytime(X, Q, gt, pdsp, dev)
-    del X
     phase_host(Xr, Q, gt_r, dev)
     phase_guardrails(Xr, dev)
+
+    # A6: the serving front, the replica tier and snapshots
+    sess, serve_rec = phase_serving(X, Q, d2, pdsp, dev)
+    phase_serving_overload(sess, Q, d2,
+                           serve_rec["calibration"]["steady_step_s"], dev)
+    del sess
+    torch.cuda.empty_cache()
+    phase_serving_ood(X, Q, Qo, d2, d2o, pdsp, dev)
+    del d2o
+    replica_rec = phase_replica(X, Q, d2, flat_ids, Xr, dev)
+    log("replica_done", seconds=replica_rec["phase_s"])
+    del X
+    phase_persist(Xr, Q, d2, dev)
+    del d2
 
     t0 = time.perf_counter()
     fd_ids = None
@@ -1907,8 +2680,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     log("profile_done", seconds=time.perf_counter() - t0)
 
-    # launches on the IVF, adaptive and anytime paths of each kernel,
-    # beside the main path's
+    # launches on the IVF, adaptive, anytime and serving paths of each
+    # kernel, beside the main path's
     for kernel, label, ada_label in (("dco_scan", "flat", "id"),
                                      ("dco_scan_grouped", "pdx", "id_pdx"),
                                      ("pq_lookup", "DDCopq", "ddcopq")):
@@ -1922,6 +2695,10 @@ def main() -> int:
         any_rec["pdx"]["dco_scan_grouped_launches_per_batch"]
     rows["pq_lookup"]["launches_anytime"] = \
         ada_recs["ddcopq"]["anytime"]["pq_lookup_launches"]
+    # a 16-query step of the fixed serving arm (the median over its steps)
+    for kernel in rows:
+        rows[kernel]["launches_serving"] = \
+            serve_rec["launches_per_step"][kernel]
     kernels = [
         dict(name="dco_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/dco_scan.cu",

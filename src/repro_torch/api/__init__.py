@@ -4,7 +4,10 @@
     sess = open_index(X, method="PDScanning+")        # on the CUDA card
     res = sess.search(Q, k=10)
     print(res.ids, res.qps, res.stats.extra["dims_read_mean"])
+    sess.save("idx.bin")                              # snapshot + delta WAL
+    svc = sess.serve(slots=16, k=10)                  # the serving front
 """
+from repro_torch.api.persistence import DeltaWAL, IndexLoadError  # noqa: F401
 from repro_torch.api.session import (INDEX_KINDS, METHODS,  # noqa: F401
                                      SearchSession, open_index)
 from repro_torch.api.types import (STAT_EXTRA_KEYS,  # noqa: F401

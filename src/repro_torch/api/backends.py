@@ -244,6 +244,10 @@ class TorchBackend:
         self.rows_inserted = 0      # rows arriving through notify_append
         self.rows_written = 0       # rows laid out on the device (main + delta)
         self.merges = 0             # threshold-triggered re-materializations
+        # host walls of each layout build a search triggered (no synchronize
+        # added: device work still queued ends in the next graph's warm-up)
+        self.materialize_s: list = []
+        self.delta_build_s: list = []
 
     # -- state management ---------------------------------------------------
     def invalidate(self):
@@ -556,10 +560,14 @@ class TorchBackend:
         forced-fallback config (every chunk runs the full-scan body: the
         guardrail's certified path)."""
         if self._dstate is None:
+            t0 = time.perf_counter()
             self._materialize()
+            self.materialize_s.append(time.perf_counter() - t0)
         if self.delta_rows and (self._delta_dirty
                                 or self._delta_blocks is None):
+            t0 = time.perf_counter()
             self._build_delta()
+            self.delta_build_s.append(time.perf_counter() - t0)
         t_end = None
         if deadline_s is not None:
             t_end = time.monotonic() + float(deadline_s)

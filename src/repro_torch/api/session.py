@@ -24,9 +24,14 @@ backend over a flat, IVF or HNSW index:
     grd = open_index(X, method="PDScanning+",        # the guardrail breaker
                      schedule=SchedulePolicy(guardrails=True))
     print(grd.guardrails()["state"])
+    svc = sess.serve(slots=16, k=10)                 # continuous batching
+    svc.submit(Q[0]); svc.drain()
+    sess.save("idx.bin")                             # snapshot + delta WAL
+    sess = SearchSession.load("idx.bin")             # back on the card
+    sess = open_index(path="idx.bin", device="cpu")  # ... or on the CPU
 
-The mesh (ROADMAP A7), the serving front and snapshots (A6) are not ported
-yet and raise ``NotImplementedError`` naming their item.
+The mesh (ROADMAP A7) is not ported yet and raises ``NotImplementedError``
+naming its item.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from repro_torch.api.types import SchedulePolicy, SearchResult
 from repro_torch.core.methods import ALL_METHODS, make_method
 from repro_torch.search.hnsw import HNSWIndex
 from repro_torch.search.ivf import IVFIndex
+from repro_torch.testing import faults
 
 INDEX_KINDS = ("flat", "ivf", "hnsw")
 BACKENDS = ("torch", "host")
@@ -75,6 +81,7 @@ class SearchSession:
                                     index_kind=index_kind, index=index,
                                     device=device)
         self.last_write_mode: str | None = None   # set by add()
+        self.wal = None   # DeltaWAL once save()/load() ties a path to us
 
     @property
     def n(self) -> int:
@@ -134,7 +141,13 @@ class SearchSession:
         segment scanned after the cached main block layout (no
         re-materialization); an HNSW index links them into its graph
         (``HNSWIndex.insert_batch``).  The write mode taken is readable as
-        ``session.last_write_mode``."""
+        ``session.last_write_mode``.
+
+        When the session is tied to a snapshot path (after ``save()`` or
+        ``load()``), the rows are first written to the crash-safe delta WAL
+        (fsync'd, before any state changes; DESIGN.md §7) — a crash at any
+        point after ``add()`` returns loses nothing, and a crash mid-write
+        tears only a frame that was never acknowledged."""
         Xnew = np.atleast_2d(np.asarray(Xnew))
         if Xnew.dtype.kind not in "fiu":
             raise ValueError(
@@ -153,7 +166,15 @@ class SearchSession:
                 f"add(): {bad} of {Xnew.shape[0]} rows contain NaN/Inf "
                 "values; a non-finite corpus row poisons every distance "
                 "computed against it, so it is rejected before any state "
-                "changes")
+                "or WAL write")
+        if self.wal is not None:
+            self.wal.append(Xnew, self.n, plan=faults.active(self.policy))
+        return self._apply_add(Xnew)
+
+    def _apply_add(self, Xnew: np.ndarray) -> "SearchSession":
+        """The state mutation of :meth:`add`, without validation and WAL
+        logging — the WAL's ``replay()`` calls this directly so replayed
+        frames are not logged again."""
         parts = None
         if self.index_kind == "hnsw":
             # insert_batch appends to the method itself, then links
@@ -178,14 +199,42 @@ class SearchSession:
         g = getattr(self.backend, "guardrail", None)
         return None if g is None else g.report()
 
+    def serve(self, **kwargs) -> "SearchService":
+        """Wrap this session in a continuous-batching serving front
+        (``repro_torch.serving.SearchService``); kwargs are its knobs
+        (slots/k/nprobe/...)."""
+        from repro_torch.serving.search_service import SearchService
+        return SearchService(self, **kwargs)
+
+    # -- persistence ---------------------------------------------------------
+    def save(self, path) -> None:
+        """Persist the fitted state + index to ``path`` (api.persistence;
+        numpy only, no tensor) and arm the crash-safe delta WAL at
+        ``path + ".wal"`` — later ``add()`` calls are logged there and
+        survive a crash (the log is cleared first: this snapshot supersedes
+        it)."""
+        from repro_torch.api.persistence import save_session
+        save_session(self, path)
+
+    @classmethod
+    def load(cls, path, *, backend: str | None = None,
+             device=None) -> "SearchSession":
+        """Rebuild a saved session on ``device`` (default: the CUDA card)
+        and replay its delta WAL (inserts made after the snapshot);
+        ``backend`` may override the saved one.  Raises
+        ``api.IndexLoadError`` on an unreadable snapshot."""
+        from repro_torch.api.persistence import load_session
+        return load_session(path, backend=backend, device=device)
+
 
 def open_index(X=None, *, index: str = "flat", method: str = "DADE",
-               backend: str = "torch",
+               backend: str | None = None,
                schedule: SchedulePolicy | None = None,
                method_params: dict | None = None,
                index_params: dict | None = None,
                train_queries=None, train_k: int = 10, seed: int = 0,
-               device=None, mesh=None, serving: bool = False, path=None):
+               device=None, mesh=None, serving: bool = False,
+               serving_params: dict | None = None, path=None):
     """Fit ``method`` on ``X``, build ``index`` and return a ready session.
     The torch backend (the default) runs on ``device`` (default: the CUDA
     card; without one this raises ``RuntimeError`` — pass ``device="cpu"``
@@ -197,28 +246,39 @@ def open_index(X=None, *, index: str = "flat", method: str = "DADE",
     ``IVFIndex(**index_params)`` (default ``n_list=64``), probed on the
     device by the torch backend; ``index="hnsw"`` an
     ``HNSWIndex(**index_params)`` by DCO-screened insertion, walked by the
-    host backend only."""
-    if index not in INDEX_KINDS:
-        raise ValueError(f"index must be one of {INDEX_KINDS}, got {index!r}")
-    if backend not in BACKENDS:
+    host backend only.  ``serving=True`` wraps the session in a
+    continuous-batching ``repro_torch.serving.SearchService``
+    (``serving_params`` are its knobs) and returns that instead.
+
+    ``path`` ties the session to a snapshot file (DESIGN.md §7).  With
+    ``X=None`` the session is *loaded* from ``path`` — snapshot plus a
+    replay of its delta WAL, so inserts acknowledged after the last
+    ``save()`` survive a crash (``IndexLoadError`` on unreadable files);
+    ``backend`` then overrides the saved one.  With both given, the fresh
+    index is saved to ``path`` at once, arming the WAL for every later
+    ``add()``."""
+    if mesh is not None:
+        raise NotImplementedError("mesh sharding is not ported yet "
+                                  "(ROADMAP A7)")
+    if backend is not None and backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (expected one of "
                          f"{BACKENDS})")
+    if X is None:
+        if path is None:
+            raise ValueError("open_index(): pass vectors X to build an "
+                             "index, or path= to load a saved one")
+        sess = SearchSession.load(path, backend=backend, device=device)
+        if serving:
+            return sess.serve(**(serving_params or {}))
+        return sess
+    backend = backend if backend is not None else "torch"
+    if index not in INDEX_KINDS:
+        raise ValueError(f"index must be one of {INDEX_KINDS}, got {index!r}")
     # fail before paying for an index the backend can't serve
     if backend == "torch" and index == "hnsw":
         raise ValueError(
             f"backend='torch' serves index='flat' or 'ivf' (got {index!r}); "
             "HNSW graph walks are host-side indexes (backend='host')")
-    if mesh is not None:
-        raise NotImplementedError("mesh sharding is not ported yet "
-                                  "(ROADMAP A7)")
-    if serving:
-        raise NotImplementedError("the serving front is not ported yet "
-                                  "(ROADMAP A6)")
-    if path is not None:
-        raise NotImplementedError("snapshots and the delta WAL are not "
-                                  "ported yet (ROADMAP A6)")
-    if X is None:
-        raise ValueError("open_index(): pass vectors X to build an index")
     if method not in ALL_METHODS:
         raise ValueError(f"method must be one of {METHODS}, got {method!r}")
     policy = schedule if schedule is not None else SchedulePolicy()
@@ -243,5 +303,10 @@ def open_index(X=None, *, index: str = "flat", method: str = "DADE",
     elif index == "hnsw":
         idx = HNSWIndex(**params).build(X, method=m,
                                         schedule=policy.stage_dims(X.shape[1]))
-    return SearchSession(m, policy, index_kind=index, index=idx,
+    sess = SearchSession(m, policy, index_kind=index, index=idx,
                          backend=backend, device=device)
+    if path is not None:
+        sess.save(path)
+    if serving:
+        return sess.serve(**(serving_params or {}))
+    return sess

@@ -82,11 +82,10 @@ class BreakerCore:
     """The bare closed -> open -> half_open state machine: current state,
     dwell bookkeeping, and a bounded transition log.
 
-    Two owners share it in the reference package: the drift guardrail
+    Two owners share it, as in the reference package: the drift guardrail
     below (demotes DCO screening, DESIGN.md §9) and the replicated serving
-    tier's per-replica ejection breaker (DESIGN.md §10, not ported yet:
-    ROADMAP A6).  The core is mechanism
-    only — *when* to flip (drift + evidence, consecutive failures, probe
+    tier's per-replica ejection breaker (``serving.replica``, DESIGN.md
+    §10).  The core is mechanism only — *when* to flip (drift + evidence, consecutive failures, probe
     outcomes) stays with the owner; the core records flips, resets dwell,
     and rejects unknown state names.
     """

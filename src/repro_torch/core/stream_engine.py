@@ -813,7 +813,10 @@ class _ChunkGraph:
     ``torch.cuda.graph``'s rule: one eager walk of the chunk on the
     capture's side stream first (it builds the kernel library, fills the
     wrappers' caches and the cuBLAS workspaces), then the capture on that
-    stream.  The wrappers count a kernel where Python calls them, which
+    stream.  ``warmup_s`` is the warm-up walk's wall up to its end on the
+    card (device work queued before it ends there too), ``capture_s`` the
+    capture's and instantiation's.  The wrappers count a kernel where
+    Python calls them, which
     during capture launches nothing, so the counts a capture took are
     taken back and added on every replay.  A failed capture or replay
     raises."""
@@ -823,11 +826,14 @@ class _ChunkGraph:
         dev = chunk["ql"].device
         walk = _span(xs, span)
         self.inputs = {key: v.clone() for key, v in chunk.items()}
+        t0 = time.perf_counter()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             _walk_chunk(cfg, state, walk, self.inputs, n_part, forced)
         torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)     # as torch.cuda.graph does on entry
+        self.warmup_s = time.perf_counter() - t0
         before = _launch_counts()
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)

@@ -1,0 +1,16 @@
+"""``repro_torch.serving`` — the serving fronts of the port.
+
+``SearchService`` packs single queries into fixed-shape batches over one
+``SearchSession`` (continuous batching, bounded admission, per-request
+deadlines, the LSM-style delta write path; DESIGN.md §6-7).
+``ReplicatedService`` stacks the fault-tolerant replica tier on top —
+retry/backoff, hedged dispatch, breaker-gated routing and shard-loss
+graceful degradation (DESIGN.md §10); ``open_replicated`` builds one from
+a corpus.  The LM decode loop (``ServingEngine``) is not ported
+(ROADMAP A9).
+"""
+from repro_torch.serving.replica import (REPLICA_MODES,  # noqa: F401
+                                         ReplicaDispatchError, ReplicaPolicy,
+                                         ReplicatedService, open_replicated)
+from repro_torch.serving.search_service import (SearchRequest,  # noqa: F401
+                                                SearchService)

@@ -3,8 +3,9 @@
 A copy of the reference package's ``testing/faults.py``, the
 ``REPRO_FAULTS`` environment route included.  The port's engines and
 backends consult ``sleep_block``, ``check_search``, ``drift_override`` and
-``audit_override``; the replica, save and torn-frame hooks wait for the
-serving tier and persistence (ROADMAP A6).
+``audit_override``; the replica tier (``serving.replica``) consults
+``check_replica`` and ``replica_delay``, and persistence
+(``api.persistence``) ``check_save`` and ``torn_frame``.
 
 The serving stack has three failure modes the paper's instability result
 implies in production: a pathological block that blows the latency budget,

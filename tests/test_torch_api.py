@@ -19,6 +19,7 @@ from repro.testing import FaultPlan as JaxFaultPlan
 from repro.vecdata import load_dataset as ref_load_dataset
 from repro_torch.api import METHODS, SchedulePolicy, open_index
 from repro_torch.convert import method_from_reference, state_from_reference
+from repro_torch.serving import SearchService
 from repro_torch.testing import FaultPlan
 from repro_torch.vecdata import load_dataset, recall_at_k
 
@@ -165,13 +166,34 @@ def test_backend_holds_the_corpus_once(name, groups, sift_small):
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(mesh=object()), "A7"),
-    (dict(serving=True), "A6"), (dict(path="idx.bin"), "A6"),
+    (dict(serving=True, serving_params={"slots": 4, "k": K}), "A6"),
+    (dict(path="idx.bin"), "A6"),
 ])
-def test_unsupported_options_raise(kwargs, item, sift_small):
-    """Each option the port does not serve yet names its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match=item):
-        open_index(sift_small.X[:256], method="PDScanning+", device="cpu",
-                   **kwargs)
+def test_unsupported_options_raise(kwargs, item, sift_small, tmp_path):
+    """The option the port does not serve yet (the mesh) raises naming its
+    ROADMAP item.  The two it once refused naming A6 are served: the
+    serving front answers a query as the session does, and a snapshot
+    path arms the delta WAL, which logs the next add()."""
+    X, Q = sift_small.X[:256], sift_small.Q[:1]
+    if item == "A7":
+        with pytest.raises(NotImplementedError, match=item):
+            open_index(X, method="PDScanning+", device="cpu", **kwargs)
+        return
+    if "path" in kwargs:
+        kwargs = dict(path=str(tmp_path / kwargs["path"]))
+    out = open_index(X, method="PDScanning+", device="cpu", **kwargs)
+    if "serving" in kwargs:
+        assert isinstance(out, SearchService)
+        req = out.submit(Q[0])
+        out.drain()
+        assert req.done and req.certified
+        np.testing.assert_array_equal(req.ids,
+                                      out.session.search(Q, K).ids[0])
+        return
+    assert out.wal is not None and out.wal.path == kwargs["path"] + ".wal"
+    assert out.wal.total_bytes() == 0
+    out.add(X[:2])
+    assert out.wal.total_bytes() > 0 and out.n == 258
 
 
 @pytest.mark.parametrize("backend,kw", [
@@ -231,16 +253,19 @@ def _port_files():
 
 def test_port_imports_neither_jax_nor_the_reference():
     bad = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b"
-                     r"|from\s+repro[.\s])", re.M)
+                     r"|from\s+repro[.\s]|import\s+benchmarks\b"
+                     r"|from\s+benchmarks\b)", re.M)
     files = _port_files()
     assert len(files) > 10
+    assert ROOT / "src" / "repro_torch" / "serving" / "replica.py" in files
     for f in files:
         hits = bad.findall(f.read_text())
         assert not hits, (f, hits)
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, repro_torch.api, repro_torch.kernels.ops; "
+    code = ("import sys, repro_torch.api, repro_torch.kernels.ops, "
+            "repro_torch.serving, repro_torch.api.persistence; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -2,9 +2,10 @@
 card, the paths that launch them on new inputs (a launch no query
 probes, the IVF streaming scan, a delta session) against the CPU or a
 merged session, the block walk captured as a CUDA graph against the same
-walk run eagerly on the card, and the top-k selection against a stable
-sort.  These tests need a CUDA card and skip without one; the
-module imports no jax, so it also runs where only PyTorch is installed:
+walk run eagerly on the card, the top-k selection against a stable
+sort, and the serving front, snapshots and shard tier on the card.
+These tests need a CUDA card and skip without one; the module imports no
+jax, so it also runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -724,3 +725,97 @@ def test_adaptive_graph_cache_follows_the_layout(cuda_device):
     assert be._graphs == {}
     again = sess.search(Q, 10)
     np.testing.assert_array_equal(again.ids, want.ids)
+
+
+# ------------------------------------------------ serving and snapshots ---
+def _service_stream(svc, Q, X):
+    """Steps of every fill (one to four queries; slots 4 pads the rest),
+    an add, then more steps; returns the tickets and the distinct graphs
+    the session's backend held after each step."""
+    reqs, seen = [], []
+    be = svc.session.backend
+
+    def step(qs, t):
+        for q in qs:
+            reqs.append(svc.submit(q, now=t))
+        svc.step(now=t)
+        new = [g for g in be._graphs.values()
+               if all(g is not s for s in seen)]
+        seen.extend(new)
+
+    for j, n in enumerate((4, 1, 3, 2, 4)):
+        step(Q[:n], float(j))
+    before = len(seen)
+    svc.add(X[1200:1300])
+    for j, n in enumerate((2, 4, 1)):
+        step(Q[n:2 * n], 10.0 + j)
+    return reqs, before, seen
+
+
+@pytest.mark.cuda
+def test_service_on_the_card_replays_one_graph(cuda_device):
+    """A service with slots = query_chunk pads every step to one chunk, so
+    the card captures one block walk for all steps and exactly one more
+    after an add() (which drops the graphs with the layout); its tickets
+    equal a CPU service's on the same stream."""
+    from repro_torch.api import open_index
+    sess, X, Q = _graph_session("flat", "PDScanning+")
+    cpu = open_index(X[:1200], method="PDScanning+", schedule=sess.policy,
+                     device="cpu")
+    got, before, seen = _service_stream(sess.serve(slots=4, k=10), Q, X)
+    want, _, _ = _service_stream(cpu.serve(slots=4, k=10), Q, X)
+    assert before == 1 and len(seen) == 2
+    assert len(sess.backend._graphs) == 1
+    assert seen[0].replays == 5
+    assert sess.last_write_mode == "delta"
+    for a, b in zip(got, want):
+        assert a.status == b.status == "done"
+        np.testing.assert_array_equal(a.ids, b.ids)
+        np.testing.assert_allclose(a.dists, b.dists, rtol=1e-5)
+        assert (a.certified, a.coverage, a.n_visible) == (
+            b.certified, b.coverage, b.n_visible)
+
+
+@pytest.mark.cuda
+def test_snapshot_saved_and_loaded_on_the_card(cuda_device, tmp_path):
+    """A card session with a delta segment, saved, then loaded by default
+    (onto the card) with a WAL frame replayed: the live session's ids."""
+    from repro_torch.api import SearchSession
+    sess, X, Q = _graph_session("flat", "PDScanning+")
+    sess.search(Q, 10)
+    sess.add(X[1200:1250])
+    p = str(tmp_path / "idx.bin")
+    sess.save(p)
+    sess.add(X[1250:1300])                  # logged in the WAL
+    live = sess.search(Q, 10)
+    loaded = SearchSession.load(p)
+    assert loaded.backend.device.type == "cuda"
+    assert loaded.n == 1300 and loaded.last_write_mode == "cold"
+    res = loaded.search(Q, 10)
+    np.testing.assert_array_equal(res.ids, live.ids)
+    np.testing.assert_allclose(res.dists, live.dists, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_shard_tier_on_the_card_equals_one_session(cuda_device):
+    """Three shard sessions on the card, merged, give one session's ids
+    over the whole corpus (certified: the completion budget is a whole
+    row block)."""
+    from repro_torch.api import SchedulePolicy, open_index
+    from repro_torch.serving import open_replicated
+    rng = np.random.default_rng(_seed("cuda-shard"))
+    X = rng.normal(size=(3000, 48)).astype(np.float32)
+    Q = rng.normal(size=(12, 48)).astype(np.float32)
+    pol = SchedulePolicy(d1=24, query_chunk=4, row_block=256,
+                         block_capacity=256)
+    svc = open_replicated(X, replicas=3, mode="shard", method="PDScanning+",
+                          schedule=pol, slots=4, k=10)
+    assert all(rs.session.backend.device.type == "cuda"
+               for rs in svc.replicas)
+    for j, q in enumerate(Q):
+        svc.submit(q, now=1e-4 * j)
+    done = sorted(svc.drain(now=1.0), key=lambda r: r.rid)
+    want = open_index(X, method="PDScanning+", schedule=pol,
+                      device="cuda").search(Q, 10)
+    assert all(r.done and r.certified and r.coverage == 1.0 for r in done)
+    np.testing.assert_array_equal(np.stack([r.ids for r in done]), want.ids)
