@@ -7,8 +7,9 @@ Phases, one JSON line each:
   1. device   the card, and its name and power limit from nvidia-smi;
   2. build    nvcc builds the kernels from src/repro_torch/kernels/csrc;
   3. parity   each kernel against its plain PyTorch version on the card,
-              at the main path's launch shapes, and the grouped kernel at
-              G = 1 against the flat one;
+              at the main path's launch shapes (and dco_scan at a mesh
+              shard's 4,000-row block), and the grouped kernel at G = 1
+              against the flat one;
   4. graph    PDScanning+ fitted on the 1M corpus below: the engine's
               block walk run eagerly on the card (its walls taken first,
               before any CUDA graph of the process) against the walk
@@ -107,7 +108,31 @@ Phases, one JSON line each:
  19. rules    all 8 methods at 100k x 960 with the same queries, and each
               method that groups again at dim_groups = 4 (and PDScanning+
               on the inline R-cut path);
- 20. profile  for each 1M session (flat, PDX, DDCopq), served again from
+ 20. mesh     the sharded global top-k as rank processes on this card,
+              each rank ``chip_smoke.py --mesh-rank DIR BACKEND`` (file
+              rendezvous, a deadline, killed past it): an NCCL group of
+              two on one card refused before its initialisation; two gloo
+              ranks, each holding half of the 1M corpus for PDScanning+
+              (the flat session's ids 100 of 100, 0 uncertified, the ranks
+              bit-equal, a 4,000-row shard block, 875 dco_scan launches a
+              rank and batch, half the flat session's device bytes; QPS
+              and the exchange's share of the wall), then at 100k DDCres,
+              DADE, the two-stage engine, a ragged 13-query batch,
+              DDCopq's lower-bound fallback and an add() that rebuilds;
+              one NCCL rank at 100k (PDScanning+, DDCres, DADE) with the
+              exchange on device tensors; every arm held against the same
+              method on one card at the shard's row block, the exact rules
+              against FDScanning's ids;
+ 21. attention DCO-screened decode attention at Qwen3-4B's decode shapes
+              (B 8, 32 heads, 8 KV heads, head_dim 128, a 32,768-position
+              bf16 cache, ragged cur_len): cap = S against exact
+              attention, one sequence on the CPU against the card, CUDA-
+              event walls of the screened and the exact version and of
+              torch's scaled_dot_product_attention (the library
+              yardstick), the error, the softmax mass the top-C keeps, the
+              bytes each reads by formula and the screened call's device
+              operations under torch.profiler;
+ 22. profile  for each 1M session (flat, PDX, DDCopq), served again from
               its fitted method: one batch under torch.profiler (device
               operations, zero fills, CUDA runtime calls, device-busy share
               against the phase's unprofiled wall), then its kernel's time
@@ -130,7 +155,8 @@ Phases, one JSON line each:
               distribution, OOD beside the fixed screen, DDCopq) are
               profiled too, without a kernel timing.
 Then the kernel table (with each kernel's launches a batch on the main,
-IVF, adaptive and anytime paths, and a 16-query step of the serving arm),
+IVF, adaptive and anytime paths, a 16-query step of the serving arm and,
+for dco_scan, a rank's batch on the 2-rank mesh),
 the nvidia-smi line and the result line.  Every
 check raises on failure, so the script exits nonzero; without a CUDA card,
 or without the repo beside it, it prints no result and exits nonzero.
@@ -140,6 +166,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -330,6 +357,27 @@ def phase_parity(dev):
                 check(torch.allclose(gp[both], wp[both], rtol=1e-4, atol=1e-3),
                       f"dco_scan partial differs (nq={nq} d1={d1} {kind})")
                 cases += 1
+    # the row block of a 500,000-row mesh shard (the mesh phase): 4,000
+    # rows at the engine's block_n = 256, the last tile 160 rows
+    shard_block = 0
+    for kind in ("lb", "adsampling"):
+        d1, nq, n_shard = 128, 16, 4000
+        sc = ref.make_dco_scales(kind, d1, 128, D=2 * d1, device=dev)
+        x = torch.as_tensor(rng.integers(-4, 5, (n_shard, d1)),
+                            dtype=torch.float32, device=dev)
+        q = torch.as_tensor(rng.integers(-4, 5, (nq, d1)),
+                            dtype=torch.float32, device=dev)
+        tau = torch.as_tensor(rng.uniform(2 * d1, 10 * d1, nq),
+                              dtype=torch.float32, device=dev)
+        nr = torch.tensor([n_shard], dtype=torch.int32, device=dev)
+        got = ops.dco_scan_op(x, q, tau, sc, nr, block_n=256, block_d=128)
+        want = dco_scan_plain(x, q, tau, sc, ops._widths(d1, 128, dev), nr,
+                              block_n=256, block_d=128)
+        for name, g, w in zip(("partial", "keep", "counts", "dims"), got,
+                              want):
+            check(torch.equal(g, w), f"dco_scan {name} differs at the "
+                  f"4,000-row shard block ({kind})")
+        shard_block += 1
     unprobed = parity_unprobed(rng, dev)
     grouped = 0
     for nq in (16, 128):
@@ -352,7 +400,9 @@ def phase_parity(dev):
               f"k={k} {dtype})")
         pq_err = max(pq_err, float((got - want).abs().max()))
     torch.cuda.synchronize()
-    log("parity", dco_scan_cases=cases, dco_scan_grouped_cases=grouped,
+    log("parity", dco_scan_cases=cases,
+        dco_scan_shard_block_cases=shard_block,
+        dco_scan_grouped_cases=grouped,
         pq_lookup_cases=len(pq_cases), pq_lookup_max_abs_err=pq_err,
         all_unprobed_cases=unprobed)
 
@@ -2457,11 +2507,414 @@ def phase_persist(Xr, Q, d2, dev):
     return rec
 
 
+# ------------------------------------------------------------------ mesh ---
+MESH_ADD_ROWS = 1024             # rows a mesh session's add() appends
+MESH_TIMEOUT_S = 420             # the ranks of one group are killed past it
+MESH_BATCHES = 3
+
+
+def _mesh_session(X, Q, method, mesh, *, engine="stream", fitted=None):
+    """A mesh session (fitting ``method`` unless ``fitted`` is given) and
+    its first search: (session, result, fit seconds, first-search
+    seconds: the shard's layout and capture)."""
+    from repro_torch.api import SchedulePolicy, SearchSession, open_index
+    policy = SchedulePolicy(engine=engine)
+    t0 = time.perf_counter()
+    if fitted is None:
+        sess = open_index(X, method=method, mesh=mesh, schedule=policy)
+    else:
+        sess = SearchSession(fitted, policy, mesh=mesh)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = sess.search(Q, K)
+    return sess, res, fit_s, time.perf_counter() - t0
+
+
+def _one_card(method, Q, *, engine="stream", row_block=4096):
+    """ids and dists of a fitted ``method`` in a one-card session at the
+    mesh shard's row block (the walk a one-shard mesh runs)."""
+    from repro_torch.api import SchedulePolicy, SearchSession
+    res = SearchSession(method, SchedulePolicy(
+        engine=engine, row_block=row_block)).search(Q, K)
+    return res.ids, res.dists
+
+
+def mesh_rank(outdir: str, backend: str) -> int:
+    """One rank of the ``mesh`` phase, started by :func:`phase_mesh` as
+    ``chip_smoke.py --mesh-rank OUTDIR BACKEND``: with gloo (two ranks on
+    one card) the 1M PDScanning+ arm, then the 100k arms; with nccl (one
+    rank) the 100k arms on device-tensor collectives.  The corpus comes
+    from OUTDIR/../corpus.npy (the parent's seeded dataset, mapped, not
+    pickled through the arguments), the queries and the path of the rules
+    phase's DDCopq snapshot from OUTDIR/../rows.npz; the rank writes its
+    arrays and record to OUTDIR/rank{r}.npz."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.api import SearchSession, open_index
+    from repro_torch.kernels import dco_scan as dco_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.ranks import join
+    from repro_torch.vecdata import recall_at_k
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = join(backend)
+    mesh = make_host_mesh(world, 1, device_type="cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rec, arrays = {"rank": rank, "world": world, "backend": backend}, {}
+    with np.load(Path(outdir).parent / "rows.npz") as z:
+        Q, opq_snapshot = z["queries"], str(z["opq_snapshot"])
+    corpus = np.load(Path(outdir).parent / "corpus.npy", mmap_mode="r")
+    Xr = np.array(corpus[:N_RULES + MESH_ADD_ROWS])
+    if backend == "gloo":
+        # the 1M arm: PDScanning+, each rank's shard of 500,000 rows
+        sess, res, fit_s, first_s = _mesh_session(corpus, Q, "PDScanning+",
+                                                  mesh)
+        be = sess.backend
+        fn = next(iter(be._mesh_fns.values()))
+        walls, exchange, local = [], [], []
+        for j in range(MESH_BATCHES):
+            dist.barrier()
+            dco_mod.launches = 0
+            t0 = time.perf_counter()
+            res = sess.search(Q, K)          # the merged result on the host
+            walls.append(time.perf_counter() - t0)
+            if j == 0:
+                launches = dco_mod.launches
+            exchange.append(fn.exchange_s)
+            local.append(fn.local_s)
+        rec["flat_1m"] = {
+            "fit_s": fit_s, "first_search_s": first_s,
+            "materialize_s": be.materialize_s[0],
+            "capture_s": sum(g.capture_s for g in be._graphs.values()),
+            "row_block": be._mesh_row_block,
+            "search_walls_s": walls, "local_s": local,
+            "exchange_s": exchange,
+            "qps": float(Q.shape[0] / np.median(walls)),
+            "exchange_share": float(np.median(exchange) / np.median(walls)),
+            "uncertified_queries": res.stats.extra["uncertified_queries"],
+            "dco_scan_launches_per_batch": launches,
+            "graphs": len(be._graphs),
+            "layout_bytes": sum(v.nbytes for v in be._state.values()),
+            "device_bytes_held": torch.cuda.memory_allocated(dev)}
+        arrays["flat_1m/ids"], arrays["flat_1m/dists"] = res.ids, res.dists
+        del sess, res, be, fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the 100k arms: the rule scalars and per-query extras (DDCres, DADE),
+    # the two-stage engine, a ragged batch, DDCopq's lower-bound fallback
+    # and a write; each method is fitted once, and rank 0 also serves it
+    # on one card (and FDScanning) to hold the mesh to
+    X = Xr[:N_RULES]
+    cases = {"PDScanning+": ("PDScanning+", "stream", 100),
+             "DDCres": ("DDCres", "stream", 100),
+             "DADE": ("DADE", "stream", 100)}
+    if backend == "gloo":
+        cases.update({"two_stage": ("PDScanning+", "two_stage", 100),
+                      "ragged": ("PDScanning+", "stream", 13),
+                      "DDCopq": ("DDCopq", "stream", 100),
+                      "add": ("PDScanning+", "stream", 100)})
+    fd = None
+    if rank == 0:
+        fd = open_index(X, method="FDScanning").search(Q, K).ids
+    fitted, rec["arms"] = {}, {}
+    if backend == "gloo":       # DDCopq as the rules phase fitted it
+        t0 = time.perf_counter()
+        fitted["DDCopq"] = SearchSession.load(opq_snapshot, mesh=mesh).method
+        rec["ddcopq_load_s"] = time.perf_counter() - t0
+    for case, (method, engine, nq) in cases.items():
+        sess, res, fit_s, first_s = _mesh_session(
+            X, Q[:nq], method, mesh, engine=engine,
+            fitted=fitted.get(method))
+        fitted[method] = sess.method
+        fn = next(iter(sess.backend._mesh_fns.values()))
+        arm = {"method": method, "engine": engine, "nq": nq, "fit_s": fit_s,
+               "first_search_s": first_s,
+               "exchange_on_device": fn.on_device,
+               "row_block": sess.backend._mesh_row_block,
+               "uncertified_queries":
+                   res.stats.extra.get("uncertified_queries")}
+        if case == "add":       # last: the add grows the shared method
+            sess.add(Xr[N_RULES:])
+            arm["add_mode"] = sess.last_write_mode
+            res = sess.search(Q, K)
+            arm["row_block_after_add"] = sess.backend._mesh_row_block
+        arrays[f"{case}/ids"] = res.ids
+        if rank == 0 and method != "DDCopq":
+            # DDCopq screens with pq_lookup on one card; its mesh fallback
+            # is the exact lower-bound rule, held to FDScanning's ids
+            ids, dists = _one_card(sess.method, Q[:nq], engine=engine,
+                                   row_block=sess.backend._mesh_row_block)
+            arm["one_card_same_ids"] = bool(np.array_equal(res.ids, ids))
+            arm["one_card_max_rel_err"] = float(np.max(
+                np.abs(res.dists - dists) / np.maximum(dists, 1e-30)))
+        if rank == 0:
+            want = fd[:nq]
+            if case == "add":
+                want = open_index(Xr, method="FDScanning").search(Q, K).ids
+                arm["add_sees_new_rows"] = int((res.ids >= N_RULES).sum())
+            arm["recall_vs_fdscanning"] = recall_at_k(res.ids, want)
+            arm["fdscanning_same_ids"] = bool(np.array_equal(res.ids, want))
+        rec["arms"][case] = arm
+        del sess, res, fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    arrays["rec"] = np.asarray(json.dumps(rec))
+    np.savez(Path(outdir) / f"rank{rank}.npz", **arrays)
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_mesh_group(outdir, world: int, backend: str) -> list:
+    import numpy as np
+    from repro_torch.launch.ranks import run_ranks
+
+    run_ranks([sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+               str(outdir), backend], world, workdir=outdir,
+              timeout_s=MESH_TIMEOUT_S)
+    outs = []
+    for r in range(world):
+        with np.load(Path(outdir) / f"rank{r}.npz") as z:
+            out = dict(z)
+        out["rec"] = json.loads(str(out["rec"]))
+        outs.append(out)
+    return outs
+
+
+def phase_mesh(X, Q, opq_snapshot, flat_ids, flat_dists, flat_rec, dev):
+    """The sharded global top-k (launch.mesh, make_distributed_topk, the
+    backend's mesh path) as rank processes on this card: the NCCL group of
+    two on one card refused; two gloo ranks (1M PDScanning+: the flat
+    session's ids, 0 uncertified, the ranks bit-equal, a 4,000-row shard
+    block, 875 dco_scan launches a rank and batch, half the flat
+    session's device bytes; then the 100k arms); one NCCL rank (the 100k
+    arms on device-tensor collectives).  ``opq_snapshot`` is the rules
+    phase's 100k DDCopq session, saved, which the ranks load onto the
+    mesh (``SearchSession.load(path, mesh=)``) instead of fitting it."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    try:
+        make_host_mesh(2, 1, device_type="cuda")
+        refused = ""
+    except ValueError as exc:
+        refused = str(exc)
+    check("gloo" in refused and not dist.is_initialized(),
+          "mesh: an NCCL group of 2 on one card was not refused before "
+          "its initialisation")
+    rec = {"nccl_two_on_one_card_refused": refused}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        t0 = time.perf_counter()
+        np.save(Path(tmp) / "corpus.npy", X)
+        rec["corpus_save_s"] = time.perf_counter() - t0
+        np.savez(Path(tmp) / "rows.npz", queries=Q,
+                 opq_snapshot=np.asarray(str(opq_snapshot)))
+        t0 = time.perf_counter()
+        gloo = _run_mesh_group(Path(tmp) / "gloo", 2, "gloo")
+        rec["gloo_group_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nccl = _run_mesh_group(Path(tmp) / "nccl", 1, "nccl")
+        rec["nccl_group_s"] = time.perf_counter() - t0
+    r0, r1 = gloo[0], gloo[1]
+    flat = [g["rec"]["flat_1m"] for g in gloo]
+    rec.update(gloo_1m=flat, gloo_100k=r0["rec"]["arms"],
+               nccl_100k=nccl[0]["rec"]["arms"],
+               phase_s=time.perf_counter() - t_phase)
+    log("mesh", **rec)
+    for key in r0:
+        if key != "rec":
+            check(np.array_equal(r0[key], r1[key]),
+                  f"mesh: the two ranks' {key} differ")
+    check(np.array_equal(r0["flat_1m/ids"], flat_ids),
+          "mesh: the 2-rank 1M ids differ from the flat session's")
+    check(np.allclose(r0["flat_1m/dists"], flat_dists, rtol=1e-4),
+          "mesh: the 2-rank 1M distances differ from the flat session's")
+    for f in flat:
+        check(f["uncertified_queries"] == 0.0, "mesh: uncertified queries")
+        check(f["row_block"] == 4000, "mesh: the shard row block is not 4000")
+        check(f["dco_scan_launches_per_batch"] == 875,
+              "mesh: not 875 dco_scan launches a rank and batch")
+        ratio = f["device_bytes_held"] / flat_rec["device_bytes_held"]
+        check(0.45 <= ratio <= 0.55,
+              f"mesh: a rank holds {ratio:.3f} of the flat session's bytes")
+    for case, arm in r0["rec"]["arms"].items():
+        if arm["method"] in ("DDCres", "DADE"):
+            # estimators: each shard screens under its own running tau
+            # (and DDCres its own least tail energy, as the reference's
+            # shards do), so a shard may prune what one card keeps; the
+            # bar is the reference test's recall against the exact ids,
+            # and the one-card agreement is reported
+            check(arm["recall_vs_fdscanning"] >= 0.95,
+                  f"mesh: gloo {case} recall below 0.95")
+        else:
+            check(arm["fdscanning_same_ids"], f"mesh: gloo {case} ids "
+                  "differ from FDScanning's")
+        if arm["method"] == "PDScanning+":
+            # (the lower-bound fallback on DDCopq's raw dims certifies
+            # no query at 100k, as PDScanning does on one card: C4)
+            check(arm["uncertified_queries"] == 0.0,
+                  f"mesh: gloo {case} left queries uncertified")
+    add = r0["rec"]["arms"]["add"]
+    check(add["add_mode"] == "rebuild" and add["add_sees_new_rows"] > 0,
+          "mesh: add() did not rebuild or the next search missed its rows")
+    check(not any(a["exchange_on_device"] for a in r0["rec"]["arms"].values())
+          and all(a["exchange_on_device"]
+                  for a in nccl[0]["rec"]["arms"].values()),
+          "mesh: gloo exchanged device tensors or nccl host ones")
+    for case, arm in nccl[0]["rec"]["arms"].items():
+        # one shard is the whole corpus: the one-card walk at its row block
+        check(arm["one_card_same_ids"] and arm["one_card_max_rel_err"]
+              <= 1e-4, f"mesh: nccl {case} differs from the one-card "
+              "session")
+    return rec
+
+
+# ------------------------------------------------------------- attention ---
+ATT_B, ATT_S, ATT_HKV, ATT_G, ATT_HD = 8, 32_768, 8, 4, 128   # Qwen3-4B
+ATT_D1, ATT_CAP = 32, 512
+ATT_REPS = 20
+BF16_FLOP_PER_S = 989e12         # H100 SXM data sheet, dense bf16
+
+
+def event_ms(fn, reps: int = ATT_REPS) -> float:
+    """Median of ``reps`` calls, each between two CUDA events."""
+    import numpy as np
+    import torch
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def phase_attention(dev):
+    """DCO-screened decode attention at Qwen3-4B's decode shapes (32 heads,
+    8 KV heads, head_dim 128), B = 8, a 32,768-position bf16 cache with
+    ragged cur_len: cap = S against exact attention, the card against the
+    CPU on one sequence, walls against exact attention and SDPA, the
+    error and the softmax mass the top-C keeps, the bytes each reads."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.serving import (dco_decode_attention,
+                                     exact_decode_attention, fit_key_rotation)
+    from repro_torch.serving.dco_attention import _top_c, _valid
+
+    t_phase = time.perf_counter()
+    B, S, Hkv, G, hd = ATT_B, ATT_S, ATT_HKV, ATT_G, ATT_HD
+    H = Hkv * G
+    gen = torch.Generator(device=dev).manual_seed(19)
+    spec = torch.arange(1, hd + 1, device=dev, dtype=torch.float32) ** -0.7
+    k = torch.randn(B, S, Hkv, hd, device=dev, generator=gen) * spec
+    v = torch.randn(B, S, Hkv, hd, device=dev, generator=gen).to(torch.bfloat16)
+    q = (torch.randn(B, H, hd, device=dev, generator=gen) * spec).to(
+        torch.bfloat16)
+    cur = np.random.default_rng(19).integers(30_000, S + 1, B).astype(np.int32)
+    sample = torch.randint(0, B * S * Hkv, (4096,), device=dev, generator=gen)
+    rot = torch.from_numpy(fit_key_rotation(
+        k.reshape(-1, hd)[sample].cpu().numpy())).to(dev)
+    k_rot = torch.einsum("bshd,de->bshe", k, rot).to(torch.bfloat16)
+    k = k.to(torch.bfloat16)
+    torch.cuda.synchronize()
+
+    def screened(cap=ATT_CAP):
+        return dco_decode_attention(q, k_rot, v, rot, cur, d1=ATT_D1, cap=cap)
+
+    def exact():
+        return exact_decode_attention(q, k, v, cur)
+
+    out, ex = screened(), exact()
+    full = screened(cap=S)
+    full_err = float((full.float() - ex.float()).abs().max())
+    check(torch.allclose(full.float(), ex.float(), rtol=2e-2, atol=2e-2),
+          f"attention: cap = S differs from exact attention ({full_err})")
+    cpu = dco_decode_attention(q[:1].cpu(), k_rot[:1].cpu(), v[:1].cpu(),
+                               rot.cpu(), cur[:1], d1=ATT_D1, cap=ATT_CAP)
+    cpu_err = float((cpu.float() - out[:1].float().cpu()).abs().max())
+    check(torch.allclose(cpu.float(), out[:1].float().cpu(), rtol=2e-2,
+                         atol=2e-2),
+          f"attention: the card differs from the CPU ({cpu_err})")
+    err = float((out.float() - ex.float()).abs().max())
+    # the share of the exact softmax's mass on the top-C positions
+    q_rot = (q.float() @ rot).reshape(B, Hkv, G, hd)
+    valid = _valid(cur, B, S, dev)
+    s1 = torch.einsum("bhgd,bshd->bhgs", q_rot[..., :ATT_D1],
+                      k_rot[..., :ATT_D1].float())
+    idx = _top_c(torch.where(valid, s1, -torch.inf), ATT_CAP)
+    s = torch.einsum("bhgd,bshd->bhgs", q.float().reshape(B, Hkv, G, hd),
+                     k.float()) / np.sqrt(hd)
+    p = torch.softmax(torch.where(valid, s, -torch.inf), dim=-1)
+    kept = float(torch.gather(p, -1, idx).sum(-1).mean())
+    del s1, s, p
+    # the library yardstick: one SDPA call, GQA, the ragged lengths as a
+    # mask; it computes nothing on the port's path
+    qs = q[:, :, None, :]
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)      # (B, Hkv, S, hd)
+    mask = valid.reshape(B, 1, 1, S)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                              enable_gqa=True)
+
+    sdpa_err = float((sdpa()[:, :, 0].float() - ex.float()).abs().max())
+    walls = {"dco_decode_attention_ms": event_ms(screened),
+             "exact_decode_attention_ms": event_ms(exact),
+             "sdpa_ms": event_ms(sdpa)}
+    # keys and values read per step, by formula (bf16): the screen reads
+    # S * d1 + C * hd of K and C * hd of V a KV head, exact S * hd of each
+    heads = B * Hkv
+    reads = {"screened_bytes": 2 * heads * (S * ATT_D1 + 2 * ATT_CAP * hd),
+             "exact_bytes": 2 * heads * 2 * S * hd}
+    exact_flops = 2 * 2 * B * H * S * hd
+    bound = {"exact_bound_ms": max(reads["exact_bytes"] / HBM_BYTES_PER_S,
+                                   exact_flops / BF16_FLOP_PER_S) * 1e3,
+             "screened_bound_ms": reads["screened_bytes"]
+             / HBM_BYTES_PER_S * 1e3}
+    # what one screened call runs on the card (is K copied whole?)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        screened()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = sorted(((e.key[:70], getattr(e, "self_device_time_total", 0)
+                   / 1e3, e.count) for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == cuda),
+                 key=lambda t: -t[1])
+    rec = {"shape": {"B": B, "S": S, "Hkv": Hkv, "H": H, "hd": hd,
+                     "d1": ATT_D1, "cap": ATT_CAP, "cur_len": cur.tolist(),
+                     "dtype": "bfloat16"},
+           "cap_S_max_abs_err_vs_exact": full_err,
+           "card_vs_cpu_max_abs_err": cpu_err,
+           "max_abs_err_vs_exact": err, "sdpa_max_abs_err_vs_exact": sdpa_err,
+           "kept_softmax_mass_mean": kept, **walls, **reads, **bound,
+           "screen_beats_exact": walls["dco_decode_attention_ms"]
+           < walls["exact_decode_attention_ms"],
+           "profile_top_ops_ms": [[n, t, c] for n, t, c in ops[:10]],
+           "phase_s": time.perf_counter() - t_phase}
+    log("attention", **rec)
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--mesh-rank"]:        # one rank of phase_mesh
+        return mesh_rank(sys.argv[2], sys.argv[3])
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
     from repro_torch.api import SchedulePolicy, SearchSession
@@ -2588,11 +3041,12 @@ def main() -> int:
     del d2o
     replica_rec = phase_replica(X, Q, d2, flat_ids, Xr, dev)
     log("replica_done", seconds=replica_rec["phase_s"])
-    del X
     phase_persist(Xr, Q, d2, dev)
     del d2
 
     t0 = time.perf_counter()
+    snap_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_snap_")
+    snap_dir = Path(snap_tmp.name)
     fd_ids = None
     for method in ("FDScanning", "PDScanning", "PDScanning+", "ADSampling",
                    "DADE", "DDCres", "DDCpca", "DDCopq"):
@@ -2601,6 +3055,8 @@ def main() -> int:
         if method == "FDScanning":
             fd_ids = np.sort(res.ids, 1)
         check_rule(sess.method, res, rec, fd_ids, gt_r)
+        if method == "DDCopq":      # the mesh phase's DDCopq arm loads it
+            sess.save(str(snap_dir / "ddcopq_100k.bin"))
         if method in ("FDScanning", "DDCopq"):      # no PDX layout
             del sess, res
             continue
@@ -2629,6 +3085,16 @@ def main() -> int:
                   "queries")
         del sess, res, fitted
     log("rules_done", seconds=time.perf_counter() - t0)
+
+    # A7 and A8: the sharded top-k as rank processes, the screened decode
+    # attention; the attention phase's profiler session comes after its
+    # walls, and only the profile phase follows it
+    mesh_rec = phase_mesh(X, Q, snap_dir / "ddcopq_100k.bin", flat_ids,
+                          flat_dists, flat_rec, dev)
+    snap_tmp.cleanup()
+    del X
+    phase_attention(dev)
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     rows = {}
@@ -2695,6 +3161,9 @@ def main() -> int:
         any_rec["pdx"]["dco_scan_grouped_launches_per_batch"]
     rows["pq_lookup"]["launches_anytime"] = \
         ada_recs["ddcopq"]["anytime"]["pq_lookup_launches"]
+    # each rank's launches on a 100-query batch of the 2-rank 1M mesh
+    rows["dco_scan"]["launches_mesh_per_rank"] = \
+        mesh_rec["gloo_1m"][0]["dco_scan_launches_per_batch"]
     # a 16-query step of the fixed serving arm (the median over its steps)
     for kernel in rows:
         rows[kernel]["launches_serving"] = \

@@ -23,8 +23,15 @@ Both backends serve the adaptive policy (``SchedulePolicy(adaptive=True)``,
 ``core.policy``), anytime deadlines (``search(deadline_s=)``) with the
 fault hooks of ``testing.faults``, and the guardrail breaker
 (``SchedulePolicy(guardrails=)``, ``core.guardrails``), whose demoted path
-on the torch backend is the streaming engine's full-scan body.  The mesh
-(ROADMAP A7) is not ported yet.
+on the torch backend is the streaming engine's full-scan body.
+
+With a ``mesh`` (``launch.mesh``) the torch backend shards a flat corpus
+over the mesh's ranks: every rank holds only its own rows on its device,
+walks them with either engine and the ranks merge their top-k lists
+(``torch_engine.make_distributed_topk``).  The mesh path serves the fixed
+policy on one dim group; DDCopq screens with the exact lower-bound rule
+there, and an IVF index, the adaptive policy, guardrails and deadlines
+are single-device, as in the reference.
 """
 from __future__ import annotations
 
@@ -47,7 +54,11 @@ from repro_torch.core.policy import PolicyConfig, finalize_adaptive_extra
 from repro_torch.core.stream_engine import (append_stream_blocks,
                                             build_stream_blocks, stream_topk)
 from repro_torch.core.torch_engine import (DcoEngineConfig,
-                                           build_device_state, two_stage_topk)
+                                           _aligned_row_block,
+                                           build_device_state,
+                                           make_distributed_topk,
+                                           rule_scalars, shard_of,
+                                           two_stage_topk)
 from repro_torch.testing import faults
 
 
@@ -84,14 +95,21 @@ def _code_dtype(n_codes: int):
     return np.uint8 if n_codes <= 256 else np.int32
 
 
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA card; a CUDA device without a card raises
-    instead of quietly running on the CPU."""
+def resolve_device(device=None, mesh=None) -> torch.device:
+    """``None`` means the CUDA card (on a mesh, card ``rank % cards``); a
+    CUDA device without a card raises instead of quietly running on the
+    CPU, and a device of another type than the mesh's ``ValueError``."""
+    if device is None and mesh is not None and torch.cuda.is_available():
+        import torch.distributed as dist
+        device = f"cuda:{dist.get_rank() % torch.cuda.device_count()}"
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "the torch backend runs on a CUDA device and none is available; "
             "pass device='cpu' to run the plain PyTorch versions on the CPU")
+    if mesh is not None and mesh.device_type != dev.type:
+        raise ValueError(f"a {mesh.device_type!r} mesh cannot serve a "
+                         f"session on {dev}: pass a device of its type")
     return dev
 
 
@@ -211,17 +229,34 @@ class HostBackend:
 
 class TorchBackend:
     """Streaming DCO search over a flat or IVF-probed corpus on one torch
-    device, with an LSM-style delta segment for inserts."""
+    device, with an LSM-style delta segment for inserts, or over a flat
+    corpus sharded on a mesh (one shard a rank)."""
 
     name = "torch"
 
     def __init__(self, method, policy, *, index_kind: str = "flat",
-                 index=None, device=None):
+                 index=None, device=None, mesh=None):
+        if index_kind == "ivf" and mesh is not None:
+            raise ValueError(
+                "device IVF probing is single-device; mesh-shard a flat "
+                "corpus instead")
+        if mesh is not None and getattr(policy, "adaptive", False):
+            raise ValueError(
+                "the adaptive DCO policy is single-device for now — drop "
+                "SchedulePolicy(adaptive=True) on the mesh path "
+                "(DESIGN.md §5)")
+        if mesh is not None and getattr(policy, "guardrails", None) is not None:
+            raise ValueError(
+                "guardrails are single-device (the breaker's demotion runs "
+                "the streaming engine's forced full-scan body) — drop "
+                "SchedulePolicy(guardrails=...) on the mesh path "
+                "(DESIGN.md §9)")
         self.method = method
         self.index_kind = index_kind
         self.index = index
         self.policy = policy
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device, mesh)
         self._dstate = None         # host-side device_state() export
         self._state = None          # device tensors
         self._blocks = None         # cached stream-engine corpus layout
@@ -234,6 +269,9 @@ class TorchBackend:
         # captured block walks (stream_engine._ChunkGraph) over the cached
         # layout; a graph holds its addresses, so it goes with the layout
         self._graphs: dict = {}
+        # mesh path: cfg -> DistributedTopK, the shard-aligned row_block
+        self._mesh_fns: dict = {}
+        self._mesh_row_block = None
         # ---- LSM-style delta segment ----
         self._n_main = 0            # rows in the materialized main layout
         self._delta_parts = np.empty(0, np.int32)   # IVF parts of delta rows
@@ -258,6 +296,8 @@ class TorchBackend:
         self._list_sizes = None
         self._cfg_cache.clear()
         self._graphs.clear()
+        self._mesh_fns.clear()
+        self._mesh_row_block = None
         self._n_main = 0
         self._delta_parts = np.empty(0, np.int32)
         self._delta_blocks = self._delta_state = None
@@ -289,8 +329,8 @@ class TorchBackend:
                          segments under one running tau;
           ``"merge"``    the delta exceeded ``delta_merge_threshold``: the
                          whole layout re-materializes on the next search;
-          ``"rebuild"``  delta path unavailable (two_stage engine or
-                         threshold 0): full invalidation;
+          ``"rebuild"``  delta path unavailable (mesh, two_stage engine
+                         or threshold 0): full invalidation;
           ``"cold"``     nothing was materialized yet, so the first search
                          lays out everything at once anyway.
         ``parts`` is the IVF partition assignment of the new rows (required
@@ -300,7 +340,8 @@ class TorchBackend:
             self.invalidate()
             return "cold"
         thresh = self.policy.delta_merge_threshold
-        if thresh <= 0 or self._resolved_engine() != "stream":
+        if (self.mesh is not None or thresh <= 0
+                or self._resolved_engine() != "stream"):
             self.invalidate()
             return "rebuild"
         if self.index_kind == "ivf":
@@ -380,6 +421,11 @@ class TorchBackend:
 
     def _materialize(self):
         dstate = self.method.device_state()
+        if self.mesh is not None and dstate["kind"] == "opq":
+            # PQ screening is single-device; the shards fall back to the
+            # exact lower-bound rule of the base export
+            from repro_torch.core.methods import DCOMethod
+            dstate = DCOMethod.device_state(self.method)
         xr = np.asarray(dstate["Xrot"], np.float32)
         D = self.method.state["D"]
         if xr.shape[1] != D:
@@ -410,6 +456,9 @@ class TorchBackend:
         self._n_main = n
         self.rows_written += n
         self._groups = 1
+        if self.mesh is not None:
+            self._materialize_shard(dstate, xr)
+            return
         if self._resolved_engine() == "two_stage":
             # the two-stage engine reads the corpus row-major, without pad
             # rows (zero norms would enter its top-k); the blocks are not
@@ -446,6 +495,26 @@ class TorchBackend:
         self._state = {key: v.to(self.device) for key, v in state.items()
                        if key not in _ROW_KEYS}
 
+    def _materialize_shard(self, dstate: dict, xr: np.ndarray):
+        """The mesh path's layout: this rank's rows only, on one dim group.
+        The squared norms are row sums, so the shard's equal the whole
+        corpus's rows; ``tail_min`` is the shard's own (the reference's
+        local engine takes it over the shard's rows), the rule scalars the
+        whole corpus's.  The row block is aligned to the shard size, so
+        the streaming layout is a view of the shard's rows (no pad row)."""
+        index, n_shards = shard_of(self.mesh)
+        per_shard = max(1, self._n_main // n_shards)
+        lo = index * per_shard
+        state = build_device_state(dict(dstate, Xrot=xr[lo:lo + per_shard]),
+                                   self._d1, self.device)
+        state["tail_min"] = state["tail_sq"].min()
+        self._state = state
+        self._mesh_extra_state = rule_scalars(dstate, self._d1, self.device)
+        self._mesh_row_block = _aligned_row_block(per_shard,
+                                                  self.policy.row_block)
+        if self._resolved_engine() == "stream":
+            self._blocks = build_stream_blocks(state, self._mesh_row_block)
+
     def _config(self, k: int, anytime: bool = False,
                 demoted: bool = False) -> DcoEngineConfig:
         """The engine config for ``k``, cached: a deadline call (``anytime``)
@@ -458,9 +527,10 @@ class TorchBackend:
         if key in self._cfg_cache:
             return self._cfg_cache[key]
         ds, p = self._dstate, self.policy
+        row_block = p.row_block if self.mesh is None else self._mesh_row_block
         kw = dict(kind=ds["kind"], d1=self._d1, k=k, capacity=p.capacity,
                   query_chunk=p.query_chunk, tau_slack=p.tau_slack,
-                  row_block=p.row_block, block_capacity=p.block_capacity,
+                  row_block=row_block, block_capacity=p.block_capacity,
                   use_kernel=p.use_kernel, dim_groups=self._groups,
                   group_capacity=p.group_capacity)
         if ds["kind"] == "adsampling":
@@ -542,7 +612,10 @@ class TorchBackend:
         With ``SchedulePolicy(guardrails=...)`` armed, non-deadline batches
         route through the breaker (DESIGN.md §9): drift is scored, a
         sampled audit shadow-runs the forced full scan, and an OPEN breaker
-        serves the whole batch through it.  Deadline calls bypass it."""
+        serves the whole batch through it.  Deadline calls bypass it.
+
+        On a mesh every rank calls this with the same queries and gets the
+        same result; deadlines raise there (``ValueError``)."""
         faults.check_search(faults.active(self.policy))
         g = self.guardrail
         if g is not None and deadline_s is None:
@@ -570,6 +643,11 @@ class TorchBackend:
             self.delta_build_s.append(time.perf_counter() - t0)
         t_end = None
         if deadline_s is not None:
+            if self.mesh is not None:
+                raise ValueError(
+                    "anytime deadlines are single-device (the mesh scan has "
+                    "no per-group host sync to check the clock at; "
+                    "DESIGN.md §7)")
             t_end = time.monotonic() + float(deadline_s)
         cfg = self._config(k, anytime=t_end is not None, demoted=demoted)
         engine = self._resolved_engine()
@@ -591,7 +669,19 @@ class TorchBackend:
         cand_per_q = np.full(nq, N, np.float64)
         passed = dmin = dims_read = report = coverage = None
         n_anchor = 0                # two_stage completes k anchors per query
-        if engine == "two_stage":
+        if self.mesh is not None:
+            if cfg not in self._mesh_fns:
+                self._mesh_fns[cfg] = make_distributed_topk(
+                    self.mesh, cfg, tuple(self.mesh.mesh_dim_names),
+                    extra_state=self._mesh_extra_state, engine=engine,
+                    n_rows=self._n_main)
+            out = self._mesh_fns[cfg](self._state, ql_t, qt_t, qe_t,
+                                      blocks=self._blocks,
+                                      graphs=self._graphs)
+            d, i, surv, dmin = (o.cpu().numpy() for o in out)
+            if engine == "two_stage":
+                n_anchor = nq * k * shard_of(self.mesh)[1]
+        elif engine == "two_stage":
             out = two_stage_topk(self._state, ql_t, qt_t, cfg, qe_t)
             # one transfer back per output, after the whole batch is queued
             d, i, surv = (o.cpu().numpy() for o in out)
@@ -637,8 +727,9 @@ class TorchBackend:
                                   + float(surv.sum() + n_anchor)
                                   * (D - self._d1))
             stats.extra[EXTRA_SURVIVORS_MEAN] = float(surv.mean())
-            if passed is not None:  # the two-stage engine has no certificate
+            if passed is not None:  # the mesh path does not count passes
                 stats.extra[EXTRA_SCREEN_PASS_MEAN] = float(passed.mean())
+            if dmin is not None:    # one device's two-stage: no certificate
                 self._certify(stats, d, dmin)
         if dims_read is not None:
             # the streaming scan measured its own reads (screen dims
@@ -679,14 +770,16 @@ class TorchBackend:
 
 
 def make_backend(name: str, method, policy, *, index_kind: str = "flat",
-                 index=None, device=None):
+                 index=None, device=None, mesh=None):
     """Construct the executor for ``name``: ``"torch"`` (the device
-    engines on ``device``) or ``"host"`` (the numpy scan; ``device`` is
-    not used)."""
+    engines on ``device``, sharded over ``mesh`` when one is given) or
+    ``"host"`` (the numpy scan; ``device`` is not used)."""
     if name == "torch":
         return TorchBackend(method, policy, index_kind=index_kind,
-                            index=index, device=device)
+                            index=index, device=device, mesh=mesh)
     if name == "host":
+        if mesh is not None:
+            raise ValueError("mesh sharding is a torch-backend feature")
         return HostBackend(method, index_kind, index, policy)
     raise ValueError(f"unknown backend {name!r} (expected 'torch' or "
                      "'host')")

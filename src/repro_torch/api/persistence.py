@@ -14,6 +14,10 @@ tensor: no device layout, no block stack and no CUDA graph.
 unless the caller asks for the CPU), which lays the corpus out again on
 the first search.
 
+A mesh session's files are written by rank 0 alone, and every rank waits
+at a barrier until they are on disk (N ranks renaming one tmp file at
+once would corrupt the snapshot); every rank reads them on load.
+
 Dynamic inserts between snapshots are covered by :class:`DeltaWAL`
 (DESIGN.md §7): a session saved to ``path`` arms an append-only log at
 ``path + ".wal"`` and every later ``add()`` writes its rows there —
@@ -174,11 +178,16 @@ class DeltaWAL:
     it idempotent regardless — so ``health()`` can bound WAL disk usage via
     :meth:`total_bytes` while no single file grows without limit between
     snapshots.
+
+    ``writer=False`` (a mesh rank other than 0) reads the log but never
+    writes it: appends, clears and the torn-tail truncation are left to
+    the writer.
     """
 
-    def __init__(self, path, *, max_bytes: int = 0):
+    def __init__(self, path, *, max_bytes: int = 0, writer: bool = True):
         self.path = str(path)
         self.max_bytes = int(max_bytes or 0)
+        self.writer = writer
 
     # -- segments -------------------------------------------------------------
     def _segments(self) -> list[str]:
@@ -218,6 +227,8 @@ class DeltaWAL:
         ``testing.FaultPlan`` whose ``torn_frame_keep`` simulates power
         loss mid-write: the frame's byte prefix is written and
         ``SimulatedCrash`` raised, so the caller never acknowledges."""
+        if not self.writer:
+            return
         buf = io.BytesIO()
         np.savez(buf, n_before=np.int64(n_before),
                  rows=np.ascontiguousarray(rows, np.float32))
@@ -291,6 +302,8 @@ class DeltaWAL:
         same tmp + ``os.replace`` + dir-fsync dance as the snapshot — a
         crash mid-clear leaves either the old log (harmless: replay is
         idempotent) or the empty one, never a torn file."""
+        if not self.writer:
+            return
         for seg in self._segments():
             if seg != self.path:
                 os.remove(seg)
@@ -306,8 +319,9 @@ class DeltaWAL:
         frames: list[tuple[int, np.ndarray]] = []
         for seg in self._segments() or [self.path]:
             seg_frames, valid_end, size = self._scan(seg)
-            if valid_end < size:       # torn tail: cut the segment back to
-                with open(seg, "rb+") as f:   # the last acknowledged frame
+            if valid_end < size and self.writer:   # torn tail: cut the
+                # segment back to the last acknowledged frame
+                with open(seg, "rb+") as f:
                     f.truncate(valid_end)
                     f.flush()
                     os.fsync(f.fileno())
@@ -333,11 +347,22 @@ class DeltaWAL:
         return applied
 
 
-def _wal_for(path, policy) -> DeltaWAL:
+def _wal_for(path, session) -> DeltaWAL:
     """The WAL armed for snapshot ``path``, honoring the policy's
-    ``wal_max_bytes`` rotation knob (0/absent = single segment)."""
+    ``wal_max_bytes`` rotation knob (0/absent = single segment); written
+    by rank 0 alone on a mesh."""
     return DeltaWAL(wal_path(path),
-                    max_bytes=getattr(policy, "wal_max_bytes", 0) or 0)
+                    max_bytes=getattr(session.policy, "wal_max_bytes", 0) or 0,
+                    writer=_writes(session))
+
+
+def _writes(session) -> bool:
+    """Whether this process writes the session's files: always, but on a
+    mesh only rank 0."""
+    if session.mesh is None:
+        return True
+    import torch.distributed as dist
+    return dist.get_rank() == 0
 
 
 def save_session(session, path) -> None:
@@ -367,9 +392,13 @@ def save_session(session, path) -> None:
         pickle.dump(payload, body, protocol=pickle.HIGHEST_PROTOCOL)
         f.write(_SNAP_MAGIC + _SNAP_TRAILER.pack(body.n, body.crc))
 
-    _atomic_write(path, write, plan=faults.active(session.policy))
-    session.wal = _wal_for(path, session.policy)
+    from repro_torch.api.session import _mesh_barrier
+
+    if _writes(session):
+        _atomic_write(path, write, plan=faults.active(session.policy))
+    session.wal = _wal_for(path, session)
     session.wal.clear()
+    _mesh_barrier(session)
 
 
 def _read_payload(path, f):
@@ -414,13 +443,15 @@ def _read_payload(path, f):
         ) from exc
 
 
-def load_session(path, *, backend: str | None = None, device=None):
+def load_session(path, *, backend: str | None = None, device=None,
+                 mesh=None):
     """Rebuild a ``SearchSession`` from :func:`save_session` output on
     ``device`` (default: the CUDA card; ``device="cpu"`` runs the plain
-    versions on the CPU), then replay its delta WAL (inserts since the
-    snapshot).  ``backend`` overrides the saved backend's name.  Raises
+    versions on the CPU), sharded over ``mesh`` when one is given (every
+    rank reads), then replay its delta WAL (inserts since the snapshot).
+    ``backend`` overrides the saved backend's name.  Raises
     :class:`IndexLoadError` on any unreadable/unsupported snapshot."""
-    from repro_torch.api.session import SearchSession
+    from repro_torch.api.session import SearchSession, _mesh_barrier
     from repro_torch.core.methods import make_method
 
     try:
@@ -441,7 +472,9 @@ def load_session(path, *, backend: str | None = None, device=None):
     sess = SearchSession(m, payload["policy"],
                          index_kind=payload["index_kind"],
                          index=payload["index"],
-                         backend=backend or payload["backend"], device=device)
-    sess.wal = _wal_for(path, sess.policy)
+                         backend=backend or payload["backend"], device=device,
+                         mesh=mesh)
+    sess.wal = _wal_for(path, sess)
     sess.wal.replay(sess)
+    _mesh_barrier(sess)
     return sess

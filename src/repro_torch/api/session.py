@@ -29,9 +29,13 @@ backend over a flat, IVF or HNSW index:
     sess.save("idx.bin")                             # snapshot + delta WAL
     sess = SearchSession.load("idx.bin")             # back on the card
     sess = open_index(path="idx.bin", device="cpu")  # ... or on the CPU
+    mesh = make_host_mesh(2, 1, device_type="cuda")  # on each of 2 ranks
+    shd = open_index(X, method="PDScanning+", mesh=mesh)   # one shard a rank
 
-The mesh (ROADMAP A7) is not ported yet and raises ``NotImplementedError``
-naming its item.
+A mesh session is collective: every rank of the mesh calls ``open_index``,
+``search``, ``add`` and ``save`` with the same arguments and gets the same
+result; snapshots and the WAL are written by rank 0.  A mesh session is not
+served by ``SearchService`` yet (ROADMAP A19).
 """
 from __future__ import annotations
 
@@ -65,7 +69,7 @@ class SearchSession:
 
     def __init__(self, method, policy: SchedulePolicy | None = None, *,
                  index_kind: str = "flat", index=None,
-                 backend: str = "torch", device=None):
+                 backend: str = "torch", device=None, mesh=None):
         if index_kind not in INDEX_KINDS:
             raise ValueError(
                 f"index must be one of {INDEX_KINDS}, got {index_kind!r}")
@@ -77,9 +81,10 @@ class SearchSession:
         self.index = index
         self.policy = policy if policy is not None else SchedulePolicy()
         _check_engine(self.policy)
+        self.mesh = mesh
         self.backend = make_backend(backend, method, self.policy,
                                     index_kind=index_kind, index=index,
-                                    device=device)
+                                    device=device, mesh=mesh)
         self.last_write_mode: str | None = None   # set by add()
         self.wal = None   # DeltaWAL once save()/load() ties a path to us
 
@@ -169,6 +174,7 @@ class SearchSession:
                 "or WAL write")
         if self.wal is not None:
             self.wal.append(Xnew, self.n, plan=faults.active(self.policy))
+            _mesh_barrier(self)
         return self._apply_add(Xnew)
 
     def _apply_add(self, Xnew: np.ndarray) -> "SearchSession":
@@ -202,7 +208,11 @@ class SearchSession:
     def serve(self, **kwargs) -> "SearchService":
         """Wrap this session in a continuous-batching serving front
         (``repro_torch.serving.SearchService``); kwargs are its knobs
-        (slots/k/nprobe/...)."""
+        (slots/k/nprobe/...).  A mesh session raises
+        ``NotImplementedError``: each rank's clock would batch, shed and
+        expire requests differently (ROADMAP A19)."""
+        if self.mesh is not None:
+            raise NotImplementedError(_MESH_SERVICE)
         from repro_torch.serving.search_service import SearchService
         return SearchService(self, **kwargs)
 
@@ -212,19 +222,36 @@ class SearchSession:
         numpy only, no tensor) and arm the crash-safe delta WAL at
         ``path + ".wal"`` — later ``add()`` calls are logged there and
         survive a crash (the log is cleared first: this snapshot supersedes
-        it)."""
+        it).  On a mesh, rank 0 writes and every rank waits for it."""
         from repro_torch.api.persistence import save_session
         save_session(self, path)
 
     @classmethod
-    def load(cls, path, *, backend: str | None = None,
-             device=None) -> "SearchSession":
+    def load(cls, path, *, backend: str | None = None, device=None,
+             mesh=None) -> "SearchSession":
         """Rebuild a saved session on ``device`` (default: the CUDA card)
         and replay its delta WAL (inserts made after the snapshot);
-        ``backend`` may override the saved one.  Raises
+        ``backend`` may override the saved one, and every rank of
+        ``mesh`` reads the snapshot to serve its shard.  Raises
         ``api.IndexLoadError`` on an unreadable snapshot."""
         from repro_torch.api.persistence import load_session
-        return load_session(path, backend=backend, device=device)
+        return load_session(path, backend=backend, device=device, mesh=mesh)
+
+
+#: why a mesh session has no serving front yet
+_MESH_SERVICE = (
+    "a mesh session is not served by SearchService yet: each rank's clock "
+    "would batch, shed and expire requests differently; serve it from a "
+    "service that rank 0 drives and the other ranks follow by broadcast "
+    "(ROADMAP A19)")
+
+
+def _mesh_barrier(session) -> None:
+    """On a mesh, wait until every rank gets here (rank 0's file writes
+    are then on disk for all of them)."""
+    if session.mesh is not None:
+        import torch.distributed as dist
+        dist.barrier()
 
 
 def open_index(X=None, *, index: str = "flat", method: str = "DADE",
@@ -250,6 +277,13 @@ def open_index(X=None, *, index: str = "flat", method: str = "DADE",
     continuous-batching ``repro_torch.serving.SearchService``
     (``serving_params`` are its knobs) and returns that instead.
 
+    ``mesh`` (a ``launch.mesh`` ``DeviceMesh``; torch backend, flat index)
+    shards the corpus over the mesh's ranks: every rank calls
+    ``open_index`` with the same arguments, fits the same method, and lays
+    out only its own rows, on ``device`` (default: the card ``rank %
+    cards``).  Not with ``serving=True`` (``NotImplementedError``, ROADMAP
+    A19).
+
     ``path`` ties the session to a snapshot file (DESIGN.md §7).  With
     ``X=None`` the session is *loaded* from ``path`` — snapshot plus a
     replay of its delta WAL, so inserts acknowledged after the last
@@ -257,9 +291,8 @@ def open_index(X=None, *, index: str = "flat", method: str = "DADE",
     ``backend`` then overrides the saved one.  With both given, the fresh
     index is saved to ``path`` at once, arming the WAL for every later
     ``add()``."""
-    if mesh is not None:
-        raise NotImplementedError("mesh sharding is not ported yet "
-                                  "(ROADMAP A7)")
+    if mesh is not None and serving:
+        raise NotImplementedError(_MESH_SERVICE)
     if backend is not None and backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (expected one of "
                          f"{BACKENDS})")
@@ -267,7 +300,8 @@ def open_index(X=None, *, index: str = "flat", method: str = "DADE",
         if path is None:
             raise ValueError("open_index(): pass vectors X to build an "
                              "index, or path= to load a saved one")
-        sess = SearchSession.load(path, backend=backend, device=device)
+        sess = SearchSession.load(path, backend=backend, device=device,
+                                  mesh=mesh)
         if serving:
             return sess.serve(**(serving_params or {}))
         return sess
@@ -279,12 +313,16 @@ def open_index(X=None, *, index: str = "flat", method: str = "DADE",
         raise ValueError(
             f"backend='torch' serves index='flat' or 'ivf' (got {index!r}); "
             "HNSW graph walks are host-side indexes (backend='host')")
+    if backend == "torch" and index == "ivf" and mesh is not None:
+        raise ValueError(
+            "device IVF probing is single-device; mesh-shard a flat corpus "
+            "instead")
     if method not in ALL_METHODS:
         raise ValueError(f"method must be one of {METHODS}, got {method!r}")
     policy = schedule if schedule is not None else SchedulePolicy()
     _check_engine(policy)
     if backend == "torch":
-        device = resolve_device(device)     # fail before paying for the fit
+        device = resolve_device(device, mesh)   # fail before the fit
     X = np.ascontiguousarray(np.atleast_2d(X), np.float32)
     m = make_method(method, **{"seed": seed, **(method_params or {})})
     m.fit(X)
@@ -304,7 +342,7 @@ def open_index(X=None, *, index: str = "flat", method: str = "DADE",
         idx = HNSWIndex(**params).build(X, method=m,
                                         schedule=policy.stage_dims(X.shape[1]))
     sess = SearchSession(m, policy, index_kind=index, index=idx,
-                         backend=backend, device=device)
+                         backend=backend, device=device, mesh=mesh)
     if path is not None:
         sess.save(path)
     if serving:

@@ -70,8 +70,8 @@ resumable over a range of blocks (``init_carry``/``return_carry``), and
 :func:`_anytime_topk` walks ``block_group`` blocks at a time, with one
 device synchronization and one wall-clock check a group.
 
-Not ported yet: the sharded walk over a mesh with its global top-k merge
-(ROADMAP A7).
+Over a mesh each rank walks its own shard with :func:`stream_topk`, and
+``torch_engine.make_distributed_topk`` merges the shards' top-k lists.
 """
 from __future__ import annotations
 

@@ -8,7 +8,8 @@ query rotation and the legacy one-shot engine ``two_stage_topk``
 (query_chunk, N) estimate matrix per chunk with one ``torch.matmul`` and
 runs no hand-written kernel, as the reference forms it outside any Pallas
 kernel.  The streaming engine (``core.stream_engine``) is the default
-device path; the distributed wrapper is not ported yet (ROADMAP A7).
+device path.  :func:`make_distributed_topk` runs either engine on each
+rank's shard of a mesh and merges the shards' top-k lists.
 
 Per query chunk the two-stage engine computes
 
@@ -25,9 +26,11 @@ ties keep the lower index first.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,3 +198,191 @@ def two_stage_topk(state: dict, q_lead, q_tail, cfg: DcoEngineConfig,
         q_extra = {key: padq(v) for key, v in q_extra.items()}
     d, i, s = _two_stage_topk_padded(state, q_lead, q_tail, q_extra, cfg)
     return d[:nq], i[:nq], s[:nq]
+
+
+def _aligned_row_block(per_shard: int, row_block: int) -> int:
+    """The largest divisor of ``per_shard`` that is <= ``row_block`` — the
+    biggest certificate-safe streaming block for a mesh shard of that size
+    (worst case 1, which is always safe)."""
+    rb = max(1, min(int(row_block), int(per_shard)))
+    while per_shard % rb:
+        rb -= 1
+    return rb
+
+
+def make_distributed_topk(mesh, cfg: DcoEngineConfig,
+                          shard_axes=("data", "model"),
+                          extra_state: dict | None = None,
+                          engine: str = "stream", n_rows: int | None = None):
+    """The sharded engine: corpus rows sharded over ``shard_axes`` of
+    ``mesh`` (a ``launch.mesh`` ``DeviceMesh``), queries and per-query
+    extras replicated; a local top-k per shard, then an all-gather of
+    the shards' lists and a global merge.
+
+    The reference's ``shard_map`` becomes SPMD by process: every rank
+    calls the returned :class:`DistributedTopK` with its own shard, and
+    every rank gets the same (dists (Q, k), ids (Q, k), survivors (Q,),
+    dropped_min_est (Q,)).  The local engine is the streaming scan
+    (``core.stream_engine``, the default) or the two-stage engine.
+    ``extra_state`` carries the replicated rule scalars of
+    :func:`rule_scalars`.  Survivors are the real stage-2 completions
+    summed over the shards; ``dropped_min_est`` is the least over the
+    shards (the weakest certificate), +inf for the two-stage engine.
+
+    ``n_rows`` (the total row count) arms the reference's build-time
+    checks: rows that do not shard evenly, and for the streaming engine a
+    shard that is not a ``row_block`` multiple (its last block would be
+    padded with phantom rows, weakening the shard's certificate).  Only
+    the mesh's shape is read here."""
+    from repro_torch.launch.mesh import mesh_axes
+
+    if engine not in ("stream", "two_stage"):
+        raise ValueError(f"engine must be 'stream' or 'two_stage', got {engine!r}")
+    if cfg.policy is not None and getattr(cfg.policy, "adaptive", False):
+        raise ValueError(
+            "the adaptive DCO policy is single-device for now — drop "
+            "SchedulePolicy(adaptive=True) on the mesh path (DESIGN.md §5)")
+    if n_rows is not None:
+        sizes = mesh_axes(mesh)
+        n_shards = int(np.prod([sizes[a] for a in shard_axes]))
+        per_shard, rem = divmod(int(n_rows), n_shards)
+        if rem:
+            raise ValueError(
+                f"make_distributed_topk: {n_rows} rows do not shard evenly "
+                f"over {n_shards} devices ({shard_axes}); pad the corpus to "
+                f"a multiple of {n_shards} rows before sharding")
+        if engine == "stream" and per_shard % cfg.row_block:
+            raise ValueError(
+                f"make_distributed_topk: shard size {per_shard} is not a "
+                f"multiple of row_block={cfg.row_block} — the per-shard "
+                "streaming layout would pad the last block with phantom "
+                "zero rows, weakening every shard's exactness certificate "
+                "(DESIGN.md §4/§10).  Use a row_block that divides the "
+                f"shard size (e.g. {_aligned_row_block(per_shard, cfg.row_block)}) "
+                "or pad the corpus; the facade's mesh path auto-aligns")
+    return DistributedTopK(mesh, cfg, tuple(shard_axes),
+                           dict(extra_state or {}), engine)
+
+
+def _shard_index(mesh, coord, axes) -> int:
+    """The shard index of mesh coordinate ``coord``: row-major over
+    ``axes``, as the reference's ``axis_index`` arithmetic computes it."""
+    names = tuple(mesh.mesh_dim_names)
+    index = 0
+    for a in axes:
+        j = names.index(a)
+        index = index * tuple(mesh.shape)[j] + int(coord[j])
+    return index
+
+
+def shard_of(mesh, shard_axes=None) -> tuple[int, int]:
+    """(this rank's shard index, shard count) over ``shard_axes``
+    (default: every dim of the mesh)."""
+    axes = tuple(mesh.mesh_dim_names if shard_axes is None else shard_axes)
+    sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    return (_shard_index(mesh, mesh.get_coordinate(), axes),
+            int(np.prod([sizes[a] for a in axes])))
+
+
+class DistributedTopK:
+    """The per-rank callable of :func:`make_distributed_topk`.
+
+    ``self(state, q_lead, q_tail, q_extra=None, *, blocks=None,
+    graphs=None)``: ``state`` is the rank's shard as a
+    :func:`build_device_state` export (with, for ddcres, the shard's own
+    ``tail_min``, as the reference's local engine takes it); ``blocks``
+    and ``graphs`` are the shard's cached streaming layout and its CUDA
+    graphs (``stream_topk``), built once by the caller.
+
+    The exchange: each rank packs its (Q, k) distances and globalised
+    ids, its survivors and its ``dropped_min_est`` into one (Q, 2k + 2)
+    int32 buffer (the floats' bits), and one ``all_gather`` over the
+    process group gives every rank every shard's buffer; the ranks of
+    this rank's replica group (same coordinates off ``shard_axes``) are
+    taken in shard order, the lists merged into (Q, S * k) with column
+    ``s * k + j`` and the k smallest kept in ``lax.top_k``'s order
+    (``stream_engine._smallest``), survivors summed and the estimates'
+    minimum taken: the reference's all_gather, psum and pmin in one
+    collective.  On an nccl group the buffers stay on the device; on a
+    gloo group they are copied to the CPU for the exchange (gloo's CUDA
+    support is partial), and the merged result is on the CPU.  A failed
+    collective raises.
+
+    ``local_s`` and ``exchange_s`` are the last call's host walls: the
+    local engine up to its results on the device (a synchronize), and
+    the exchange with the merge (it includes waiting for the slowest
+    rank); ``on_device`` says whether it exchanged device tensors."""
+
+    def __init__(self, mesh, cfg: DcoEngineConfig, shard_axes: tuple,
+                 extra_state: dict, engine: str):
+        self.mesh, self.cfg, self.engine = mesh, cfg, engine
+        self.shard_axes, self.extra_state = shard_axes, extra_state
+        self._src = self._state = None
+        self._order = None
+        self.local_s = self.exchange_s = 0.0
+        self.on_device = None
+
+    def _replica_ranks(self) -> list:
+        """Global ranks holding this rank's replica group's shards, in
+        shard order."""
+        if self._order is None:
+            names = tuple(self.mesh.mesh_dim_names)
+            ranks = self.mesh.mesh
+            if ranks.numel() != dist.get_world_size():
+                raise ValueError("the mesh must span every rank of the "
+                                 "process group")
+            me = self.mesh.get_coordinate()
+            order = []
+            for r in range(ranks.numel()):
+                coord = [int(c) for c in (ranks == r).nonzero()[0]]
+                if all(coord[j] == me[j] for j, a in enumerate(names)
+                       if a not in self.shard_axes):
+                    order.append((_shard_index(self.mesh, coord,
+                                               self.shard_axes), r))
+            self._order = [r for _, r in sorted(order)]
+        return self._order
+
+    def __call__(self, state: dict, q_lead, q_tail, q_extra=None, *,
+                 blocks=None, graphs=None):
+        from repro_torch.core.stream_engine import _smallest, stream_topk
+
+        if state is not self._src:      # one dict, so cached graphs match
+            self._src, self._state = state, {**state, **self.extra_state}
+        st, cfg = self._state, self.cfg
+        t0 = time.perf_counter()
+        if self.engine == "stream":
+            d, i, surv, _, dmin, _ = stream_topk(st, q_lead, q_tail, cfg,
+                                                 q_extra, blocks=blocks,
+                                                 graphs=graphs)
+        else:
+            d, i, surv = two_stage_topk(st, q_lead, q_tail, cfg, q_extra)
+            dmin = torch.full((d.shape[0],), float("inf"), device=d.device)
+        index, _ = shard_of(self.mesh, self.shard_axes)
+        i = i + index * state["x_lead"].shape[0]
+        k = d.shape[1]
+        packed = torch.cat([d.contiguous().view(torch.int32),
+                            i.to(torch.int32),
+                            surv.to(torch.int32)[:, None],
+                            dmin.contiguous().view(torch.int32)[:, None]], 1)
+        on_device = packed.is_cuda and "nccl" in str(dist.get_backend())
+        if packed.is_cuda:
+            torch.cuda.synchronize(packed.device)
+        t1 = time.perf_counter()
+        if not on_device:
+            packed = packed.cpu()
+        parts = [torch.empty_like(packed)
+                 for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, packed)
+        got = torch.stack([parts[r] for r in self._replica_ranks()])
+        nq = got.shape[1]
+        dg = got[..., :k].view(torch.float32).permute(1, 0, 2).reshape(nq, -1)
+        ig = got[..., k:2 * k].permute(1, 0, 2).reshape(nq, -1)
+        best, pos = _smallest(dg, k)
+        out = (best, torch.gather(ig, 1, pos),
+               got[..., 2 * k].sum(0, dtype=torch.int32),
+               got[..., 2 * k + 1].view(torch.float32).amin(0))
+        if on_device:
+            torch.cuda.synchronize(packed.device)
+        self.local_s, self.exchange_s = t1 - t0, time.perf_counter() - t1
+        self.on_device = on_device
+        return out

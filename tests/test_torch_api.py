@@ -165,19 +165,32 @@ def test_backend_holds_the_corpus_once(name, groups, sift_small):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(mesh=object()), "A7"),
+    (dict(mesh="1x1"), "A7"),
     (dict(serving=True, serving_params={"slots": 4, "k": K}), "A6"),
     (dict(path="idx.bin"), "A6"),
 ])
 def test_unsupported_options_raise(kwargs, item, sift_small, tmp_path):
-    """The option the port does not serve yet (the mesh) raises naming its
-    ROADMAP item.  The two it once refused naming A6 are served: the
-    serving front answers a query as the session does, and a snapshot
-    path arms the delta WAL, which logs the next add()."""
+    """The options the port once refused naming their ROADMAP items are
+    served: a 1 x 1 mesh on the CPU (a one-rank gloo group) gives the
+    single-device session's ids and distances bit for bit (A7; more ranks
+    in tests/test_torch_distributed.py), the serving front answers a
+    query as the session does, and a snapshot path arms the delta WAL,
+    which logs the next add() (A6)."""
     X, Q = sift_small.X[:256], sift_small.Q[:1]
     if item == "A7":
-        with pytest.raises(NotImplementedError, match=item):
-            open_index(X, method="PDScanning+", device="cpu", **kwargs)
+        import torch.distributed as dist
+        from repro_torch.launch import make_host_mesh
+        mesh = make_host_mesh(1, 1, device_type="cpu")
+        try:
+            sess = open_index(X, method="PDScanning+", device="cpu",
+                              mesh=mesh)
+            got = sess.search(Q, K)
+        finally:
+            dist.destroy_process_group()
+        want = open_index(X, method="PDScanning+", device="cpu").search(Q, K)
+        assert sess.backend._mesh_row_block == 256
+        np.testing.assert_array_equal(got.ids, want.ids)
+        np.testing.assert_array_equal(got.dists, want.dists)
         return
     if "path" in kwargs:
         kwargs = dict(path=str(tmp_path / kwargs["path"]))
@@ -258,6 +271,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = _port_files()
     assert len(files) > 10
     assert ROOT / "src" / "repro_torch" / "serving" / "replica.py" in files
+    assert ROOT / "src" / "repro_torch" / "launch" / "mesh.py" in files
+    assert ROOT / "src" / "repro_torch" / "serving" / "dco_attention.py" in files
     for f in files:
         hits = bad.findall(f.read_text())
         assert not hits, (f, hits)
@@ -265,7 +280,8 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.api, repro_torch.kernels.ops, "
-            "repro_torch.serving, repro_torch.api.persistence; "
+            "repro_torch.serving, repro_torch.api.persistence, "
+            "repro_torch.launch.ranks; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

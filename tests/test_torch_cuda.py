@@ -819,3 +819,84 @@ def test_shard_tier_on_the_card_equals_one_session(cuda_device):
                       device="cuda").search(Q, 10)
     assert all(r.done and r.certified and r.coverage == 1.0 for r in done)
     np.testing.assert_array_equal(np.stack([r.ids for r in done]), want.ids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["lb", "adsampling"])
+def test_dco_scan_at_the_mesh_shard_block(cuda_device, kind):
+    """The row block of a 500,000-row mesh shard (4,000 rows: the last
+    256-row tile holds 160) at the engine's block_n = 256: the four
+    outputs equal the plain version's bit for bit."""
+    n, q, d1 = 4000, 16, 128
+    rng = np.random.default_rng(_seed("cuda-shard-block", kind))
+    x = rng.integers(-4, 5, (n, d1)).astype(np.float32)
+    qq = rng.integers(-4, 5, (q, d1)).astype(np.float32)
+    tau = rng.uniform(d1 * 2.0, d1 * 10.0, q).astype(np.float32)
+    sc = ref.make_dco_scales(kind, d1, 128, D=2 * d1, device=cuda_device)
+    xt, qt, taut = _t(x, qq, tau, device=cuda_device)
+    nr = torch.tensor([n], dtype=torch.int32, device=cuda_device)
+    got = ops.dco_scan_op(xt, qt, taut, sc, nr, block_n=256)
+    want = dco_mod.dco_scan_plain(xt, qt, taut, sc, ops._widths(
+        d1, 128, cuda_device), nr, block_n=256, block_d=128)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["PDScanning+", "DDCres", "DADE"])
+def test_nccl_world_one_mesh_equals_one_device(cuda_device, method):
+    """A 1 x 1 mesh of a one-rank NCCL group (the exchange on device
+    tensors) gives the single-device session's ids and distances."""
+    import torch.distributed as dist
+    from repro_torch.api import SchedulePolicy, open_index
+    from repro_torch.launch import make_host_mesh
+    rng = np.random.default_rng(_seed("cuda-nccl", method))
+    X = rng.normal(size=(3000, 64)).astype(np.float32)
+    Q = rng.normal(size=(13, 64)).astype(np.float32)
+    pol = SchedulePolicy(d1=32, query_chunk=8)
+    want = open_index(X, method=method, schedule=pol).search(Q, 10)
+    mesh = make_host_mesh(1, 1, device_type="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        sess = open_index(X, method=method, schedule=pol, mesh=mesh)
+        got = sess.search(Q, 10)
+        again = sess.search(Q, 10)      # the cached shard graphs
+    finally:
+        dist.destroy_process_group()
+    assert sess.backend.device.type == "cuda"
+    np.testing.assert_array_equal(got.ids, want.ids)
+    np.testing.assert_allclose(got.dists, want.dists, rtol=1e-5)
+    np.testing.assert_array_equal(again.ids, got.ids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dco_attention_on_the_card_matches_cpu(cuda_device, dtype):
+    """The screened and the exact decode attention on the card against
+    the same functions on the CPU, ragged cur_len, GQA 4:1."""
+    from repro_torch.serving import (dco_decode_attention,
+                                     exact_decode_attention, fit_key_rotation)
+    rng = np.random.default_rng(_seed("cuda-attention"))
+    B, S, Hkv, G, hd = 2, 2048, 2, 4, 64
+    scale = (np.arange(1, hd + 1) ** -0.7).astype(np.float32)
+    k = (rng.standard_normal((B, S, Hkv, hd)) * scale).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, hd)).astype(np.float32)
+    q = (rng.standard_normal((B, Hkv * G, hd)) * scale).astype(np.float32)
+    rot = torch.from_numpy(fit_key_rotation(k.reshape(-1, hd)))
+    k_rot = torch.einsum("bshd,de->bshe", torch.from_numpy(k), rot)
+    cur = np.array([1500, 2048], np.int32)
+    cpu = [torch.from_numpy(q).to(dtype), k_rot.to(dtype),
+           torch.from_numpy(v).to(dtype)]
+    card = [t.to(cuda_device) for t in cpu]
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    got = dco_decode_attention(*card, rot.to(cuda_device), cur, d1=16,
+                               cap=256)
+    want = dco_decode_attention(*cpu, rot, cur, d1=16, cap=256)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), rtol=tol, atol=tol)
+    cpu[1] = torch.from_numpy(k).to(dtype)
+    got = exact_decode_attention(card[0], cpu[1].to(cuda_device), card[2], cur)
+    want = exact_decode_attention(*cpu, cur)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), rtol=tol, atol=tol)

@@ -234,11 +234,25 @@ def test_adaptive_ivf_matches_reference(sift_small):
 
 
 def test_adaptive_mesh_rejected(sift_small):
-    """The mesh path is not ported (ROADMAP A7): an adaptive schedule with
-    a mesh is refused, naming the item."""
-    with pytest.raises(NotImplementedError, match="A7"):
-        open_index(sift_small.X[:512], method="PDScanning+", device="cpu",
-                   mesh=object(), schedule=SchedulePolicy(adaptive=True))
+    """The adaptive policy is single-device: on a mesh (a 1 x 1 mesh of a
+    one-rank gloo group) it raises the reference's ValueError, with its
+    message."""
+    import torch.distributed as dist
+    from repro.launch.mesh import make_host_mesh as jax_mesh
+    from repro_torch.launch import make_host_mesh
+    X = sift_small.X[:512]
+    with pytest.raises(ValueError) as want:
+        jax_open_index(X, method="PDScanning+", backend="jax",
+                       mesh=jax_mesh(1, 1),
+                       schedule=JaxPolicy(adaptive=True))
+    mesh = make_host_mesh(1, 1, device_type="cpu")
+    try:
+        with pytest.raises(ValueError) as got:
+            open_index(X, method="PDScanning+", device="cpu", mesh=mesh,
+                       schedule=SchedulePolicy(adaptive=True))
+    finally:
+        dist.destroy_process_group()
+    assert str(got.value) == str(want.value)
 
 
 # ---------------------------------------------------------------------------
