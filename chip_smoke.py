@@ -10,7 +10,22 @@ Phases, one JSON line each:
               at the main path's launch shapes (and dco_scan at a mesh
               shard's 4,000-row block), and the grouped kernel at G = 1
               against the flat one;
-  4. graph    PDScanning+ fitted on the 1M corpus below: the engine's
+  4. lm       the LM serving path (repro_torch.models, ServingEngine) on
+              Qwen3-4B at its published widths and depth, random bf16
+              weights from a seed (8.05 GB, made on the card a tensor at a
+              time): decode token by token against the full forward pass
+              (prefill) over every prefix of 2 x 24 tokens (logits, K/V,
+              greedy ids where the margin is clear), the smoke config on
+              the card against the same weights on the CPU, the engine
+              (8 slots, max_len 1,024) over 32 seeded requests of 16-128
+              prompt tokens and 64 new (walls, tokens/s, step ms from CUDA
+              events, bytes a step and its bound), then decode
+              steps over a 32,768-position cache at batch 8 (decode_32k
+              cut from batch 128); it runs before any CUDA graph or
+              profiler session of the process (both slow every later
+              eager launch), and its profiled steps run last
+              (lm_profile);
+  5. graph    PDScanning+ fitted on the 1M corpus below: the engine's
               block walk run eagerly on the card (its walls taken first,
               before any CUDA graph of the process) against the walk
               captured once as a CUDA graph a query chunk and replayed
@@ -19,7 +34,7 @@ Phases, one JSON line each:
               the session served by the same graph; an arm at
               query_chunk = 100; and the top-k selection against the
               stable sort it replaced, on the engine's real score rows;
-  5. main     the flat streaming search at GIST1M shape (1M x 960 f32,
+  6. main     the flat streaming search at GIST1M shape (1M x 960 f32,
               100 queries, k = 10, the default SchedulePolicy) for
               PDScanning+ (dco_scan) and DDCopq (pq_lookup), with the
               kernels' launch counts over one batch, QPS, recall against a
@@ -27,10 +42,10 @@ Phases, one JSON line each:
               every stream session from here on: its timed batches replay
               the graph captured by its first batch, and no batch
               captures another;
-  6. pdx      the same PDScanning+ method, unrefitted, served from the PDX
+  7. pdx      the same PDScanning+ method, unrefitted, served from the PDX
               layout (SchedulePolicy(dim_groups=4), dco_scan_grouped) with
               the same record, its ids held against the flat path's;
-  7. ivf      an IVF index over the 1M corpus (n_list = 4096, the 4 sqrt(N)
+  8. ivf      an IVF index over the 1M corpus (n_list = 4096, the 4 sqrt(N)
               rule of Faiss's wiki for about 1M vectors; nprobe = 64) built
               on the host, served on the card by the same fitted
               PDScanning+ (flat: dco_scan; PDX: dco_scan_grouped) and
@@ -41,15 +56,15 @@ Phases, one JSON line each:
               ids held against the port's host IVF (IVFIndex.search through
               scan_topk) for every query, and 0 uncertified at the row
               block's budget;
-  8. delta    the LSM write path: PDScanning+ fitted on 1M - 4,096 rows,
+  9. delta    the LSM write path: PDScanning+ fitted on 1M - 4,096 rows,
               the last 4,096 added (the "delta" mode), its ids held against
               a freshly materialized session on the same method, the next
               add a "merge"; then an IVF delta at 100k rows (n_list = 64,
               nprobe = n_list) held against the host IVF;
-  9. two_stage the 1M PDScanning+ on engine="two_stage" (no kernel): QPS,
+ 10. two_stage the 1M PDScanning+ on engine="two_stage" (no kernel): QPS,
               recall, per-query survivors against its capacity, ids held
               against the streaming engine's where nothing was cut;
- 10. adaptive SchedulePolicy(adaptive=True) at 1M on the fitted
+ 11. adaptive SchedulePolicy(adaptive=True) at 1M on the fitted
               PDScanning+: the dataset's queries flat and PDX (ids held
               against the fixed session's, no dco_scan launch), 100 OOD
               queries (make_ood_queries, severity 1.0; ids held against an
@@ -57,58 +72,58 @@ Phases, one JSON line each:
               DDCopq (pq_lookup launches in the graph); each batch's six
               outputs and report held against the eager walk of the same
               chunks, fallback blocks, forced chunks, QPS;
- 11. anytime  the flat PDScanning+ at anytime_block_group = 8: the grouped
+ 12. anytime  the flat PDScanning+ at anytime_block_group = 8: the grouped
               walk eagerly and as a graph a group span, a 60 s deadline
               (outputs equal to the non-deadline batch, coverage 1.0,
               launches, syncs) and a 10 ms one (coverage in (0, 1), every
               query uncertified, within the full wall plus one group);
               one 60 s batch on the PDX layout;
- 12. host     backend="host" (the numpy scan) over the first 100k rows
+ 13. host     backend="host" (the numpy scan) over the first 100k rows
               with 10 queries, its ids held against the torch backend's;
-              HNSW built on the first 3,000 rows with FDScanning and
+              HNSW built on the first 2,000 rows with FDScanning and
               PDScanning+ (build seconds, DCOs and dims scanned), recall@10
               of its walk;
- 13. guardrails an 18-batch "recovering" drift scenario at 100k through a
+ 14. guardrails an 18-batch "recovering" drift scenario at 100k through a
               guarded PDScanning+ session: the breaker opens during the
               drift, every demoted batch gives an FDScanning session's
               ids, and it closes again after;
- 14. serving  the serving front (SearchService(slots=16, k=10)) over a
-              fixed PDScanning+ session on the first 991,808 rows, with the
+ 15. serving  the serving front (SearchService(slots=16, k=10)) over a
+              fixed PDScanning+ session on the first 994,880 rows, with the
               fitted PCA: its capacity calibrated on the session itself
               (steady step, one 1,024-row add and the stall of the step
               after it, split into the delta build and the capture), then
-              400 Poisson arrivals at 0.7 of that capacity in simulated
+              250 Poisson arrivals at 0.7 of that capacity in simulated
               time (the measured walls of the real steps), one 1,024-row
-              insert every 50 requests (8 inserts in all, the 5th a
+              insert every 50 requests (5 inserts in all, the 5th a
               merge): every ticket served, certified and exact against the
               rows visible when it was served; latency percentiles,
               sustained QPS, graphs captured (one, and one a write),
               dco_scan launches a step, device bytes after the last write;
- 15. serving_overload the grown session at 2x its steady capacity,
+ 16. serving_overload the grown session at 2x its steady capacity,
               max_queue 64, shed_oldest, a deadline of 4 steady steps (the
               anytime spans captured first): every ticket done, shed or
               timed out, partial answers uncertified, full certified ones
               exact;
- 16. serving_ood the adaptive PDScanning+ session at 1M behind the service,
+ 17. serving_ood the adaptive PDScanning+ session at 1M behind the service,
               a 50/50 interleave of the dataset's and OOD queries at 0.7 of
               its own capacity: per class p50/p99, fallback blocks, every
               answer exact and certified, no dco_scan launch;
- 17. replica  shard mode over the 1M corpus in 3 sessions (healthy: the flat
+ 18. replica  shard mode over the 1M corpus in 3 sessions (healthy: the flat
               session's ids; shard 1 dead: coverage 2/3, uncertified, the
               live shards' top-10; revived: full answers again), then
               replicate mode over 3 sessions of the first 100k rows (a slow
               replica hedged; replica 0 killed after 5 dispatches,
               ejected, revived through half-open), virtual and real walls
               and the tier's counters;
- 18. persist  a card session at 95,904 rows saved, three 1,024-row adds in
+ 19. persist  a card session at 95,904 rows saved, three 1,024-row adds in
               the WAL, a fourth torn mid-frame, the session dropped and
               loaded back onto the card (the frames replayed "cold", no
               device work before the first search; the live ids, exact), a
               bit-flipped snapshot refused;
- 19. rules    all 8 methods at 100k x 960 with the same queries, and each
+ 20. rules    all 8 methods at 100k x 960 with the same queries, and each
               method that groups again at dim_groups = 4 (and PDScanning+
               on the inline R-cut path);
- 20. mesh     the sharded global top-k as rank processes on this card,
+ 21. mesh     the sharded global top-k as rank processes on this card,
               each rank ``chip_smoke.py --mesh-rank DIR BACKEND`` (file
               rendezvous, a deadline, killed past it): an NCCL group of
               two on one card refused before its initialisation; two gloo
@@ -123,7 +138,7 @@ Phases, one JSON line each:
               exchange on device tensors; every arm held against the same
               method on one card at the shard's row block, the exact rules
               against FDScanning's ids;
- 21. attention DCO-screened decode attention at Qwen3-4B's decode shapes
+ 22. attention DCO-screened decode attention at Qwen3-4B's decode shapes
               (B 8, 32 heads, 8 KV heads, head_dim 128, a 32,768-position
               bf16 cache, ragged cur_len): cap = S against exact
               attention, one sequence on the CPU against the card, CUDA-
@@ -132,7 +147,7 @@ Phases, one JSON line each:
               yardstick), the error, the softmax mass the top-C keeps, the
               bytes each reads by formula and the screened call's device
               operations under torch.profiler;
- 22. profile  for each 1M session (flat, PDX, DDCopq), served again from
+ 23. profile  for each 1M session (flat, PDX, DDCopq), served again from
               its fitted method: one batch under torch.profiler (device
               operations, zero fills, CUDA runtime calls, device-busy share
               against the phase's unprofiled wall), then its kernel's time
@@ -153,7 +168,11 @@ Phases, one JSON line each:
               later phases.  The IVF flat sessions (at both completion
               budgets), the two-stage session and the adaptive arms (in
               distribution, OOD beside the fixed screen, DDCopq) are
-              profiled too, without a kernel timing.
+              profiled too, without a kernel timing;
+ 24. lm_profile the lm phase's steps under torch.profiler on the same
+              seeded weights: three engine-shaped steps and one over the
+              32,768-position cache (launches a step, device ms, busy
+              share against the lm phase's unprofiled step, top ops).
 Then the kernel table (with each kernel's launches a batch on the main,
 IVF, adaptive and anytime paths, a 16-query step of the serving arm and,
 for dco_scan, a rank's batch on the 2-rank mesh),
@@ -163,6 +182,7 @@ or without the repo beside it, it prints no result and exits nonzero.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -188,7 +208,9 @@ DELTA_ROWS = 4096                # SchedulePolicy.delta_merge_threshold
 #: rows).  The default budget's share is logged beside it.
 IVF_BLOCK_CAPACITY = 4096
 HOST_QUERIES = 10                # the numpy scan takes about 1 s a query
-HNSW_ROWS = 3000                 # a graph built row by row in Python
+#: a graph built row by row in Python (3,000 rows before the lm phase
+#: came; cut for the run's time limit)
+HNSW_ROWS = 2000
 HNSW_PARAMS = {"m": 16, "ef_construction": 100}
 HNSW_EF = 64
 GRAPH_PAIRS = 5                  # interleaved eager / graph batches
@@ -204,10 +226,12 @@ DRIFT_BATCHES = 18               # thirds: in distribution, OOD, back
 DRIFT_GUARDRAIL = dict(min_dwell=2, trip_after=2, promote_after=2,
                        audit_rate=0.25, audit_batch=4)
 SERVE_SLOTS = 16                 # SearchService(slots=16): one query chunk
-SERVE_REQUESTS = 400
+#: 400 requests and 8 inserts before the lm phase came; cut for the
+#: run's time limit, keeping an insert every 50 requests and the merge at
+#: the 5th insert
+SERVE_REQUESTS = 250
 SERVE_INSERT_EVERY = 50          # an insert every 50 requests
 SERVE_INSERT_ROWS = 1024
-SERVE_INSERTS = 8                # the first in the calibration, 7 in the run
 LAMBDA_FRACTION = 0.7            # offered load / calibrated capacity
 OVERLOAD_FACTOR = 2.0
 OVERLOAD_QUEUE = 64
@@ -1934,13 +1958,13 @@ def calibrate(svc, pool, chunk=None):
 
 def phase_serving(X, Q, d2, pdsp, dev):
     """The serving front at 1M (A6): PDScanning+ (fixed policy) on the
-    first N - SERVE_INSERTS x SERVE_INSERT_ROWS rows with the fitted PCA
-    of ``pdsp``, SearchService(slots=16, k=10); capacity calibrated on the
-    session with the first insert chunk, then SERVE_REQUESTS Poisson
-    arrivals at LAMBDA_FRACTION of it with one insert every
-    SERVE_INSERT_EVERY requests.  Every ticket must be served, certified
-    and exact against the rows visible when it was served.  Returns the
-    grown session and the record."""
+    first N rows less the inserted ones (SERVE_INSERT_ROWS each), with
+    the fitted PCA of ``pdsp``, SearchService(slots=16, k=10); capacity
+    calibrated on the session with the first insert chunk, then
+    SERVE_REQUESTS Poisson arrivals at LAMBDA_FRACTION of it with one
+    insert every SERVE_INSERT_EVERY requests.  Every ticket must be
+    served, certified and exact against the rows visible when it was
+    served.  Returns the grown session and the record."""
     import weakref
 
     import numpy as np
@@ -1951,10 +1975,13 @@ def phase_serving(X, Q, d2, pdsp, dev):
 
     t_phase = time.perf_counter()
     n = X.shape[0]
-    n_base = n - SERVE_INSERTS * SERVE_INSERT_ROWS
+    # one insert in the calibration, then one every SERVE_INSERT_EVERY
+    # requests of the run
+    insert_at = range(SERVE_INSERT_EVERY, SERVE_REQUESTS, SERVE_INSERT_EVERY)
+    n_base = n - (len(insert_at) + 1) * SERVE_INSERT_ROWS
     chunks = [X[n_base + j * SERVE_INSERT_ROWS:
                 n_base + (j + 1) * SERVE_INSERT_ROWS]
-              for j in range(SERVE_INSERTS)]
+              for j in range(len(insert_at) + 1)]
     t0 = time.perf_counter()
     m = make_method("PDScanning+", pca=pdsp.state["pca"]).fit(X[:n_base])
     fit_s = time.perf_counter() - t0
@@ -1962,8 +1989,7 @@ def phase_serving(X, Q, d2, pdsp, dev):
     svc = sess.serve(slots=SERVE_SLOTS, k=K)
     be = sess.backend
     steady, stall, cal = calibrate(svc, Q, chunks[0])
-    inserts = [(ridx, chunks[j + 1]) for j, ridx in enumerate(
-        range(SERVE_INSERT_EVERY, SERVE_REQUESTS, SERVE_INSERT_EVERY))]
+    inserts = [(ridx, chunks[j + 1]) for j, ridx in enumerate(insert_at)]
     # the inserts whose delta passes the merge threshold: the step after
     # them lays the whole corpus out again, as the calibration's first
     # step did
@@ -2908,6 +2934,390 @@ def phase_attention(dev):
     return rec
 
 
+# -------------------------------------------------------------------- lm ---
+LM_ARCH = "qwen3-4b"
+LM_SEED = 20
+#: the engine arm and the long-cache arm (Qwen3-4B's decode_32k shape,
+#: SHAPES in configs/base.py, cut from batch 128 to 8 to fit one card);
+#: the CPU rehearsal runs the same code at the smoke config and toy sizes
+LM_SIZES = {
+    "card": dict(slots=8, max_len=1024, requests=32, max_new=64,
+                 prompt=(16, 128), long_b=8, long_len=32_768,
+                 long_min=30_000, long_steps=5),
+    "cpu": dict(slots=4, max_len=64, requests=6, max_new=8, prompt=(4, 16),
+                long_b=2, long_len=256, long_min=200, long_steps=2),
+}
+LM_CHECK_B, LM_CHECK_S = 2, 24   # decode against prefill at full width
+LM_SMOKE_STEPS = 12              # the card against the CPU
+#: the reference's own prefill-against-decode tolerance
+#: (tests/test_models.py), loose; the measured gap is logged beside it
+LM_RTOL, LM_ATOL = 0.15, 0.2
+#: tests/test_torch_models.py's tolerance (port against reference on the
+#: CPU), relative to max |logits| or max |K|
+LM_TOL = 4e-2
+LM_PROFILE_STEPS = 3
+
+
+def rel_gap(ref, got) -> float:
+    """max |got - ref| over max |ref|, both widened to f32 on the host."""
+    ref, got = ref.float().cpu(), got.float().cpu()
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def device_profile(prof, steps: int) -> dict:
+    """Per step: device kernels (apart from copies and fills), copies and
+    fills, CUDA runtime launch calls, device ms; the top 5 device ops."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = memops = runtime = 0
+    dev_us = 0.0
+    top = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == cuda:
+            us = getattr(e, "self_device_time_total", 0)
+            dev_us += us
+            if e.key.startswith(("Memcpy", "Memset")):
+                memops += e.count
+            else:
+                kernels += e.count
+            top.append((us, e.count, e.key[:70]))
+        elif e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel",
+                               "cudaMemcpy", "cudaMemset")):
+            runtime += e.count
+    top.sort(reverse=True)
+    return {"device_kernels_per_step": kernels / steps,
+            "device_copies_fills_per_step": memops / steps,
+            "runtime_launch_calls_per_step": runtime / steps,
+            "device_ms_per_step": dev_us / 1e3 / steps,
+            "top_device_ops": [{"name": n, "count": c, "ms": us / 1e3}
+                               for us, c, n in top[:5]]}
+
+
+@contextlib.contextmanager
+def f32_accumulation():
+    """bf16 GEMMs accumulate in f32, as the reference's dots do; the
+    setting is restored after."""
+    import torch
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = before
+
+
+def fill_long_cache(cfg, size, dev):
+    """The long-cache arm's (L, B, S, Hkv, hd) bf16 K and V, seeded
+    normal contents drawn on the card a layer at a time."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    shape = (cfg.n_layers, size["long_b"], size["long_len"],
+             cfg.n_kv_heads, cfg.hd)
+    cache = {key: torch.empty(shape, dtype=torch.bfloat16, device=dev)
+             for key in ("k", "v")}
+    for key in ("k", "v"):
+        for layer in range(cfg.n_layers):
+            cache[key][layer].copy_(torch.randn(shape[1:], generator=gen,
+                                                device=dev))
+    return cache
+
+
+def phase_lm(dev):
+    """The LM serving path at Qwen3-4B's published widths and depth with
+    random bf16 weights from a seed: decode against the full forward pass,
+    the card against the CPU at the smoke config, the continuous-batching
+    engine over 32 requests, and decode steps over a 32,768-position
+    cache.  It runs before any CUDA graph or profiler session of the
+    process, which slow every later eager launch; its profiled steps are
+    phase_lm_profile's, at the end."""
+    t_phase = time.perf_counter()
+    card = on_card(dev)
+    with f32_accumulation():
+        return _phase_lm(dev, t_phase, card,
+                         LM_SIZES["card" if card else "cpu"])
+
+
+def _phase_lm(dev, t_phase, card, size):
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServingEngine
+
+    reduced = torch.backends.cuda.matmul.\
+        allow_bf16_reduced_precision_reduction
+    cfg = get_arch(LM_ARCH) if card else smoke_config(LM_ARCH)
+    api = build_model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=dev).manual_seed(LM_SEED))
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    tensors = list(params.parameters()) + list(params.buffers())
+    check(all(t.device.type == dev.type for t in tensors),
+          "lm: a model tensor is not on the card")
+
+    # (a), (b): decode token by token against the full forward pass over
+    # every prefix of the same 24 tokens
+    split_s = {}
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(LM_SEED)
+    toks = rng.integers(0, cfg.vocab, (LM_CHECK_B, LM_CHECK_S)
+                        ).astype(np.int32)
+    cache = api.init_cache(LM_CHECK_B, LM_CHECK_S)
+    gaps, rows, agree, clear, clear_agree, tight, tight_agree = \
+        [], 0, 0, 0, 0, 0, 0
+    for t in range(LM_CHECK_S):
+        dec, cache = api.decode_step(params, cache, toks[:, t], t + 1)
+        pre, pre_cache = api.prefill(params, {"tokens": toks[:, :t + 1]})
+        gaps.append(rel_gap(pre, dec))
+        check(torch.allclose(dec, pre, rtol=LM_RTOL, atol=LM_ATOL),
+              f"lm: decode differs from prefill at step {t} "
+              f"(max |d| {float((dec - pre).abs().max())})")
+        top2 = pre[:, :cfg.vocab].topk(2, -1).values
+        margin = top2[:, 0] - top2[:, 1]
+        same = pre[:, :cfg.vocab].argmax(-1) == dec[:, :cfg.vocab].argmax(-1)
+        ok = margin > LM_ATOL + LM_RTOL * top2[:, 0].abs()
+        check(bool(same[ok].all()), f"lm: greedy ids differ at step {t} "
+              "where prefill's top-2 margin exceeds the tolerance")
+        rows += int(same.numel())
+        agree += int(same.sum())
+        clear += int(ok.sum())
+        clear_agree += int(same[ok].sum())
+        # reported only: rows clear at the CPU tests' tolerance
+        ok = margin > LM_TOL * pre.abs().amax(-1)
+        tight += int(ok.sum())
+        tight_agree += int(same[ok].sum())
+    kv_gap = {}
+    for key in ("k", "v"):
+        check(torch.allclose(cache[key].float(), pre_cache[key].float(),
+                             rtol=LM_RTOL, atol=LM_ATOL),
+              f"lm: the decoded {key} cache differs from prefill's")
+        kv_gap[key] = rel_gap(pre_cache[key], cache[key])
+    check_a = {"steps": LM_CHECK_S, "batch": LM_CHECK_B,
+               "rtol": LM_RTOL, "atol": LM_ATOL,
+               "max_rel_logit_gap": max(gaps), "tests_tol": LM_TOL,
+               "within_tests_tol": max(gaps) < LM_TOL,
+               "k_rel_gap": kv_gap["k"], "v_rel_gap": kv_gap["v"],
+               "argmax_rows": rows, "argmax_agree": agree,
+               "clear_margin_rows": clear, "clear_margin_agree": clear_agree,
+               "tests_tol_margin_rows": tight,
+               "tests_tol_margin_agree": tight_agree}
+    del cache, pre_cache
+    split_s["check_a_b"] = time.perf_counter() - t0
+
+    # (c): the smoke config on the card against the same weights on the
+    # CPU, per-slot lengths, the logits every step and the caches after
+    t0 = time.perf_counter()
+    scfg = smoke_config(LM_ARCH)
+    cpu_api = build_model(scfg, device="cpu")
+    cpu_params = cpu_api.init(torch.Generator().manual_seed(LM_SEED))
+    s_api = build_model(scfg, device=dev)
+    s_params = copy.deepcopy(cpu_params).to(dev)
+    stoks = rng.integers(0, scfg.vocab, (2, LM_SMOKE_STEPS)).astype(np.int32)
+    c_cache = cpu_api.init_cache(2, LM_SMOKE_STEPS + 4)
+    s_cache = s_api.init_cache(2, LM_SMOKE_STEPS + 4)
+    smoke_gap = 0.0
+    for t in range(LM_SMOKE_STEPS):
+        lens = np.array([t + 1, max(t - 2, 1)], np.int32)
+        want, c_cache = cpu_api.decode_step(cpu_params, c_cache, stoks[:, t],
+                                            lens)
+        got, s_cache = s_api.decode_step(s_params, s_cache, stoks[:, t], lens)
+        smoke_gap = max(smoke_gap, rel_gap(want, got))
+    smoke_k = rel_gap(c_cache["k"], s_cache["k"])
+    smoke_v = rel_gap(c_cache["v"], s_cache["v"])
+    check(smoke_gap < LM_TOL and smoke_k < LM_TOL and smoke_v < LM_TOL,
+          f"lm: the card differs from the CPU at the smoke config "
+          f"({smoke_gap}, {smoke_k}, {smoke_v})")
+    del cpu_params, s_params, c_cache, s_cache
+    split_s["check_c"] = time.perf_counter() - t0
+
+    # the engine arm: 32 seeded requests through 8 slots; each decode
+    # call between CUDA events (its device span) and on the host clock
+    # (call to call: the step with the logits' copy and the argmax)
+    reqs = [Request(i, rng.integers(0, cfg.vocab,
+                                    int(rng.integers(size["prompt"][0],
+                                                     size["prompt"][1] + 1))
+                                    ).astype(np.int32), size["max_new"])
+            for i in range(size["requests"])]
+    eng = ServingEngine(api, slots=size["slots"], max_len=size["max_len"])
+    inner, events, starts, issues = eng.decode, [], [], []
+
+    def timed(*args):
+        starts.append(time.perf_counter())
+        if card:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        out = inner(*args)
+        issues.append(time.perf_counter() - starts[-1])
+        if card:
+            ev[1].record()
+            events.append(ev)
+        return out
+
+    eng.decode = timed
+    t0 = time.perf_counter()
+    out = eng.run(params, reqs)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    check(sorted(out) == list(range(size["requests"])),
+          "lm: the engine did not serve every request")
+    for r in reqs:       # (d) the reference's stopping rule
+        check(len(out[r.rid]) == r.max_new
+              or len(r.prompt) + len(out[r.rid]) >= size["max_len"] - 1,
+              f"lm: request {r.rid} stopped early ({len(out[r.rid])})")
+    generated = sum(len(v) for v in out.values())
+    host_ms = np.diff(starts) * 1e3
+    step_ms = (np.array([a.elapsed_time(b) for a, b in events]) if card
+               else host_ms)
+    cache_bytes = 2 * (cfg.n_layers * size["slots"] * size["max_len"]
+                       * cfg.n_kv_heads * cfg.hd * 2)
+    step_bytes = weight_bytes + cache_bytes
+    n_params = sum(p.numel() for p in params.parameters())
+    engine = {
+        "slots": size["slots"], "max_len": size["max_len"],
+        "requests": size["requests"], "served": len(out),
+        "max_new": size["max_new"], "prompt_tokens": int(
+            sum(len(r.prompt) for r in reqs)),
+        "generated_tokens": generated, "engine_wall_s": wall,
+        "generated_tokens_per_s": generated / wall,
+        "decode_steps": len(starts),
+        "step_ms_median": float(np.median(step_ms)),
+        "step_ms_p90": float(np.quantile(step_ms, 0.9)),
+        "host_step_ms_median": float(np.median(host_ms)),
+        "host_step_ms_p90": float(np.quantile(host_ms, 0.9)),
+        "host_issue_ms_median": float(np.median(issues) * 1e3),
+        "kv_cache_bytes": cache_bytes, "step_bytes": step_bytes,
+        "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+        "step_flop_bound_ms": 2 * n_params * size["slots"]
+        / BF16_FLOP_PER_S * 1e3,
+    }
+    del eng
+
+    # the long-cache arm: decode steps over a 32,768-position cache at
+    # batch 8 holding seeded contents, lengths in [30,000, 32,768]
+    t0 = time.perf_counter()
+    B, S = size["long_b"], size["long_len"]
+    cache = fill_long_cache(cfg, size, dev)
+    long_cache_bytes = sum(t.numel() * t.element_size()
+                           for t in cache.values())
+    sync(dev)
+    split_s["long_fill"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cur = rng.integers(size["long_min"], S - size["long_steps"],
+                       B).astype(np.int32)
+    long_ms, long_host_ms, finite = [], [], True
+    for i in range(size["long_steps"] + 1):       # the first warms up
+        tok = rng.integers(0, cfg.vocab, B).astype(np.int32)
+        if card:
+            a, b = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            a.record()
+        t_step = time.perf_counter()
+        logits, cache = api.decode_step(params, cache, tok, cur + i)
+        issued = time.perf_counter() - t_step
+        if card:
+            b.record()
+            b.synchronize()
+        if i:
+            long_host_ms.append([issued * 1e3,
+                                 (time.perf_counter() - t_step) * 1e3])
+            long_ms.append(a.elapsed_time(b) if card
+                           else long_host_ms[-1][1])
+        finite &= bool(torch.isfinite(logits).all())
+    check(finite, "lm: non-finite logits over the long cache")
+    check(all(t.device.type == dev.type for t in cache.values()),
+          "lm: the long KV cache is not on the card")
+    long_bytes = weight_bytes + long_cache_bytes
+    long = {"batch": B, "max_len": S,
+            "cur_len_first": cur.tolist(), "steps": size["long_steps"],
+            "step_ms": long_ms, "step_ms_median": float(np.median(long_ms)),
+            "host_issue_and_wall_ms": long_host_ms,
+            "kv_cache_bytes": long_cache_bytes, "step_bytes": long_bytes,
+            "step_bound_ms": long_bytes / HBM_BYTES_PER_S * 1e3,
+            "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
+                                  if card else 0)}
+    del cache, logits
+    free_card(dev)
+    split_s["long"] = time.perf_counter() - t0
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_params": n_params,
+           "weight_bytes": weight_bytes,
+           "bf16_reduced_precision_reduction": reduced,
+           "init_s": init_s, "check_decode_vs_prefill": check_a,
+           "check_card_vs_cpu": {"steps": LM_SMOKE_STEPS, "tol": LM_TOL,
+                                 "max_rel_logit_gap": smoke_gap,
+                                 "k_rel_gap": smoke_k, "v_rel_gap": smoke_v},
+           "engine": engine, "long_cache": long,
+           "split_s": split_s, "phase_s": time.perf_counter() - t_phase}
+    log("lm", **rec)
+    return rec
+
+
+def phase_lm_profile(dev, rec):
+    """The lm phase's steps under torch.profiler, after every wall of the
+    run, on the same seeded weights: three engine-shaped steps (8 slots,
+    max_len 1,024, ragged lengths, each followed by the logits' copy to
+    the host) and one step over the 32,768-position cache; device
+    kernels, copies and launches a step, device ms, the busy share against
+    the lm phase's unprofiled step, the top 5 device ops."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    card = on_card(dev)
+    size = LM_SIZES["card" if card else "cpu"]
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if card else [])
+    rng = np.random.default_rng(LM_SEED + 2)
+    cfg = get_arch(LM_ARCH) if card else smoke_config(LM_ARCH)
+    out = {}
+    with f32_accumulation():
+        api = build_model(cfg, device=dev)
+        params = api.init(torch.Generator(device=dev).manual_seed(LM_SEED))
+        for arm, B, S in (("engine", size["slots"], size["max_len"]),
+                          ("long_cache", size["long_b"], size["long_len"])):
+            if arm == "engine":
+                cache, steps = api.init_cache(B, S), LM_PROFILE_STEPS
+                lens = rng.integers(1, S - steps - 1, B).astype(np.int32)
+            else:
+                cache, steps = fill_long_cache(cfg, size, dev), 1
+                lens = rng.integers(size["long_min"], S - steps - 1,
+                                    B).astype(np.int32)
+            tok = rng.integers(0, cfg.vocab, B).astype(np.int32)
+            logits, cache = api.decode_step(params, cache, tok, lens)
+            sync(dev)
+            with profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                for i in range(steps):
+                    logits, cache = api.decode_step(params, cache, tok,
+                                                    lens + 1 + i)
+                    np.asarray(logits.cpu())
+                wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+            check(all(t.device.type == dev.type for t in cache.values()),
+                  f"lm_profile: the {arm} KV cache is not on the card")
+            got = device_profile(prof, steps)
+            unprofiled = (rec["engine"]["host_step_ms_median"]
+                          if arm == "engine"
+                          else rec["long_cache"]["step_ms_median"])
+            out[arm] = dict(got, steps=steps, profiled_step_ms=wall_ms,
+                            unprofiled_step_ms=unprofiled,
+                            device_busy_share=got["device_ms_per_step"]
+                            / unprofiled)
+            del cache, logits
+            free_card(dev)
+    log("lm_profile", **out, phase_s=time.perf_counter() - t_phase)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2943,6 +3353,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_parity(dev)
     log("parity_done", seconds=time.perf_counter() - t0)
+    # A9: the LM serving path's walls, before any CUDA graph or profiler
+    # session of the process; its profiled steps come last
+    lm_rec = phase_lm(dev)
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     ds = load_dataset("gist", scale=N_MAIN / 30_000)
@@ -3108,6 +3522,11 @@ def main() -> int:
         res = sess.search(Q, K)                 # materializes the layout
         log("profile", method=rec["method"], dim_groups=rec["dim_groups"],
             **profile_batch(sess, Q, float(np.median(rec["search_walls_s"]))))
+        if kernel == "dco_scan":    # the fixed screen on the OOD batch
+            sess.search(Qo, K)
+            log("profile", method="PDScanning+", label="fixed_ood",
+                **profile_batch(sess, Qo, float(np.median(
+                    ada_recs["ood"]["fixed"]["search_walls_s"]))))
         rows[kernel] = dict(launches=rec["launches_per_batch"][kernel],
                             **timer(sess, Q, res, dev))
         del sess, res
@@ -3131,20 +3550,25 @@ def main() -> int:
     # the adaptive arms: the switching walk (in distribution), the
     # full-scan body (OOD) beside the fixed screen and FDScanning on the
     # same OOD batch, and DDCopq's switching walk with pq_lookup
+    # (one adaptive session serves both PDScanning+ batches)
     ada = SchedulePolicy(adaptive=True)
+    sess = None
     for label, fitted, schedule, Qx, rec in (
             ("adaptive_id", pdsp, ada, Q, ada_recs["id"]),
             ("adaptive_ood", pdsp, ada, Qo, ada_recs["ood"]),
-            ("fixed_ood", pdsp, SchedulePolicy(), Qo, ada_recs["ood"]["fixed"]),
             ("adaptive_ddcopq", opq, ada, Q, ada_recs["ddcopq"])):
-        sess = SearchSession(fitted, schedule, device=dev)
+        if sess is None or sess.method is not fitted:
+            sess = None
+            torch.cuda.empty_cache()
+            sess = SearchSession(fitted, schedule, device=dev)
         sess.search(Qx, K)                      # materializes the layout
         log("profile", method=rec["method"], label=label,
             **profile_batch(sess, Qx,
                             float(np.median(rec["search_walls_s"]))))
-        del sess
-        torch.cuda.empty_cache()
+    del sess
+    torch.cuda.empty_cache()
     log("profile_done", seconds=time.perf_counter() - t0)
+    phase_lm_profile(dev, lm_rec)
 
     # launches on the IVF, adaptive, anytime and serving paths of each
     # kernel, beside the main path's

@@ -105,7 +105,7 @@ def resolve_device(device=None, mesh=None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "the torch backend runs on a CUDA device and none is available; "
+            "device=None runs on a CUDA device and none is available; "
             "pass device='cpu' to run the plain PyTorch versions on the CPU")
     if mesh is not None and mesh.device_type != dev.type:
         raise ValueError(f"a {mesh.device_type!r} mesh cannot serve a "

@@ -1,7 +1,8 @@
 """Carry fitted state across from the reference package.
 
-For this system the "weights" are a fitted DCO method's state.  These
-helpers copy it duck-typed — by attribute and array protocol — so the port
+For the search system the "weights" are a fitted DCO method's state; for
+the LM stack they are the model's parameter tree.  These helpers copy
+them duck-typed — by attribute, key and array protocol — so the port
 never imports the reference package.
 """
 from __future__ import annotations
@@ -9,7 +10,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.api.backends import resolve_device
 from repro_torch.core.methods import make_method
+from repro_torch.models.lm import DenseLM
 from repro_torch.search.ivf import IVFIndex
 
 
@@ -47,3 +50,37 @@ def index_from_reference(ref_index) -> IVFIndex:
     idx.lists = [np.array(lst, np.int64) for lst in ref_index.lists]
     idx.n = int(ref_index.n)
     return idx
+
+
+def params_from_reference(cfg, ref_params, device=None) -> DenseLM:
+    """The port's dense or VLM decoder (``DenseLM``) on ``device``
+    (default: the CUDA card) holding ``ref_params``, the reference's
+    parameter tree for ``cfg``: a dict with ``embed``, ``final_norm``,
+    ``layers`` (every leaf stacked over a leading (L, ...) axis; ``n1``
+    and ``n2`` None for the non-parametric norm) and, untied, ``lm_head``,
+    read through ``np.asarray``.  Matmul weights and the embedding are
+    rounded once to bf16, the gains kept f32, so both packages compute on
+    the same numbers."""
+    model = DenseLM(cfg, None, device=resolve_device(device))
+    if ("lm_head" in ref_params) == bool(cfg.tie_embeddings):
+        raise ValueError(f"lm_head in the reference tree does not fit "
+                         f"tie_embeddings={cfg.tie_embeddings}")
+    stacked: dict = {}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            parts = name.split(".")
+            if parts[0] == "layers":
+                path = tuple(parts[2:])
+                if path not in stacked:
+                    leaf = ref_params["layers"]
+                    for key in path:
+                        leaf = leaf[key]
+                    stacked[path] = np.array(leaf, np.float32)
+                src = stacked[path][int(parts[1])]
+            else:
+                src = np.array(ref_params[name], np.float32)
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: the reference holds {src.shape}, "
+                                 f"the model {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.ascontiguousarray(src)))
+    return model

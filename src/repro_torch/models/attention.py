@@ -1,0 +1,111 @@
+"""GQA/MQA attention module (projections + RoPE + qk_norm + cache).
+
+Counterpart of the reference package's ``models/attention.py``.  The
+decode path writes the new token's K/V into the caller's preallocated
+cache in place (``index_put_`` at each slot's ``cur_len - 1``) and
+returns that same cache.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.layers import (CDTYPE, _weight, apply_rope,
+                                       blockwise_attention, decode_attention,
+                                       dense_init, rms_norm, rope_table)
+
+
+class Attention(torch.nn.Module):
+    """``wq``, ``wk``, ``wv``, ``wo`` (d_in, d_out) bf16; ``q_gamma`` and
+    ``k_gamma`` (hd,) f32 with qk-norm; the RoPE frequencies as a
+    buffer."""
+
+    def __init__(self, cfg, gen=None, *, device=None):
+        super().__init__()
+        d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        self.wq = _weight(dense_init(gen, d, H * hd, device=device))
+        self.wk = _weight(dense_init(gen, d, Hkv * hd, device=device))
+        self.wv = _weight(dense_init(gen, d, Hkv * hd, device=device))
+        self.wo = _weight(dense_init(gen, H * hd, d, device=device))
+        if cfg.qk_norm:
+            self.q_gamma = _weight(torch.ones(hd, dtype=torch.float32,
+                                              device=device))
+            self.k_gamma = _weight(torch.ones(hd, dtype=torch.float32,
+                                              device=device))
+        self.register_buffer("freqs", rope_table(hd, cfg.rope_theta, device),
+                             persistent=False)
+
+
+def _qkv(params, cfg, xq, xkv, q_positions, *, rope: bool):
+    B, Sq, _ = xq.shape
+    Skv = xkv.shape[1]
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    xq_c, xkv_c = xq.to(CDTYPE), xkv.to(CDTYPE)
+    q = (xq_c @ params.wq).reshape(B, Sq, H, hd)
+    k = (xkv_c @ params.wk).reshape(B, Skv, Hkv, hd)
+    v = (xkv_c @ params.wv).reshape(B, Skv, Hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params.q_gamma)
+        k = rms_norm(k, params.k_gamma)
+    if rope:
+        kv_positions = (torch.arange(Skv, device=xq.device)[None, :]
+                        if Sq != Skv else q_positions)
+        q = apply_rope(q, q_positions, cfg.rope_theta, params.freqs)
+        k = apply_rope(k, kv_positions, cfg.rope_theta, params.freqs)
+    return q, k, v
+
+
+def attention_forward(params, cfg, x, *, kind="causal", prefix_len=0,
+                      memory=None, return_kv=False):
+    """Training / prefill path.  ``memory`` (B, Sm, D) switches to
+    cross-attention (no RoPE, full mask)."""
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device)[None, :]
+    if memory is None:
+        q, k, v = _qkv(params, cfg, x, x, pos, rope=True)
+    else:
+        q, k, v = _qkv(params, cfg, x, memory, pos, rope=False)
+        kind = "full"
+    out = blockwise_attention(q, k, v, kind=kind, prefix_len=prefix_len,
+                              block_q=cfg.attn_block_q,
+                              block_kv=cfg.attn_block_kv)
+    out = (out.reshape(B, S, -1).to(CDTYPE) @ params.wo).to(x.dtype)
+    return (out, (k, v)) if return_kv else out
+
+
+def attention_decode(params, cfg, x, cache, cur_len, *, cross=False):
+    """One-token decode.  ``cache`` = {'k','v'} (B, Smax, Hkv, hd) for self-
+    attention (written in place at cur_len-1) or static cross K/V
+    (read-only).  ``cur_len`` is a scalar or a (B,) int tensor on x's
+    device."""
+    B = x.shape[0]
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    xc = x.to(CDTYPE)
+    q = (xc @ params.wq).reshape(B, 1, H, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params.q_gamma)
+    if cross:
+        k_cache, v_cache = cache["k"], cache["v"]
+        out = decode_attention(q, k_cache, v_cache, k_cache.shape[1])
+    else:
+        idx = torch.as_tensor(cur_len, device=x.device).long().expand(B) - 1
+        pos = idx[:, None]
+        k = (xc @ params.wk).reshape(B, 1, Hkv, hd)
+        v = (xc @ params.wv).reshape(B, 1, Hkv, hd)
+        if cfg.qk_norm:
+            k = rms_norm(k, params.k_gamma)
+        q = apply_rope(q, pos, cfg.rope_theta, params.freqs)
+        k = apply_rope(k, pos, cfg.rope_theta, params.freqs)
+        # write at per-slot positions (cur_len may be scalar or (B,))
+        rows = torch.arange(B, device=x.device)
+        k_cache, v_cache = cache["k"], cache["v"]
+        k_cache.index_put_((rows, idx), k[:, 0].to(k_cache.dtype))
+        v_cache.index_put_((rows, idx), v[:, 0].to(v_cache.dtype))
+        out = decode_attention(q, k_cache, v_cache, cur_len)
+    out = (out.reshape(B, 1, -1).to(CDTYPE) @ params.wo).to(x.dtype)
+    return out, cache
+
+
+def init_kv_cache(cfg, batch, max_len, dtype=CDTYPE, *, device=None):
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,0 +1,288 @@
+"""Shared model layers: norms, RoPE, blockwise attention, MLPs.
+
+Counterpart of the reference package's ``models/layers.py`` in plain
+PyTorch (the reference computes all of it outside any Pallas kernel).
+
+Conventions:
+  * parameters live in ``nn.Module``s (``models/lm.py``); the functions
+    here take the module, or plain tensors, and read its attributes;
+  * matmul weights and the embedding are held in bf16 (``CDTYPE``), the
+    norm gains in f32; the reference casts its f32 weights to bf16 at
+    every use, and round-to-nearest-even makes the two the same numbers;
+  * attention scores and the P.V product are f32 results of bf16
+    operands (the reference's ``preferred_element_type=float32``): on a
+    CUDA tensor one ``torch.bmm(..., out_dtype=torch.float32)``, on the
+    CPU both operands widened to f32 first (a product of two bf16 values
+    is exact in f32); softmax in f32;
+  * attention is blockwise (online softmax over KV chunks) so a long
+    prefill never materializes an (S x S) score matrix;
+  * every init function takes an explicit ``torch.Generator``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+CDTYPE = torch.bfloat16    # compute dtype
+
+
+def dense_init(gen, d_in, d_out, scale=None, *, device=None):
+    """``N(0, 1) / sqrt(d_in)`` (or ``* scale``) drawn in f32 on ``gen``'s
+    device and rounded once to bf16; ``gen=None`` leaves the weight
+    uninitialised (it is about to be overwritten)."""
+    if gen is None:
+        return torch.empty(d_in, d_out, dtype=CDTYPE, device=device)
+    s = (1.0 / np.sqrt(d_in)) if scale is None else scale
+    w = torch.randn(d_in, d_out, generator=gen, dtype=torch.float32,
+                    device=device)
+    return (w * s).to(CDTYPE)
+
+
+def rms_norm(x, gamma=None, eps=1e-6):
+    x32 = x.to(torch.float32)
+    y = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    if gamma is not None:
+        y = y * gamma.to(torch.float32)
+    return y.to(x.dtype)
+
+
+def nonparam_layer_norm(x, eps=1e-6):
+    """OLMo-style non-parametric LayerNorm (no gain/bias)."""
+    x32 = x.to(torch.float32)
+    mu = x32.mean(-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def make_norm(cfg):
+    """(init, apply): ``init(d, device)`` gives the gain (f32 ones, or
+    None for the non-parametric norm), ``apply(gain, x)`` the norm."""
+    if cfg.nonparam_ln:
+        return (lambda d, device=None: None), \
+            (lambda p, x: nonparam_layer_norm(x))
+    return (lambda d, device=None: torch.ones(d, dtype=torch.float32,
+                                              device=device)), \
+        (lambda p, x: rms_norm(x, p))
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim, theta):
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+def rope_table(head_dim, theta, device=None):
+    """``rope_freqs`` in f32 on ``device``: a model holds it once, so a
+    decode step copies nothing from the host per layer."""
+    return torch.as_tensor(rope_freqs(head_dim, theta), dtype=torch.float32,
+                           device=device)
+
+
+def apply_rope(x, positions, theta, freqs=None):
+    """x (..., S, H, hd); positions (..., S).  Split-half rotation; the
+    angles are f32.  ``freqs`` is ``rope_table(hd, theta)`` if given."""
+    hd = x.shape[-1]
+    if freqs is None:
+        freqs = rope_table(hd, theta, x.device)
+    ang = positions[..., :, None].to(torch.float32) * freqs   # (...,S,hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# f32 products of bf16 operands
+# ---------------------------------------------------------------------------
+
+
+def _einsum_f32(eq, a, b):
+    """``einsum`` with f32 accumulation: the operands widened to f32."""
+    return torch.einsum(eq, a.to(torch.float32), b.to(torch.float32))
+
+
+def grouped_scores_upcast(qg, k):
+    """qg (B, Hkv, G, hd), k (B, S, Hkv, hd) -> (B, Hkv, G, S) f32, the
+    operands widened to f32 (the CPU form)."""
+    return _einsum_f32("bhgd,bshd->bhgs", qg, k)
+
+
+def grouped_mix_upcast(p, v):
+    """p (B, Hkv, G, S), v (B, S, Hkv, hd) -> (B, Hkv, G, hd) f32."""
+    return _einsum_f32("bhgs,bshd->bhgd", p, v)
+
+
+def _block_diagonal(qg):
+    """(B, Hkv, G, hd) -> (B, Hkv * G, Hkv * hd): row (h, g) holds q[h, g]
+    in column block h and zeros elsewhere."""
+    B, Hkv, G, hd = qg.shape
+    eye = torch.eye(Hkv, dtype=qg.dtype, device=qg.device)
+    return (qg[:, :, :, None, :] * eye[None, :, None, :, None]).reshape(
+        B, Hkv * G, Hkv * hd)
+
+
+def grouped_scores_bmm(qg, k):
+    """The CUDA form of ``grouped_scores_upcast``: one bf16 ``bmm`` with
+    an f32 result over each sequence's (S, Hkv * hd) keys, read in place.
+    The query is laid block-diagonally over the KV heads, so every score
+    is the same f32 sum of exact products plus exact zeros; no f32 copy
+    of the cache is made."""
+    B, Hkv, G, _ = qg.shape
+    S = k.shape[1]
+    s = torch.bmm(_block_diagonal(qg), k.reshape(B, S, -1).transpose(1, 2),
+                  out_dtype=torch.float32)
+    return s.view(B, Hkv, G, S)
+
+
+def grouped_mix_bmm(p, v):
+    """The CUDA form of ``grouped_mix_upcast``: one bf16 ``bmm`` of the
+    probabilities over every head's values with an f32 result, whose
+    diagonal head blocks are kept."""
+    B, Hkv, G, S = p.shape
+    hd = v.shape[-1]
+    r = torch.bmm(p.reshape(B, Hkv * G, S), v.reshape(B, S, Hkv * hd),
+                  out_dtype=torch.float32)
+    return torch.diagonal(r.view(B, Hkv, G, Hkv, hd), dim1=1,
+                          dim2=3).permute(0, 3, 1, 2)
+
+
+def grouped_scores(qg, k):
+    return grouped_scores_bmm(qg, k) if qg.is_cuda \
+        else grouped_scores_upcast(qg, k)
+
+
+def grouped_mix(p, v):
+    return grouped_mix_bmm(p, v) if p.is_cuda else grouped_mix_upcast(p, v)
+
+
+# ---------------------------------------------------------------------------
+# Blockwise attention (training / prefill)
+# ---------------------------------------------------------------------------
+
+
+def _mask(q_pos, kv_pos, kind, prefix_len):
+    if kind == "full":
+        return torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool,
+                          device=q_pos.device)
+    m = q_pos[:, None] >= kv_pos[None, :]
+    if kind == "prefix":   # bidirectional over the leading prefix tokens
+        m = m | (kv_pos[None, :] < prefix_len)
+    return m
+
+
+def _pick(S, target):
+    """largest divisor of S that is <= target."""
+    for b in range(min(target, S), 0, -1):
+        if S % b == 0:
+            return b
+    return S
+
+
+def blockwise_attention(q, k, v, *, kind="causal", prefix_len=0, q_offset=0,
+                        block_q=512, block_kv=1024, scale=None):
+    """q (B, Sq, H, hd); k/v (B, Skv, Hkv, hd).  Online-softmax over KV
+    chunks; memory is O(block_q * block_kv) per (batch, head)."""
+    B, Sq, H, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = scale if scale is not None else 1.0 / np.sqrt(hd)
+    block_q = _pick(Sq, block_q)
+    block_kv = _pick(Skv, block_kv)
+    nq, nk = Sq // block_q, Skv // block_kv
+    dev = q.device
+
+    qg = q.reshape(B, nq, block_q, Hkv, G, hd)
+    kg = k.reshape(B, nk, block_kv, Hkv, hd)
+    vg = v.reshape(B, nk, block_kv, Hkv, hd)
+    outs = []
+    for iq in range(nq):
+        qc = qg[:, iq]                                   # (B, bq, Hkv, G, hd)
+        q_pos = q_offset + iq * block_q + torch.arange(block_q, device=dev)
+        m_run = torch.full((B, Hkv, G, block_q), -torch.inf,
+                           dtype=torch.float32, device=dev)
+        l_run = torch.zeros((B, Hkv, G, block_q), dtype=torch.float32,
+                            device=dev)
+        acc = torch.zeros((B, Hkv, G, block_q, hd), dtype=torch.float32,
+                          device=dev)
+        for ik in range(nk):
+            kc, vc = kg[:, ik], vg[:, ik]                # (B, bk, Hkv, hd)
+            s = _einsum_f32("bqhgd,bkhd->bhgqk", qc, kc) * scale
+            kv_pos = ik * block_kv + torch.arange(block_kv, device=dev)
+            msk = _mask(q_pos, kv_pos, kind, prefix_len)
+            s = torch.where(msk, s, -torch.inf)
+            m_new = torch.maximum(m_run, s.amax(-1))
+            # guard fully-masked rows (m_new = -inf)
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.exp(s - m_safe[..., None])
+            p = torch.where(msk, p, 0.0)
+            corr = torch.where(torch.isfinite(m_run),
+                               torch.exp(m_run - m_safe), 0.0)
+            l_run = l_run * corr + p.sum(-1)
+            acc = acc * corr[..., None] + _einsum_f32(
+                "bhgqk,bkhd->bhgqd", p.to(vc.dtype), vc)
+            m_run = m_new
+        outs.append(acc / torch.clamp(l_run[..., None], min=1e-20))
+    out = torch.cat(outs, 3)                              # (B, Hkv, G, Sq, hd)
+    return out.reshape(B, H, Sq, hd).transpose(1, 2).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cur_len, *, scale=None):
+    """Single-step decode: q (B, 1, H, hd); caches (B, Smax, Hkv, hd);
+    cur_len (B,) or scalar valid lengths (the new token is at cur_len-1).
+    Attends over all Smax positions, -inf beyond cur_len."""
+    B, _, H, hd = q.shape
+    Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
+    scale = scale if scale is not None else 1.0 / np.sqrt(hd)
+    qg = q.reshape(B, Hkv, G, hd)
+    s = grouped_scores(qg, k_cache) * scale
+    n = torch.as_tensor(cur_len, device=q.device).reshape(-1, 1).expand(B, 1)
+    valid = torch.arange(Smax, device=q.device)[None, :] < n
+    s = torch.where(valid[:, None, None, :], s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    out = grouped_mix(p.to(v_cache.dtype), v_cache)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def _weight(w):
+    return torch.nn.Parameter(w, requires_grad=False)
+
+
+class MLP(torch.nn.Module):
+    """``wg``, ``wu``, ``wd`` (gated: swiglu, geglu) or ``w1``, ``w2``
+    (gelu), each (d_in, d_out) bf16 as the reference lays them out."""
+
+    def __init__(self, cfg, gen=None, d_ff=None, *, device=None):
+        super().__init__()
+        d, f = cfg.d_model, d_ff or cfg.d_ff
+        if cfg.act in ("swiglu", "geglu"):
+            self.wg = _weight(dense_init(gen, d, f, device=device))
+            self.wu = _weight(dense_init(gen, d, f, device=device))
+            self.wd = _weight(dense_init(gen, f, d, device=device))
+        else:
+            self.w1 = _weight(dense_init(gen, d, f, device=device))
+            self.w2 = _weight(dense_init(gen, f, d, device=device))
+
+
+def _gelu(x):
+    # jax.nn.gelu's default is the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp(params, cfg, x):
+    xc = x.to(CDTYPE)
+    if cfg.act in ("swiglu", "geglu"):
+        act = F.silu if cfg.act == "swiglu" else _gelu
+        h = act(xc @ params.wg) * (xc @ params.wu)
+        return (h @ params.wd).to(x.dtype)
+    h = _gelu(xc @ params.w1)
+    return (h @ params.w2).to(x.dtype)

@@ -18,7 +18,9 @@ from repro.core.methods import make_method as ref_make_method
 from repro.testing import FaultPlan as JaxFaultPlan
 from repro.vecdata import load_dataset as ref_load_dataset
 from repro_torch.api import METHODS, SchedulePolicy, open_index
+from repro_torch.configs import smoke_config
 from repro_torch.convert import method_from_reference, state_from_reference
+from repro_torch.models import build_model
 from repro_torch.serving import SearchService
 from repro_torch.testing import FaultPlan
 from repro_torch.vecdata import load_dataset, recall_at_k
@@ -259,6 +261,13 @@ def test_default_device_needs_a_gpu(sift_small):
         open_index(sift_small.X[:256], method="FDScanning")
 
 
+def test_build_model_without_a_device_needs_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None runs on it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(smoke_config("qwen3-4b"))
+
+
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
@@ -273,6 +282,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert ROOT / "src" / "repro_torch" / "serving" / "replica.py" in files
     assert ROOT / "src" / "repro_torch" / "launch" / "mesh.py" in files
     assert ROOT / "src" / "repro_torch" / "serving" / "dco_attention.py" in files
+    for mod in ("models/lm.py", "configs/base.py", "serving/engine.py",
+                "launch/serve.py"):
+        assert ROOT / "src" / "repro_torch" / mod in files
     for f in files:
         hits = bad.findall(f.read_text())
         assert not hits, (f, hits)
@@ -281,7 +293,8 @@ def test_port_imports_neither_jax_nor_the_reference():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.api, repro_torch.kernels.ops, "
             "repro_torch.serving, repro_torch.api.persistence, "
-            "repro_torch.launch.ranks; "
+            "repro_torch.launch.ranks, repro_torch.models, "
+            "repro_torch.configs, repro_torch.launch.serve; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

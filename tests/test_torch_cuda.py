@@ -3,7 +3,8 @@ card, the paths that launch them on new inputs (a launch no query
 probes, the IVF streaming scan, a delta session) against the CPU or a
 merged session, the block walk captured as a CUDA graph against the same
 walk run eagerly on the card, the top-k selection against a stable
-sort, and the serving front, snapshots and shard tier on the card.
+sort, the serving front, snapshots and shard tier on the card, and the
+LM decoder and its engine on the card against the CPU.
 These tests need a CUDA card and skip without one; the module imports no
 jax, so it also runs where only PyTorch is installed:
 
@@ -900,3 +901,93 @@ def test_dco_attention_on_the_card_matches_cpu(cuda_device, dtype):
     want = exact_decode_attention(*cpu, cur)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().numpy(), rtol=tol, atol=tol)
+
+
+# ------------------------------------------------------------- LM serving --
+LM_TOL = 4e-2       # tests/test_torch_models.py's, relative to max |logits|
+
+
+def _lm_pair(cuda_device, arch="qwen3-4b"):
+    """The smoke decoder on the CPU and the same weights on the card."""
+    import copy
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build_model
+    cfg = smoke_config(arch)
+    cpu_api = build_model(cfg, device="cpu")
+    cpu_params = cpu_api.init(torch.Generator().manual_seed(0))
+    return (cfg, cpu_api, cpu_params, build_model(cfg, device=cuda_device),
+            copy.deepcopy(cpu_params).to(cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-4b", "olmo-1b", "paligemma-3b"])
+def test_lm_decode_on_the_card_matches_cpu(cuda_device, arch):
+    cfg, cpu_api, cpu_params, api, params = _lm_pair(cuda_device, arch)
+    assert all(p.device.type == "cuda" for p in params.parameters())
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32)
+    cpu_cache, cache = cpu_api.init_cache(2, 16), api.init_cache(2, 16)
+    for t in range(12):
+        lens = np.array([t + 1, max(t - 2, 1)], np.int32)
+        want, cpu_cache = cpu_api.decode_step(cpu_params, cpu_cache,
+                                              tokens[:, t], lens)
+        got, cache = api.decode_step(params, cache, tokens[:, t], lens)
+        assert (got.cpu() - want).abs().max() < LM_TOL * want.abs().max()
+    for key in ("k", "v"):
+        want, got = cpu_cache[key].float(), cache[key].float().cpu()
+        assert (got - want).abs().max() < LM_TOL * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,hkv,G,hd", [(8, 1024, 8, 4, 128),
+                                          (3, 77, 1, 8, 256),
+                                          (2, 33, 4, 1, 64)])
+def test_bmm_f32_result_equals_the_f32_upcast(cuda_device, B, S, hkv, G, hd):
+    """The card's attention products (one bf16 bmm with an f32 result over
+    the block-diagonal query) against both operands widened to f32."""
+    from repro_torch.models import layers as TL
+    gen = torch.Generator(device=cuda_device).manual_seed(S)
+    q = torch.randn(B, hkv, G, hd, device=cuda_device,
+                    generator=gen).to(torch.bfloat16)
+    k = torch.randn(B, S, hkv, hd, device=cuda_device,
+                    generator=gen).to(torch.bfloat16)
+    p = torch.softmax(torch.randn(B, hkv, G, S, device=cuda_device,
+                                  generator=gen), -1).to(torch.bfloat16)
+    s_bmm, s_up = TL.grouped_scores_bmm(q, k), TL.grouped_scores_upcast(q, k)
+    assert s_bmm.dtype == torch.float32 and s_bmm.shape == s_up.shape
+    torch.testing.assert_close(s_bmm, s_up, rtol=1e-5, atol=1e-4)
+    m_bmm, m_up = TL.grouped_mix_bmm(p, k), TL.grouped_mix_upcast(p, k)
+    assert m_bmm.shape == m_up.shape == (B, hkv, G, hd)
+    torch.testing.assert_close(m_bmm, m_up, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_lm_engine_on_the_card(cuda_device):
+    """The engine over the smoke decoder on the card: every request gets
+    max_new ids, equal to the CPU engine's up to the CPU logits' first
+    near-tie."""
+    from repro_torch.serving import Request, ServingEngine
+    cfg, cpu_api, cpu_params, api, params = _lm_pair(cuda_device)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(3, 10)))
+               for _ in range(6)]
+    want = ServingEngine(cpu_api, slots=4, max_len=32).run(
+        cpu_params, [Request(i, p, 8) for i, p in enumerate(prompts)])
+    got = ServingEngine(api, slots=4, max_len=32).run(
+        params, [Request(i, p, 8) for i, p in enumerate(prompts)])
+    assert sorted(got) == list(range(6))
+    for rid, prompt in enumerate(prompts):
+        assert len(got[rid]) == 8
+        seq = list(prompt) + want[rid][:-1]
+        cache = cpu_api.init_cache(1, len(seq) + 1)
+        gen = []
+        for i, tok in enumerate(seq):
+            logits, cache = cpu_api.decode_step(cpu_params, cache,
+                                                np.array([tok]), i + 1)
+            if i >= len(prompt) - 1:
+                gen.append(logits[0, :cfg.vocab])
+        gen = torch.stack(gen)
+        top2 = gen.topk(2, -1).values
+        near = (top2[:, 0] - top2[:, 1]) <= LM_TOL * gen.abs().amax(-1)
+        upto = int(near.int().argmax()) if bool(near.any()) else len(gen)
+        assert got[rid][:upto] == want[rid][:upto], (rid, upto)
