@@ -25,7 +25,25 @@ Phases, one JSON line each:
               profiler session of the process (both slow every later
               eager launch), and its profiled steps run last
               (lm_profile);
-  5. graph    PDScanning+ fitted on the 1M corpus below: the engine's
+  5. encdec   the encoder-decoder serving path on seamless-m4t-large-v2 at
+              its published widths and depth (24 + 24 layers, random bf16
+              weights from a seed, made on the card): decode from the
+              cross K/V of a prefill over 256 seeded source frames against
+              the full forward pass over every prefix of 2 x 24 tokens,
+              the smoke config on the card against the CPU, prompts of
+              max_len - 1, max_len and max_len + 4 tokens through an engine
+              (ROADMAP C8), and the lm phase's engine arm (walls, tokens/s,
+              step ms, bytes a step and its bound);
+  6. ssm      the Mamba-2 serving path on mamba2-130m at its published
+              widths and depth (24 layers): the chunked SSD against the
+              naive scan at full widths (B 2, S 1,024, a random initial
+              state), decode from a prefill's states against the full
+              forward pass over every prefix, the smoke config on the card
+              against the CPU, the engine's state carried from one request
+              to the next (ROADMAP C10) against the CPU engine's ids, the
+              lm phase's engine arm, and a prefill of 32,768 tokens at
+              batch 4 (prefill_32k cut from batch 32: time, peak memory);
+  7. graph    PDScanning+ fitted on the 1M corpus below: the engine's
               block walk run eagerly on the card (its walls taken first,
               before any CUDA graph of the process) against the walk
               captured once as a CUDA graph a query chunk and replayed
@@ -34,7 +52,7 @@ Phases, one JSON line each:
               the session served by the same graph; an arm at
               query_chunk = 100; and the top-k selection against the
               stable sort it replaced, on the engine's real score rows;
-  6. main     the flat streaming search at GIST1M shape (1M x 960 f32,
+  8. main     the flat streaming search at GIST1M shape (1M x 960 f32,
               100 queries, k = 10, the default SchedulePolicy) for
               PDScanning+ (dco_scan) and DDCopq (pq_lookup), with the
               kernels' launch counts over one batch, QPS, recall against a
@@ -42,10 +60,10 @@ Phases, one JSON line each:
               every stream session from here on: its timed batches replay
               the graph captured by its first batch, and no batch
               captures another;
-  7. pdx      the same PDScanning+ method, unrefitted, served from the PDX
+  9. pdx      the same PDScanning+ method, unrefitted, served from the PDX
               layout (SchedulePolicy(dim_groups=4), dco_scan_grouped) with
               the same record, its ids held against the flat path's;
-  8. ivf      an IVF index over the 1M corpus (n_list = 4096, the 4 sqrt(N)
+ 10. ivf      an IVF index over the 1M corpus (n_list = 4096, the 4 sqrt(N)
               rule of Faiss's wiki for about 1M vectors; nprobe = 64) built
               on the host, served on the card by the same fitted
               PDScanning+ (flat: dco_scan; PDX: dco_scan_grouped) and
@@ -56,15 +74,18 @@ Phases, one JSON line each:
               ids held against the port's host IVF (IVFIndex.search through
               scan_topk) for every query, and 0 uncertified at the row
               block's budget;
-  9. delta    the LSM write path: PDScanning+ fitted on 1M - 4,096 rows,
-              the last 4,096 added (the "delta" mode), its ids held against
+ 11. delta    the LSM write path: PDScanning+ fitted on 1M - 4,096 rows
+              with the graph phase's PCA (fitted on all 1M rows, the delta
+              included, so its QPS is not that of a main-rows fit; the ids
+              check does not depend on the fit), the last 4,096 added (the
+              "delta" mode), its ids held against
               a freshly materialized session on the same method, the next
               add a "merge"; then an IVF delta at 100k rows (n_list = 64,
               nprobe = n_list) held against the host IVF;
- 10. two_stage the 1M PDScanning+ on engine="two_stage" (no kernel): QPS,
+ 12. two_stage the 1M PDScanning+ on engine="two_stage" (no kernel): QPS,
               recall, per-query survivors against its capacity, ids held
               against the streaming engine's where nothing was cut;
- 11. adaptive SchedulePolicy(adaptive=True) at 1M on the fitted
+ 13. adaptive SchedulePolicy(adaptive=True) at 1M on the fitted
               PDScanning+: the dataset's queries flat and PDX (ids held
               against the fixed session's, no dco_scan launch), 100 OOD
               queries (make_ood_queries, severity 1.0; ids held against an
@@ -72,22 +93,22 @@ Phases, one JSON line each:
               DDCopq (pq_lookup launches in the graph); each batch's six
               outputs and report held against the eager walk of the same
               chunks, fallback blocks, forced chunks, QPS;
- 12. anytime  the flat PDScanning+ at anytime_block_group = 8: the grouped
+ 14. anytime  the flat PDScanning+ at anytime_block_group = 8: the grouped
               walk eagerly and as a graph a group span, a 60 s deadline
               (outputs equal to the non-deadline batch, coverage 1.0,
               launches, syncs) and a 10 ms one (coverage in (0, 1), every
               query uncertified, within the full wall plus one group);
               one 60 s batch on the PDX layout;
- 13. host     backend="host" (the numpy scan) over the first 100k rows
+ 15. host     backend="host" (the numpy scan) over the first 100k rows
               with 10 queries, its ids held against the torch backend's;
               HNSW built on the first 2,000 rows with FDScanning and
               PDScanning+ (build seconds, DCOs and dims scanned), recall@10
               of its walk;
- 14. guardrails an 18-batch "recovering" drift scenario at 100k through a
+ 16. guardrails an 18-batch "recovering" drift scenario at 100k through a
               guarded PDScanning+ session: the breaker opens during the
               drift, every demoted batch gives an FDScanning session's
               ids, and it closes again after;
- 15. serving  the serving front (SearchService(slots=16, k=10)) over a
+ 17. serving  the serving front (SearchService(slots=16, k=10)) over a
               fixed PDScanning+ session on the first 994,880 rows, with the
               fitted PCA: its capacity calibrated on the session itself
               (steady step, one 1,024-row add and the stall of the step
@@ -99,31 +120,31 @@ Phases, one JSON line each:
               rows visible when it was served; latency percentiles,
               sustained QPS, graphs captured (one, and one a write),
               dco_scan launches a step, device bytes after the last write;
- 16. serving_overload the grown session at 2x its steady capacity,
+ 18. serving_overload the grown session at 2x its steady capacity,
               max_queue 64, shed_oldest, a deadline of 4 steady steps (the
               anytime spans captured first): every ticket done, shed or
               timed out, partial answers uncertified, full certified ones
               exact;
- 17. serving_ood the adaptive PDScanning+ session at 1M behind the service,
+ 19. serving_ood the adaptive PDScanning+ session at 1M behind the service,
               a 50/50 interleave of the dataset's and OOD queries at 0.7 of
               its own capacity: per class p50/p99, fallback blocks, every
               answer exact and certified, no dco_scan launch;
- 18. replica  shard mode over the 1M corpus in 3 sessions (healthy: the flat
+ 20. replica  shard mode over the 1M corpus in 3 sessions (healthy: the flat
               session's ids; shard 1 dead: coverage 2/3, uncertified, the
               live shards' top-10; revived: full answers again), then
               replicate mode over 3 sessions of the first 100k rows (a slow
               replica hedged; replica 0 killed after 5 dispatches,
               ejected, revived through half-open), virtual and real walls
               and the tier's counters;
- 19. persist  a card session at 95,904 rows saved, three 1,024-row adds in
+ 21. persist  a card session at 95,904 rows saved, three 1,024-row adds in
               the WAL, a fourth torn mid-frame, the session dropped and
               loaded back onto the card (the frames replayed "cold", no
               device work before the first search; the live ids, exact), a
               bit-flipped snapshot refused;
- 20. rules    all 8 methods at 100k x 960 with the same queries, and each
+ 22. rules    all 8 methods at 100k x 960 with the same queries, and each
               method that groups again at dim_groups = 4 (and PDScanning+
               on the inline R-cut path);
- 21. mesh     the sharded global top-k as rank processes on this card,
+ 23. mesh     the sharded global top-k as rank processes on this card,
               each rank ``chip_smoke.py --mesh-rank DIR BACKEND`` (file
               rendezvous, a deadline, killed past it): an NCCL group of
               two on one card refused before its initialisation; two gloo
@@ -138,7 +159,7 @@ Phases, one JSON line each:
               exchange on device tensors; every arm held against the same
               method on one card at the shard's row block, the exact rules
               against FDScanning's ids;
- 22. attention DCO-screened decode attention at Qwen3-4B's decode shapes
+ 24. attention DCO-screened decode attention at Qwen3-4B's decode shapes
               (B 8, 32 heads, 8 KV heads, head_dim 128, a 32,768-position
               bf16 cache, ragged cur_len): cap = S against exact
               attention, one sequence on the CPU against the card, CUDA-
@@ -147,7 +168,7 @@ Phases, one JSON line each:
               yardstick), the error, the softmax mass the top-C keeps, the
               bytes each reads by formula and the screened call's device
               operations under torch.profiler;
- 23. profile  for each 1M session (flat, PDX, DDCopq), served again from
+ 25. profile  for each 1M session (flat, PDX, DDCopq), served again from
               its fitted method: one batch under torch.profiler (device
               operations, zero fills, CUDA runtime calls, device-busy share
               against the phase's unprofiled wall), then its kernel's time
@@ -169,10 +190,13 @@ Phases, one JSON line each:
               budgets), the two-stage session and the adaptive arms (in
               distribution, OOD beside the fixed screen, DDCopq) are
               profiled too, without a kernel timing;
- 24. lm_profile the lm phase's steps under torch.profiler on the same
-              seeded weights: three engine-shaped steps and one over the
-              32,768-position cache (launches a step, device ms, busy
-              share against the lm phase's unprofiled step, top ops).
+ 26. lm_profile the lm, encdec and ssm phases' steps under torch.profiler
+              on the same seeded weights, with past_cache="drop" as the
+              engine passes it: three engine-shaped steps of each, three
+              of Qwen3-4B with one slot past the cache (the C8 guard on),
+              and one of Qwen3-4B over the 32,768-position cache
+              (launches a step, device ms, busy share against the phase's
+              unprofiled step, top ops).
 Then the kernel table (with each kernel's launches a batch on the main,
 IVF, adaptive and anytime paths, a 16-query step of the serving arm and,
 for dco_scan, a rank's batch on the 2-rank mesh),
@@ -1079,12 +1103,15 @@ def phase_ivf(X, Q, gt, pdsp, opq, dev):
     return ivf, recs
 
 
-def phase_delta(X, Q, gt, Xr, gt_r, dev):
-    """The LSM write path: a 4,096-row delta after a 1M - 4,096 main layout,
-    then the merge; an IVF delta at the rules depth."""
+def phase_delta(X, Q, gt, Xr, gt_r, pdsp, dev):
+    """The LSM write path: a 4,096-row delta after a 1M - 4,096 main layout
+    (PDScanning+ with ``pdsp``'s PCA, fitted on every row, the delta's
+    too, as the serving phase's is; the rest of the method is fitted on
+    the main rows), then the merge; an IVF delta at the rules depth."""
     import numpy as np
     import torch
     from repro_torch.api import SchedulePolicy, SearchSession, open_index
+    from repro_torch.core.methods import make_method
     from repro_torch.kernels import dco_scan as dco_mod
     from repro_torch.kernels import pq_lookup as pq_mod
     from repro_torch.vecdata import recall_at_k
@@ -1092,7 +1119,8 @@ def phase_delta(X, Q, gt, Xr, gt_r, dev):
     t_phase = time.perf_counter()
     n0 = N_MAIN - DELTA_ROWS
     t0 = time.perf_counter()
-    sess = open_index(X[:n0], method="PDScanning+", device=dev)
+    sess = SearchSession(make_method("PDScanning+", pca=pdsp.state["pca"])
+                         .fit(X[:n0]), SchedulePolicy(), device=dev)
     fit_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     sess.search(Q, K)                           # materializes the main layout
@@ -1120,6 +1148,7 @@ def phase_delta(X, Q, gt, Xr, gt_r, dev):
         walls.append(time.perf_counter() - t0)
     ex = res.stats.extra
     rec = {"method": "PDScanning+", "n_main": n0, "n_delta": DELTA_ROWS,
+           "pca_fit_rows": N_MAIN,
            "fit_s": fit_s, "first_search_s": first_s, "add_s": add_s,
            "first_search_after_add_s": after_add_s, "search_walls_s": walls,
            "qps": float(Q.shape[0] / np.median(walls)),
@@ -2949,6 +2978,7 @@ LM_SIZES = {
 }
 LM_CHECK_B, LM_CHECK_S = 2, 24   # decode against prefill at full width
 LM_SMOKE_STEPS = 12              # the card against the CPU
+LM_PAST_STEPS = 6                # ... and past the cache (C8)
 #: the reference's own prefill-against-decode tolerance
 #: (tests/test_models.py), loose; the measured gap is logged beside it
 LM_RTOL, LM_ATOL = 0.15, 0.2
@@ -2959,9 +2989,11 @@ LM_PROFILE_STEPS = 3
 
 
 def rel_gap(ref, got) -> float:
-    """max |got - ref| over max |ref|, both widened to f32 on the host."""
+    """max |got - ref| over max |ref|, both widened to f32 on the host
+    (max |got| where ``ref`` is all zero, as the engine's cross K/V are)."""
     ref, got = ref.float().cpu(), got.float().cpu()
-    return float((got - ref).abs().max() / ref.abs().max())
+    top = ref.abs().max()
+    return float((got - ref).abs().max() / top if top else got.abs().max())
 
 
 def device_profile(prof, steps: int) -> dict:
@@ -3023,6 +3055,177 @@ def fill_long_cache(cfg, size, dev):
     return cache
 
 
+def cache_leaves(cache) -> dict:
+    """A cache's tensors by name: ``k``/``v``, ``self.k`` ... ``cross.v``
+    (encoder-decoder) or the SSM's ``h``/``conv``."""
+    if isinstance(cache, tuple):
+        return {"h": cache[0], "conv": cache[1]}
+    out = {}
+    for key, v in cache.items():
+        if isinstance(v, dict):
+            out.update({f"{key}.{k}": x for k, x in v.items()})
+        elif key != "len":
+            out[key] = v
+    return out
+
+
+def on_device(dev, params, cache) -> bool:
+    """(e): every parameter, buffer and cache tensor on ``dev``'s kind."""
+    import torch
+    kind = torch.device(dev).type
+    tensors = (list(params.parameters()) + list(params.buffers())
+               + list(cache_leaves(cache).values()))
+    return all(t.device.type == kind for t in tensors)
+
+
+def prefill_batch(cfg, rng, tokens, src_len):
+    """The prefill batch of ``cfg``'s family: the tokens, and for the
+    encoder-decoder ``src_len`` seeded source frames (B, src_len, d)."""
+    import numpy as np
+    batch = {"tokens": tokens}
+    if cfg.family == "encdec":
+        batch["src_embeds"] = rng.standard_normal(
+            (tokens.shape[0], src_len, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def card_against_cpu(arch, seed, rng, dev) -> dict:
+    """(c): ``arch``'s smoke config on the card against the same weights
+    on the CPU: prefill over LM_SMOKE_STEPS tokens (the logits and every
+    cache tensor), then LM_SMOKE_STEPS decode steps at per-slot lengths
+    from the zero cache (the logits every step, the caches after), then
+    LM_PAST_STEPS steps with ``past_cache="drop"`` at lengths past the
+    cache (ROADMAP C8: the logits every step, the caches after), each
+    within LM_TOL of the CPU's largest magnitude."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build_model
+
+    scfg = smoke_config(arch)
+    cpu_api = build_model(scfg, device="cpu")
+    cpu_params = cpu_api.init(torch.Generator().manual_seed(seed))
+    s_api = build_model(scfg, device=dev)
+    s_params = copy.deepcopy(cpu_params).to(dev)
+    stoks = rng.integers(0, scfg.vocab, (2, LM_SMOKE_STEPS)).astype(np.int32)
+    batch = prefill_batch(scfg, rng, stoks, 10)
+    want, c_cache = cpu_api.prefill(cpu_params, batch)
+    got, s_cache = s_api.prefill(s_params, batch)
+    gaps = {"prefill_rel_logit_gap": rel_gap(want, got)}
+    for key, w in cache_leaves(c_cache).items():
+        gaps[f"prefill_{key}_rel_gap"] = rel_gap(w, cache_leaves(s_cache)[key])
+    smax = LM_SMOKE_STEPS + 4
+    c_cache = cpu_api.init_cache(2, smax)
+    s_cache = s_api.init_cache(2, smax)
+    smoke_gap = 0.0
+    for t in range(LM_SMOKE_STEPS):
+        lens = np.array([t + 1, max(t - 2, 1)], np.int32)
+        want, c_cache = cpu_api.decode_step(cpu_params, c_cache, stoks[:, t],
+                                            lens)
+        got, s_cache = s_api.decode_step(s_params, s_cache, stoks[:, t], lens)
+        smoke_gap = max(smoke_gap, rel_gap(want, got))
+    gaps["max_rel_logit_gap"] = smoke_gap
+    for key, w in cache_leaves(c_cache).items():
+        gaps[f"{key}_rel_gap"] = rel_gap(w, cache_leaves(s_cache)[key])
+    # C8: the engine's past_cache="drop" steps, slot 0 past the cache
+    # throughout and slot 1 crossing its end (the guarded write on both)
+    past_gap = 0.0
+    for j in range(LM_PAST_STEPS):
+        lens = np.array([smax + 1 + j, smax - 2 + j], np.int32)
+        tok = stoks[:, j % LM_SMOKE_STEPS]
+        want, c_cache = cpu_api.decode_step(cpu_params, c_cache, tok, lens,
+                                            past_cache="drop")
+        got, s_cache = s_api.decode_step(s_params, s_cache, tok, lens,
+                                         past_cache="drop")
+        past_gap = max(past_gap, rel_gap(want, got))
+    gaps["past_cache_max_rel_logit_gap"] = past_gap
+    for key, w in cache_leaves(c_cache).items():
+        gaps[f"past_cache_{key}_rel_gap"] = rel_gap(
+            w, cache_leaves(s_cache)[key])
+    check(max(gaps.values()) < LM_TOL,
+          f"{arch}: the card differs from the CPU at the smoke config {gaps}")
+    return {"steps": LM_SMOKE_STEPS, "past_cache_steps": LM_PAST_STEPS,
+            "tol": LM_TOL, **gaps}
+
+
+def engine_arm(api, params, cfg, size, rng, label, dev) -> dict:
+    """The engine arm: ``size["requests"]`` seeded requests of
+    ``size["prompt"]`` tokens and ``size["max_new"]`` new ones through
+    ``ServingEngine(slots, max_len)``; each decode call between CUDA events
+    (its device span) and on the host clock (call to call: the step with
+    the logits' copy and the argmax).  (d): every request served, each
+    stopping by the reference's rule."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import Request, ServingEngine
+
+    card = on_card(dev)
+    reqs = [Request(i, rng.integers(0, cfg.vocab,
+                                    int(rng.integers(size["prompt"][0],
+                                                     size["prompt"][1] + 1))
+                                    ).astype(np.int32), size["max_new"])
+            for i in range(size["requests"])]
+    eng = ServingEngine(api, slots=size["slots"], max_len=size["max_len"])
+    inner, events, starts, issues = eng.decode, [], [], []
+
+    def timed(*args, **kw):
+        starts.append(time.perf_counter())
+        if card:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        out = inner(*args, **kw)
+        issues.append(time.perf_counter() - starts[-1])
+        if card:
+            ev[1].record()
+            events.append(ev)
+        return out
+
+    eng.decode = timed
+    t0 = time.perf_counter()
+    out = eng.run(params, reqs)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    check(sorted(out) == list(range(size["requests"])),
+          f"{label}: the engine did not serve every request")
+    for r in reqs:       # (d) the reference's stopping rule
+        check(len(out[r.rid]) == r.max_new
+              or len(r.prompt) + len(out[r.rid]) >= size["max_len"] - 1,
+              f"{label}: request {r.rid} stopped early ({len(out[r.rid])})")
+    generated = sum(len(v) for v in out.values())
+    host_ms = np.diff(starts) * 1e3
+    step_ms = (np.array([a.elapsed_time(b) for a, b in events]) if card
+               else host_ms)
+    return {
+        "slots": size["slots"], "max_len": size["max_len"],
+        "requests": size["requests"], "served": len(out),
+        "max_new": size["max_new"], "prompt_tokens": int(
+            sum(len(r.prompt) for r in reqs)),
+        "generated_tokens": generated, "engine_wall_s": wall,
+        "generated_tokens_per_s": generated / wall,
+        "decode_steps": len(starts),
+        "step_ms_median": float(np.median(step_ms)),
+        "step_ms_p90": float(np.quantile(step_ms, 0.9)),
+        "host_step_ms_median": float(np.median(host_ms)),
+        "host_step_ms_p90": float(np.quantile(host_ms, 0.9)),
+        "host_issue_ms_median": float(np.median(issues) * 1e3),
+    }
+
+
+def step_bounds(weight_bytes, state_bytes, n_params, slots) -> dict:
+    """A decode step's bytes by formula (the weights it reads, once, and
+    its cache or state) and its bounds: the bytes at the data sheet's
+    3.35 TB/s, and 2 flops a weight a slot at its dense bf16 rate."""
+    step_bytes = weight_bytes + state_bytes
+    return {"step_weight_bytes": weight_bytes, "kv_cache_bytes": state_bytes,
+            "step_bytes": step_bytes,
+            "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+            "step_flop_bound_ms": 2 * n_params * slots
+            / BF16_FLOP_PER_S * 1e3}
+
+
 def phase_lm(dev):
     """The LM serving path at Qwen3-4B's published widths and depth with
     random bf16 weights from a seed: decode against the full forward pass,
@@ -3039,13 +3242,10 @@ def phase_lm(dev):
 
 
 def _phase_lm(dev, t_phase, card, size):
-    import copy
-
     import numpy as np
     import torch
     from repro_torch.configs import get_arch, smoke_config
     from repro_torch.models import build_model
-    from repro_torch.serving import Request, ServingEngine
 
     reduced = torch.backends.cuda.matmul.\
         allow_bf16_reduced_precision_reduction
@@ -3113,91 +3313,16 @@ def _phase_lm(dev, t_phase, card, size):
     # (c): the smoke config on the card against the same weights on the
     # CPU, per-slot lengths, the logits every step and the caches after
     t0 = time.perf_counter()
-    scfg = smoke_config(LM_ARCH)
-    cpu_api = build_model(scfg, device="cpu")
-    cpu_params = cpu_api.init(torch.Generator().manual_seed(LM_SEED))
-    s_api = build_model(scfg, device=dev)
-    s_params = copy.deepcopy(cpu_params).to(dev)
-    stoks = rng.integers(0, scfg.vocab, (2, LM_SMOKE_STEPS)).astype(np.int32)
-    c_cache = cpu_api.init_cache(2, LM_SMOKE_STEPS + 4)
-    s_cache = s_api.init_cache(2, LM_SMOKE_STEPS + 4)
-    smoke_gap = 0.0
-    for t in range(LM_SMOKE_STEPS):
-        lens = np.array([t + 1, max(t - 2, 1)], np.int32)
-        want, c_cache = cpu_api.decode_step(cpu_params, c_cache, stoks[:, t],
-                                            lens)
-        got, s_cache = s_api.decode_step(s_params, s_cache, stoks[:, t], lens)
-        smoke_gap = max(smoke_gap, rel_gap(want, got))
-    smoke_k = rel_gap(c_cache["k"], s_cache["k"])
-    smoke_v = rel_gap(c_cache["v"], s_cache["v"])
-    check(smoke_gap < LM_TOL and smoke_k < LM_TOL and smoke_v < LM_TOL,
-          f"lm: the card differs from the CPU at the smoke config "
-          f"({smoke_gap}, {smoke_k}, {smoke_v})")
-    del cpu_params, s_params, c_cache, s_cache
+    check_c = card_against_cpu(LM_ARCH, LM_SEED, rng, dev)
     split_s["check_c"] = time.perf_counter() - t0
 
-    # the engine arm: 32 seeded requests through 8 slots; each decode
-    # call between CUDA events (its device span) and on the host clock
-    # (call to call: the step with the logits' copy and the argmax)
-    reqs = [Request(i, rng.integers(0, cfg.vocab,
-                                    int(rng.integers(size["prompt"][0],
-                                                     size["prompt"][1] + 1))
-                                    ).astype(np.int32), size["max_new"])
-            for i in range(size["requests"])]
-    eng = ServingEngine(api, slots=size["slots"], max_len=size["max_len"])
-    inner, events, starts, issues = eng.decode, [], [], []
-
-    def timed(*args):
-        starts.append(time.perf_counter())
-        if card:
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-        out = inner(*args)
-        issues.append(time.perf_counter() - starts[-1])
-        if card:
-            ev[1].record()
-            events.append(ev)
-        return out
-
-    eng.decode = timed
-    t0 = time.perf_counter()
-    out = eng.run(params, reqs)
-    sync(dev)
-    wall = time.perf_counter() - t0
-    check(sorted(out) == list(range(size["requests"])),
-          "lm: the engine did not serve every request")
-    for r in reqs:       # (d) the reference's stopping rule
-        check(len(out[r.rid]) == r.max_new
-              or len(r.prompt) + len(out[r.rid]) >= size["max_len"] - 1,
-              f"lm: request {r.rid} stopped early ({len(out[r.rid])})")
-    generated = sum(len(v) for v in out.values())
-    host_ms = np.diff(starts) * 1e3
-    step_ms = (np.array([a.elapsed_time(b) for a, b in events]) if card
-               else host_ms)
+    # the engine arm: 32 seeded requests through 8 slots
+    engine = engine_arm(api, params, cfg, size, rng, "lm", dev)
     cache_bytes = 2 * (cfg.n_layers * size["slots"] * size["max_len"]
                        * cfg.n_kv_heads * cfg.hd * 2)
-    step_bytes = weight_bytes + cache_bytes
     n_params = sum(p.numel() for p in params.parameters())
-    engine = {
-        "slots": size["slots"], "max_len": size["max_len"],
-        "requests": size["requests"], "served": len(out),
-        "max_new": size["max_new"], "prompt_tokens": int(
-            sum(len(r.prompt) for r in reqs)),
-        "generated_tokens": generated, "engine_wall_s": wall,
-        "generated_tokens_per_s": generated / wall,
-        "decode_steps": len(starts),
-        "step_ms_median": float(np.median(step_ms)),
-        "step_ms_p90": float(np.quantile(step_ms, 0.9)),
-        "host_step_ms_median": float(np.median(host_ms)),
-        "host_step_ms_p90": float(np.quantile(host_ms, 0.9)),
-        "host_issue_ms_median": float(np.median(issues) * 1e3),
-        "kv_cache_bytes": cache_bytes, "step_bytes": step_bytes,
-        "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
-        "step_flop_bound_ms": 2 * n_params * size["slots"]
-        / BF16_FLOP_PER_S * 1e3,
-    }
-    del eng
+    engine.update(step_bounds(weight_bytes, cache_bytes, n_params,
+                              size["slots"]))
 
     # the long-cache arm: decode steps over a 32,768-position cache at
     # batch 8 holding seeded contents, lengths in [30,000, 32,768]
@@ -3250,69 +3375,402 @@ def _phase_lm(dev, t_phase, card, size):
            "weight_bytes": weight_bytes,
            "bf16_reduced_precision_reduction": reduced,
            "init_s": init_s, "check_decode_vs_prefill": check_a,
-           "check_card_vs_cpu": {"steps": LM_SMOKE_STEPS, "tol": LM_TOL,
-                                 "max_rel_logit_gap": smoke_gap,
-                                 "k_rel_gap": smoke_k, "v_rel_gap": smoke_v},
+           "check_card_vs_cpu": check_c,
            "engine": engine, "long_cache": long,
            "split_s": split_s, "phase_s": time.perf_counter() - t_phase}
     log("lm", **rec)
     return rec
 
 
-def phase_lm_profile(dev, rec):
-    """The lm phase's steps under torch.profiler, after every wall of the
-    run, on the same seeded weights: three engine-shaped steps (8 slots,
-    max_len 1,024, ragged lengths, each followed by the logits' copy to
-    the host) and one step over the 32,768-position cache; device
-    kernels, copies and launches a step, device ms, the busy share against
-    the lm phase's unprofiled step, the top 5 device ops."""
+# ------------------------------------------------------- encdec, ssm ---
+ENCDEC_ARCH, ENCDEC_SEED = "seamless-m4t-large-v2", 21
+SSM_ARCH, SSM_SEED = "mamba2-130m", 22
+#: check (a)'s source frames (the encoder's input) on the card and the CPU
+ENCDEC_SRC = {"card": 256, "cpu": 16}
+#: the cross K/V positions the engine decodes against: init_cache's
+#: enc_len, 1,024 zero positions as in the reference's engine
+ENC_LEN = 1024
+#: check (d)'s cache on the card: prompts of C8_MAX_LEN - 1, C8_MAX_LEN and
+#: C8_MAX_LEN + 4 tokens (ROADMAP C8)
+C8_MAX_LEN = 16
+#: the SSD check at the full config's widths, and the prefill arm
+#: (SHAPES["prefill_32k"]: 32,768 tokens, cut from batch 32 to 4, where
+#: one (B, nc, Q, Q, H) f32 decay tensor holds 3.2 GB instead of 26 GB)
+SSD_CHECK = {"card": dict(B=2, S=1024), "cpu": dict(B=2, S=64)}
+SSM_PREFILL = {"card": dict(B=4, S=32_768), "cpu": dict(B=2, S=128)}
+SSD_TOL = 1e-4                   # tests/test_torch_mamba2.py's SSD_TOL
+SSM_PROMPT = 8                   # check (a): prefill, then LM_CHECK_S steps
+
+
+def param_bytes(params) -> int:
+    return sum(p.numel() * p.element_size() for p in params)
+
+
+def phase_encdec(dev):
+    """The encoder-decoder serving path at seamless-m4t-large-v2's
+    published widths and depth (24 + 24 layers) with random bf16 weights
+    from a seed: (a) prefill over 256 seeded source frames at B 2, then
+    decode from its cross K/V against the full forward pass over every
+    prefix of 24 tokens; (c) the smoke config on the card against the CPU;
+    (d) prompts past an engine's cache (ROADMAP C8) and the stopping rule
+    of the engine arm; (e) every tensor on the card; the engine arm (the
+    lm phase's traffic) with its bytes a step and bound."""
+    t_phase = time.perf_counter()
+    card = on_card(dev)
+    with f32_accumulation():
+        return _phase_encdec(dev, t_phase, card,
+                             LM_SIZES["card" if card else "cpu"])
+
+
+def _phase_encdec(dev, t_phase, card, size):
     import numpy as np
     import torch
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_arch(ENCDEC_ARCH) if card else smoke_config(ENCDEC_ARCH)
+    api = build_model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=dev).manual_seed(ENCDEC_SEED))
+    sync(dev)
+    split_s = {"init": time.perf_counter() - t0}
+    rng = np.random.default_rng(ENCDEC_SEED)
+
+    # (a): decode from the prefill's cross K/V against the full forward
+    # pass (encoder included) over every prefix of the same 24 tokens
+    t0 = time.perf_counter()
+    toks = rng.integers(0, cfg.vocab, (LM_CHECK_B, LM_CHECK_S)
+                        ).astype(np.int32)
+    batch = prefill_batch(cfg, rng, toks[:, :1],
+                          ENCDEC_SRC["card" if card else "cpu"])
+    _, pre_cache = api.prefill(params, batch)
+    cache = {"self": api.init_cache(LM_CHECK_B, LM_CHECK_S,
+                                    enc_len=0)["self"],
+             "cross": pre_cache["cross"]}
+    gaps = []
+    for t in range(LM_CHECK_S):
+        dec, cache = api.decode_step(params, cache, toks[:, t], t + 1)
+        pre, pre_cache = api.prefill(params, dict(batch,
+                                                  tokens=toks[:, :t + 1]))
+        gaps.append(rel_gap(pre, dec))
+        check(gaps[-1] < LM_TOL, f"encdec: decode differs from prefill at "
+              f"step {t} ({gaps[-1]} of max |logits|)")
+    kv_gap = {key: rel_gap(w, cache_leaves(cache)[key])
+              for key, w in cache_leaves(pre_cache).items()}
+    check(max(kv_gap.values()) < LM_TOL,
+          f"encdec: the decoded caches differ from prefill's {kv_gap}")
+    check(on_device(dev, params, cache),
+          "encdec: a model or cache tensor is not on the card")
+    check_a = {"steps": LM_CHECK_S, "batch": LM_CHECK_B,
+               "src_frames": batch["src_embeds"].shape[1], "tol": LM_TOL,
+               "max_rel_logit_gap": max(gaps), "rel_logit_gaps": gaps,
+               **{f"{k}_rel_gap": v for k, v in kv_gap.items()}}
+    del cache, pre_cache, pre, dec
+    split_s["check_a"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    check_c = card_against_cpu(ENCDEC_ARCH, ENCDEC_SEED, rng, dev)
+    split_s["check_c"] = time.perf_counter() - t0
+
+    # (d): prompts of max_len - 1, max_len and max_len + 4 tokens: each
+    # request samples once (its prompt fills the cache) and stops
+    t0 = time.perf_counter()
+    prompts = [rng.integers(0, cfg.vocab, C8_MAX_LEN + extra).astype(np.int32)
+               for extra in (-1, 0, 4)]
+    out = ServingEngine(api, slots=3, max_len=C8_MAX_LEN).run(
+        params, [Request(i, p, 4) for i, p in enumerate(prompts)])
+    check(sorted(out) == [0, 1, 2] and all(len(v) == 1 for v in out.values()),
+          f"encdec: prompts past the cache were not served as the "
+          f"reference serves them ({out})")
+    check_d = {"max_len": C8_MAX_LEN, "prompt_tokens": [len(p) for p in
+                                                        prompts],
+               "generated": [out[i] for i in range(3)]}
+    split_s["check_d"] = time.perf_counter() - t0
+
+    engine = engine_arm(api, params, cfg, size, rng, "encdec", dev)
+    # a step reads the decoder and the head (not the encoder) and the
+    # self and cross K/V
+    dec_params = list(params.dec.parameters()) + [params.lm_head,
+                                                  params.final_norm]
+
+    def kv_bytes(n):
+        return 2 * cfg.n_layers * size["slots"] * n * cfg.n_kv_heads \
+            * cfg.hd * 2
+
+    engine.update(step_bounds(param_bytes(dec_params),
+                              kv_bytes(size["max_len"]) + kv_bytes(ENC_LEN),
+                              sum(p.numel() for p in dec_params),
+                              size["slots"]),
+                  self_kv_bytes=kv_bytes(size["max_len"]),
+                  cross_kv_bytes=kv_bytes(ENC_LEN))
+    split_s["engine"] = engine["engine_wall_s"]
+    rec = {"arch": cfg.name, "enc_layers": cfg.enc_layers,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_params": sum(p.numel() for p in params.parameters()),
+           "weight_bytes": param_bytes(params.parameters()),
+           "check_decode_vs_prefill": check_a, "check_card_vs_cpu": check_c,
+           "check_past_the_cache": check_d, "engine": engine,
+           "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
+                                 if card else 0),
+           "split_s": split_s, "phase_s": time.perf_counter() - t_phase}
+    del params
+    free_card(dev)
+    log("encdec", **rec)
+    return rec
+
+
+def phase_ssm(dev):
+    """The state-space serving path at mamba2-130m's published widths and
+    depth (24 layers) with random weights from a seed: (a) the chunked
+    SSD against the naive scan at full widths (B 2, S 1,024, a random
+    initial state, f32), then prefill and decode from its states against
+    the full forward pass over every prefix; (c) the smoke config on the
+    card against the CPU; (d) the engine's state carried from one request
+    to the next in a slot (ROADMAP C10) equal to the CPU engine's ids, and
+    the engine arm's stopping rule; (e) every tensor on the card; the
+    engine arm (the lm phase's traffic) with its bytes a step and bound;
+    the prefill arm at 32,768 tokens and batch 4, its time and peak
+    memory."""
+    t_phase = time.perf_counter()
+    card = on_card(dev)
+    with f32_accumulation():
+        return _phase_ssm(dev, t_phase, card,
+                          LM_SIZES["card" if card else "cpu"])
+
+
+def _phase_ssm(dev, t_phase, card, size):
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models import mamba2 as M
+    from repro_torch.serving import Request, ServingEngine
+
+    where = "card" if card else "cpu"
+    cfg = get_arch(SSM_ARCH) if card else smoke_config(SSM_ARCH)
+    api = build_model(cfg, device=dev)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SSM_SEED)
+    params = api.init(gen)
+    sync(dev)
+    split_s = {"init": time.perf_counter() - t0}
+    rng = np.random.default_rng(SSM_SEED)
+
+    # (a): the chunked SSD against the naive scan at the config's widths
+    t0 = time.perf_counter()
+    sc = cfg.ssm
+    H = sc.expand * cfg.d_model // sc.head_dim
+    B, S = SSD_CHECK[where]["B"], SSD_CHECK[where]["S"]
+    x = torch.randn((B, S, H, sc.head_dim), generator=gen, device=dev)
+    dt = torch.rand((B, S, H), generator=gen, device=dev) * 0.19 + 0.01
+    Bm, Cm = (torch.randn((B, S, sc.d_state), generator=gen, device=dev)
+              for _ in range(2))
+    h0 = torch.randn((B, H, sc.head_dim, sc.d_state), generator=gen,
+                     device=dev)
+    A = params.layers[0].mixer.A_log
+    y_c, h_c = M.ssd_chunked(x, dt, A, Bm, Cm, chunk=sc.chunk, init_state=h0)
+    y_n, h_n = M.ssd_naive(x, dt, A, Bm, Cm, init_state=h0)
+    ssd = {"batch": B, "seq": S, "chunk": sc.chunk, "tol": SSD_TOL,
+           "y_rel_gap": rel_gap(y_n, y_c), "state_rel_gap": rel_gap(h_n, h_c)}
+    check(ssd["y_rel_gap"] < SSD_TOL and ssd["state_rel_gap"] < SSD_TOL,
+          f"ssm: the chunked SSD differs from the naive scan {ssd}")
+    del x, dt, Bm, Cm, h0, y_c, h_c, y_n, h_n
+    split_s["check_ssd"] = time.perf_counter() - t0
+
+    # (a): prefill over SSM_PROMPT tokens, then decode from its states
+    # against the full forward pass over every prefix
+    t0 = time.perf_counter()
+    toks = rng.integers(0, cfg.vocab, (LM_CHECK_B, SSM_PROMPT + LM_CHECK_S)
+                        ).astype(np.int32)
+    _, cache = api.prefill(params, {"tokens": toks[:, :SSM_PROMPT]})
+    gaps = []
+    for t in range(SSM_PROMPT, SSM_PROMPT + LM_CHECK_S):
+        dec, cache = api.decode_step(params, cache, toks[:, t], t + 1)
+        pre, pre_cache = api.prefill(params, {"tokens": toks[:, :t + 1]})
+        gaps.append(rel_gap(pre, dec))
+        check(gaps[-1] < LM_TOL, f"ssm: decode differs from prefill at "
+              f"position {t} ({gaps[-1]} of max |logits|)")
+    st_gap = {key: rel_gap(w, cache_leaves(cache)[key])
+              for key, w in cache_leaves(pre_cache).items()}
+    check(max(st_gap.values()) < LM_TOL,
+          f"ssm: the decoded states differ from prefill's {st_gap}")
+    check(on_device(dev, params, cache),
+          "ssm: a model or state tensor is not on the card")
+    check_a = {"ssd": ssd, "prompt": SSM_PROMPT, "steps": LM_CHECK_S,
+               "batch": LM_CHECK_B, "tol": LM_TOL,
+               "max_rel_logit_gap": max(gaps),
+               **{f"{k}_rel_gap": v for k, v in st_gap.items()}}
+    del cache, pre_cache, pre, dec
+    split_s["check_a"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    check_c = card_against_cpu(SSM_ARCH, SSM_SEED, rng, dev)
+    split_s["check_c"] = time.perf_counter() - t0
+
+    # (d): two requests through one slot of the smoke engine, on the card
+    # and the CPU: the second runs on the first's state (ROADMAP C10)
+    t0 = time.perf_counter()
+    scfg = smoke_config(SSM_ARCH)
+    cpu_api = build_model(scfg, device="cpu")
+    cpu_params = cpu_api.init(torch.Generator().manual_seed(SSM_SEED))
+    s_api = build_model(scfg, device=dev)
+    s_params = copy.deepcopy(cpu_params).to(dev)
+    prompts = [rng.integers(0, scfg.vocab, int(rng.integers(4, 9)))
+               for _ in range(2)]
+
+    def serve(a, p, ps):
+        return ServingEngine(a, slots=1, max_len=32).run(
+            p, [Request(i, q, 4) for i, q in enumerate(ps)])
+
+    want, got = serve(cpu_api, cpu_params, prompts), serve(s_api, s_params,
+                                                           prompts)
+    check(got == want, f"ssm: the card engine's ids {got} differ from the "
+          f"CPU's {want}")
+    alone = serve(s_api, s_params, prompts[1:])
+    check_d = {"ids": [got[0], got[1]], "second_alone": alone[0],
+               "carried_state_changed_ids": alone[0] != got[1]}
+    del cpu_params, s_params
+    split_s["check_d"] = time.perf_counter() - t0
+
+    engine = engine_arm(api, params, cfg, size, rng, "ssm", dev)
+    # a step reads every weight (the tied embedding is the head) and
+    # reads and writes each slot's (h, conv) state
+    state = api.init_cache(size["slots"], size["max_len"])
+    state_bytes = 2 * param_bytes(state)
+    del state
+    engine.update(step_bounds(param_bytes(params.parameters()), state_bytes,
+                              sum(p.numel() for p in params.parameters()),
+                              size["slots"]))
+    split_s["engine"] = engine["engine_wall_s"]
+
+    # the prefill arm: CUDA events around each call, the first warms up
+    t0 = time.perf_counter()
+    B, S = SSM_PREFILL[where]["B"], SSM_PREFILL[where]["S"]
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    free_card(dev)
+    before = held_bytes(dev)
+    if card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    walls = []
+    for _ in range(2):
+        if card:
+            a, b = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            a.record()
+        t_call = time.perf_counter()
+        logits, states = api.prefill(params, {"tokens": tokens})
+        if card:
+            b.record()
+            b.synchronize()
+        walls.append(a.elapsed_time(b) if card
+                     else (time.perf_counter() - t_call) * 1e3)
+        check(bool(torch.isfinite(logits).all()) and all(
+            bool(torch.isfinite(t.float()).all()) for t in states),
+            "ssm: non-finite prefill logits or states")
+    prefill = {"batch": B, "seq": S, "first_ms": walls[0], "ms": walls[1],
+               "tokens_per_s": B * S / walls[1] * 1e3,
+               "device_bytes_before": before,
+               "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
+                                     if card else 0)}
+    del logits, states, tokens
+    free_card(dev)
+    split_s["prefill"] = time.perf_counter() - t0
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model,
+           "n_params": sum(p.numel() for p in params.parameters()),
+           "weight_bytes": param_bytes(params.parameters()),
+           "check_decode_vs_prefill": check_a, "check_card_vs_cpu": check_c,
+           "check_carried_state": check_d, "engine": engine,
+           "prefill": prefill, "split_s": split_s,
+           "phase_s": time.perf_counter() - t_phase}
+    del params
+    free_card(dev)
+    log("ssm", **rec)
+    return rec
+
+
+def profiled_steps(api, params, cache, tok, lens, steps, dev) -> tuple:
+    """``steps`` decode steps under torch.profiler, each followed by the
+    logits' copy to the host, after one unprofiled warm-up step, with
+    ``past_cache="drop"`` as ServingEngine passes it: the device profile
+    a step and the profiled wall a step in ms."""
+    import numpy as np
     from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if on_card(dev) else [])
+    logits, cache = api.decode_step(params, cache, tok, lens,
+                                    past_cache="drop")
+    sync(dev)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, cache = api.decode_step(params, cache, tok, lens + 1 + i,
+                                            past_cache="drop")
+            np.asarray(logits.cpu())
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    check(all(t.device.type == dev.type
+              for t in cache_leaves(cache).values()),
+          "lm_profile: a cache tensor is not on the card")
+    return device_profile(prof, steps), wall_ms
+
+
+def phase_lm_profile(dev, rec, encdec_rec, ssm_rec):
+    """The lm, encdec and ssm phases' steps under torch.profiler, after
+    every wall of the run, on the same seeded weights: for each, three
+    engine-shaped steps (8 slots, max_len 1,024, ragged lengths), and for
+    Qwen3-4B the same with slot 0 past the cache (the C8 write guard on)
+    and one step over the 32,768-position cache; device kernels, copies
+    and launches a step, device ms, the busy share against the phase's
+    unprofiled step (none for the guarded steps, which the engine arm
+    does not run), the top 5 device ops."""
+    import numpy as np
+    import torch
     from repro_torch.configs import get_arch, smoke_config
     from repro_torch.models import build_model
 
     t_phase = time.perf_counter()
     card = on_card(dev)
     size = LM_SIZES["card" if card else "cpu"]
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
-                                           if card else [])
     rng = np.random.default_rng(LM_SEED + 2)
-    cfg = get_arch(LM_ARCH) if card else smoke_config(LM_ARCH)
     out = {}
     with f32_accumulation():
-        api = build_model(cfg, device=dev)
-        params = api.init(torch.Generator(device=dev).manual_seed(LM_SEED))
-        for arm, B, S in (("engine", size["slots"], size["max_len"]),
-                          ("long_cache", size["long_b"], size["long_len"])):
-            if arm == "engine":
-                cache, steps = api.init_cache(B, S), LM_PROFILE_STEPS
-                lens = rng.integers(1, S - steps - 1, B).astype(np.int32)
-            else:
-                cache, steps = fill_long_cache(cfg, size, dev), 1
-                lens = rng.integers(size["long_min"], S - steps - 1,
-                                    B).astype(np.int32)
-            tok = rng.integers(0, cfg.vocab, B).astype(np.int32)
-            logits, cache = api.decode_step(params, cache, tok, lens)
-            sync(dev)
-            with profile(activities=activities) as prof:
-                t0 = time.perf_counter()
-                for i in range(steps):
-                    logits, cache = api.decode_step(params, cache, tok,
-                                                    lens + 1 + i)
-                    np.asarray(logits.cpu())
-                wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-            check(all(t.device.type == dev.type for t in cache.values()),
-                  f"lm_profile: the {arm} KV cache is not on the card")
-            got = device_profile(prof, steps)
-            unprofiled = (rec["engine"]["host_step_ms_median"]
-                          if arm == "engine"
-                          else rec["long_cache"]["step_ms_median"])
-            out[arm] = dict(got, steps=steps, profiled_step_ms=wall_ms,
-                            unprofiled_step_ms=unprofiled,
-                            device_busy_share=got["device_ms_per_step"]
-                            / unprofiled)
-            del cache, logits
+        for arch, seed, arms, arch_rec in (
+                (LM_ARCH, LM_SEED, ("engine", "engine_past_cache",
+                                    "long_cache"), rec),
+                (ENCDEC_ARCH, ENCDEC_SEED, ("engine",), encdec_rec),
+                (SSM_ARCH, SSM_SEED, ("engine",), ssm_rec)):
+            cfg = get_arch(arch) if card else smoke_config(arch)
+            api = build_model(cfg, device=dev)
+            params = api.init(torch.Generator(device=dev).manual_seed(seed))
+            for arm in arms:
+                if arm.startswith("engine"):
+                    B, S = size["slots"], size["max_len"]
+                    cache, steps = api.init_cache(B, S), LM_PROFILE_STEPS
+                    lens = rng.integers(1, S - steps - 1, B).astype(np.int32)
+                    unprofiled = arch_rec["engine"]["host_step_ms_median"]
+                    if arm == "engine_past_cache":
+                        lens[0], unprofiled = S + 1, None
+                else:
+                    B, S = size["long_b"], size["long_len"]
+                    cache, steps = fill_long_cache(cfg, size, dev), 1
+                    lens = rng.integers(size["long_min"], S - steps - 1,
+                                        B).astype(np.int32)
+                    unprofiled = arch_rec["long_cache"]["step_ms_median"]
+                tok = rng.integers(0, cfg.vocab, B).astype(np.int32)
+                got, wall_ms = profiled_steps(api, params, cache, tok, lens,
+                                              steps, dev)
+                label = arm if arch == LM_ARCH else f"{arch}_{arm}"
+                out[label] = dict(got, steps=steps, profiled_step_ms=wall_ms,
+                                  unprofiled_step_ms=unprofiled,
+                                  device_busy_share=None if unprofiled
+                                  is None else got["device_ms_per_step"]
+                                  / unprofiled)
+                del cache
+                free_card(dev)
+            del params
             free_card(dev)
     log("lm_profile", **out, phase_s=time.perf_counter() - t_phase)
     return out
@@ -3356,6 +3814,9 @@ def main() -> int:
     # A9: the LM serving path's walls, before any CUDA graph or profiler
     # session of the process; its profiled steps come last
     lm_rec = phase_lm(dev)
+    torch.cuda.empty_cache()
+    encdec_rec = phase_encdec(dev)
+    ssm_rec = phase_ssm(dev)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -3437,7 +3898,7 @@ def main() -> int:
     ivf, ivf_recs = phase_ivf(X, Q, gt, pdsp, opq, dev)
     Xr = np.ascontiguousarray(X[:N_RULES])
     gt_r = nearest(d2[:, :N_RULES])
-    phase_delta(X, Q, gt, Xr, gt_r, dev)
+    phase_delta(X, Q, gt, Xr, gt_r, pdsp, dev)
     ts_rec = phase_two_stage(X, Q, gt, pdsp, flat_ids, dev)
     Qo, d2o, ada_recs = phase_adaptive(X, Q, gt, pdsp, opq, opq_ids,
                                        (flat_ids, flat_dists, flat_rec), dev)
@@ -3518,17 +3979,23 @@ def main() -> int:
              time_dco_scan_grouped),
             ("pq_lookup", opq, SchedulePolicy(), opq_rec,
              lambda sess, Q, res, dev: time_pq_lookup(sess, Q, dev))):
+        t_setup = time.perf_counter()
         sess = SearchSession(fitted, schedule, device=dev)
         res = sess.search(Q, K)                 # materializes the layout
+        setup_s = time.perf_counter() - t_setup
         log("profile", method=rec["method"], dim_groups=rec["dim_groups"],
+            setup_s=setup_s,
             **profile_batch(sess, Q, float(np.median(rec["search_walls_s"]))))
         if kernel == "dco_scan":    # the fixed screen on the OOD batch
             sess.search(Qo, K)
             log("profile", method="PDScanning+", label="fixed_ood",
                 **profile_batch(sess, Qo, float(np.median(
                     ada_recs["ood"]["fixed"]["search_walls_s"]))))
+        t_timer = time.perf_counter()
         rows[kernel] = dict(launches=rec["launches_per_batch"][kernel],
                             **timer(sess, Q, res, dev))
+        log("kernel_timing_done", kernel=kernel,
+            seconds=time.perf_counter() - t_timer)
         del sess, res
         torch.cuda.empty_cache()
     for label, schedule, rec, index_kind in (
@@ -3538,11 +4005,13 @@ def main() -> int:
              ivf_recs["flat_default_budget"], "ivf"),
             ("two_stage", SchedulePolicy(engine="two_stage"), ts_rec,
              "flat")):
+        t_setup = time.perf_counter()
         sess = SearchSession(pdsp, schedule, index_kind=index_kind,
                              index=ivf if index_kind == "ivf" else None,
                              device=dev)
         sess.search(Q, K, nprobe=NPROBE)        # materializes the layout
         log("profile", method="PDScanning+", label=label,
+            setup_s=time.perf_counter() - t_setup,
             **profile_batch(sess, Q,
                             float(np.median(rec["search_walls_s"]))))
         del sess
@@ -3557,18 +4026,20 @@ def main() -> int:
             ("adaptive_id", pdsp, ada, Q, ada_recs["id"]),
             ("adaptive_ood", pdsp, ada, Qo, ada_recs["ood"]),
             ("adaptive_ddcopq", opq, ada, Q, ada_recs["ddcopq"])):
+        t_setup = time.perf_counter()
         if sess is None or sess.method is not fitted:
             sess = None
             torch.cuda.empty_cache()
             sess = SearchSession(fitted, schedule, device=dev)
         sess.search(Qx, K)                      # materializes the layout
         log("profile", method=rec["method"], label=label,
+            setup_s=time.perf_counter() - t_setup,
             **profile_batch(sess, Qx,
                             float(np.median(rec["search_walls_s"]))))
     del sess
     torch.cuda.empty_cache()
     log("profile_done", seconds=time.perf_counter() - t0)
-    phase_lm_profile(dev, lm_rec)
+    phase_lm_profile(dev, lm_rec, encdec_rec, ssm_rec)
 
     # launches on the IVF, adaptive, anytime and serving paths of each
     # kernel, beside the main path's

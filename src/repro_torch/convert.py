@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.api.backends import resolve_device
 from repro_torch.core.methods import make_method
-from repro_torch.models.lm import DenseLM
+from repro_torch.models.lm import DenseLM, EncDecLM, SSMLM
 from repro_torch.search.ivf import IVFIndex
 
 
@@ -52,16 +52,32 @@ def index_from_reference(ref_index) -> IVFIndex:
     return idx
 
 
-def params_from_reference(cfg, ref_params, device=None) -> DenseLM:
-    """The port's dense or VLM decoder (``DenseLM``) on ``device``
-    (default: the CUDA card) holding ``ref_params``, the reference's
-    parameter tree for ``cfg``: a dict with ``embed``, ``final_norm``,
-    ``layers`` (every leaf stacked over a leading (L, ...) axis; ``n1``
-    and ``n2`` None for the non-parametric norm) and, untied, ``lm_head``,
-    read through ``np.asarray``.  Matmul weights and the embedding are
-    rounded once to bf16, the gains kept f32, so both packages compute on
-    the same numbers."""
-    model = DenseLM(cfg, None, device=resolve_device(device))
+def params_from_reference(cfg, ref_params, device=None) -> torch.nn.Module:
+    """The port's model of ``cfg``'s family on ``device`` (default: the
+    CUDA card) holding ``ref_params``, the reference's parameter tree for
+    ``cfg``, read through ``np.asarray``:
+
+    * dense and VLM (``DenseLM``): ``embed``, ``final_norm``, ``layers``
+      (``n1`` and ``n2`` None for the non-parametric norm) and, untied,
+      ``lm_head``;
+    * encdec (``EncDecLM``): ``embed``, ``enc``, ``dec``, ``enc_norm``,
+      ``final_norm`` and ``lm_head``;
+    * ssm (``SSMLM``): ``embed``, ``layers`` (``mixer`` with ``in_proj``,
+      ``conv_w``, ``A_log``, ``D``, ``dt_bias``, ``norm``, ``out_proj``,
+      and ``n1``) and ``final_norm``.
+
+    The leaves of ``layers``, ``enc`` and ``dec`` are stacked over a
+    leading (L, ...) axis of the model's depth.  Every leaf is copied into the model's tensor of
+    the same name, so matmul weights and the embedding are rounded once to
+    bf16, and the gains and the mixer's f32 leaves stay f32: both packages
+    compute on the same numbers.  A leaf of another shape, or an
+    ``lm_head`` that does not fit ``tie_embeddings``, is refused."""
+    families = {"dense": DenseLM, "vlm": DenseLM, "encdec": EncDecLM,
+                "ssm": SSMLM}
+    if cfg.family not in families:
+        raise NotImplementedError(
+            f"the {cfg.family!r} family is not ported yet (ROADMAP A9 (b))")
+    model = families[cfg.family](cfg, None, device=resolve_device(device))
     if ("lm_head" in ref_params) == bool(cfg.tie_embeddings):
         raise ValueError(f"lm_head in the reference tree does not fit "
                          f"tie_embeddings={cfg.tie_embeddings}")
@@ -69,13 +85,19 @@ def params_from_reference(cfg, ref_params, device=None) -> DenseLM:
     with torch.no_grad():
         for name, p in model.named_parameters():
             parts = name.split(".")
-            if parts[0] == "layers":
-                path = tuple(parts[2:])
+            if parts[0] in ("layers", "enc", "dec"):
+                path = (parts[0],) + tuple(parts[2:])
                 if path not in stacked:
-                    leaf = ref_params["layers"]
+                    leaf = ref_params
                     for key in path:
                         leaf = leaf[key]
                     stacked[path] = np.array(leaf, np.float32)
+                    n = len(getattr(model, parts[0]))
+                    if stacked[path].shape[0] != n:
+                        raise ValueError(
+                            f"{name}: the reference stacks "
+                            f"{stacked[path].shape[0]} {parts[0]}, the model "
+                            f"holds {n}")
                 src = stacked[path][int(parts[1])]
             else:
                 src = np.array(ref_params[name], np.float32)

@@ -99,6 +99,25 @@ def fit_random_rotation(dim: int, *, max_rank: int = 2048, seed: int = 0) -> dic
 # ---------------------------------------------------------------------------
 
 
+def cluster_sums(X: np.ndarray, assign: np.ndarray, k: int):
+    """(sums (k, D) float64, counts (k,) int64) of X's rows by cluster.
+
+    The same numbers as ``np.add.at(np.zeros((k, D)), assign, X)``: each
+    cluster's rows are added in row order in float64 (``np.add.reduceat``
+    along rows accumulates sequentially) and the trailing ``+ 0.0`` turns
+    a -0.0 sum into the 0.0 that adding from zero gives.  A stable sort
+    and one reduceat replace the unbuffered scatter of every element,
+    which took most of a host k-means' time."""
+    counts = np.bincount(assign, minlength=k)
+    sums = np.zeros((k, X.shape[1]), np.float64)
+    nz = counts > 0
+    if nz.any():
+        rows = X[np.argsort(assign, kind="stable")].astype(np.float64)
+        starts = (np.cumsum(counts) - counts)[nz]
+        sums[nz] = np.add.reduceat(rows, starts, axis=0) + 0.0
+    return sums, counts
+
+
 def _kmeans(X: np.ndarray, k: int, iters: int, rng) -> np.ndarray:
     n = X.shape[0]
     cent = X[rng.choice(n, size=min(k, n), replace=False)].copy()
@@ -107,9 +126,8 @@ def _kmeans(X: np.ndarray, k: int, iters: int, rng) -> np.ndarray:
     for _ in range(iters):
         d2 = (X ** 2).sum(1, keepdims=True) - 2 * X @ cent.T + (cent ** 2).sum(1)
         assign = d2.argmin(1)
-        sums = np.zeros((k, X.shape[1]), np.float64)
-        np.add.at(sums, assign, X)
-        counts = np.bincount(assign, minlength=k).astype(np.float64)
+        sums, counts = cluster_sums(X, assign, k)
+        counts = counts.astype(np.float64)
         upd = counts > 0
         cent[upd] = (sums[upd] / counts[upd, None]).astype(np.float32)
     return cent.astype(np.float32)

@@ -2,11 +2,14 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --requests 6
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --full
 
 The model runs on the CUDA card unless ``--device cpu`` is given; its
 weights are random, drawn from ``--seed`` (no download).  ``--full``
 serves the published widths and depth, else the family's reduced smoke
-config.
+config.  Every family ``build_model`` serves runs: the dense and VLM
+decoders, seamless-m4t-large-v2 (its engine decodes against zero cross
+K/V, as the reference's does) and mamba2-130m.
 """
 from __future__ import annotations
 

@@ -72,11 +72,14 @@ def attention_forward(params, cfg, x, *, kind="causal", prefix_len=0,
     return (out, (k, v)) if return_kv else out
 
 
-def attention_decode(params, cfg, x, cache, cur_len, *, cross=False):
+def attention_decode(params, cfg, x, cache, cur_len, *, cross=False,
+                     drop=False):
     """One-token decode.  ``cache`` = {'k','v'} (B, Smax, Hkv, hd) for self-
     attention (written in place at cur_len-1) or static cross K/V
     (read-only).  ``cur_len`` is a scalar or a (B,) int tensor on x's
-    device."""
+    device.  With ``drop``, a slot whose position cur_len-1 lies past
+    Smax writes nothing and attends over all Smax positions, as the
+    reference's out-of-range scatter does."""
     B = x.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     xc = x.to(CDTYPE)
@@ -98,8 +101,18 @@ def attention_decode(params, cfg, x, cache, cur_len, *, cross=False):
         # write at per-slot positions (cur_len may be scalar or (B,))
         rows = torch.arange(B, device=x.device)
         k_cache, v_cache = cache["k"], cache["v"]
-        k_cache.index_put_((rows, idx), k[:, 0].to(k_cache.dtype))
-        v_cache.index_put_((rows, idx), v[:, 0].to(v_cache.dtype))
+        k_new, v_new = k[:, 0].to(k_cache.dtype), v[:, 0].to(v_cache.dtype)
+        if drop:
+            # a slot past the cache writes back what its last position
+            # holds, with no host read of the lengths (they may be a
+            # device tensor)
+            smax = k_cache.shape[1]
+            inside = (idx < smax)[:, None, None]
+            idx = idx.clamp(max=smax - 1)
+            k_new = torch.where(inside, k_new, k_cache[rows, idx])
+            v_new = torch.where(inside, v_new, v_cache[rows, idx])
+        k_cache.index_put_((rows, idx), k_new)
+        v_cache.index_put_((rows, idx), v_new)
         out = decode_attention(q, k_cache, v_cache, cur_len)
     out = (out.reshape(B, 1, -1).to(CDTYPE) @ params.wo).to(x.dtype)
     return out, cache

@@ -1,23 +1,33 @@
-"""Model assembly behind one ``ModelApi``: the dense and VLM decoders.
+"""Model assembly behind one ``ModelApi``: the dense, VLM, encoder-decoder
+and state-space families.
 
 Counterpart of the reference package's ``models/lm.py`` for the families
 the port serves so far:
   dense  — qwen3-32b/4b, olmo-1b, starcoder2-7b
   vlm    — paligemma (stubbed patch-embedding prefix, prefix-LM mask)
-The other families (moe, ssm, hybrid, encdec) raise
-``NotImplementedError`` naming their ROADMAP item (A9 (b)), and so does
-``ModelApi.loss`` (training, A9 (c)).
+  encdec — seamless-m4t (stubbed audio-frame encoder input)
+  ssm    — mamba2-130m
+The other families (moe, hybrid) raise ``NotImplementedError`` naming
+their ROADMAP item (A9 (b)), and so does ``ModelApi.loss`` (training,
+A9 (c)).
 
-The parameters are an ``nn.Module`` tree (``DenseLM``: the embedding, a
-``ModuleList`` of blocks, the final norm and an optional ``lm_head``),
-passed as ``params`` to the same call shapes as the reference's:
-``decode_step(params, cache, token, cur_len)``.  Serving holds every
-matmul weight and the embedding once in bf16, the norm gains in f32:
-the reference keeps f32 weights and casts them to bf16 at each use,
-which gives the same numbers; the training slice will add f32 master
-weights beside them.  Layers run in a Python loop, eagerly; the KV cache
-is one preallocated (L, B, Smax, Hkv, hd) bf16 tensor pair written in
-place.
+The parameters are an ``nn.Module`` tree (``DenseLM``, ``EncDecLM``,
+``SSMLM``: the embedding, ``ModuleList``s of blocks, the final norm and
+an optional ``lm_head``), passed as ``params`` to the same call shapes as
+the reference's: ``decode_step(params, cache, token, cur_len)``.  Serving
+holds every matmul weight and the embedding once in bf16, the norm gains
+(and the Mamba-2 mixer's conv, decay and skip parameters) in f32: the
+reference keeps f32 weights and casts them to bf16 at each use, which
+gives the same numbers; the training slice will add f32 master weights
+beside them.  Layers run in a Python loop, eagerly; the KV cache is one
+preallocated (L, B, Smax, Hkv, hd) bf16 tensor pair and the SSM state an
+(L, ...) pair, both written in place.
+
+``decode_step`` refuses a ``cur_len`` outside [1, Smax] by default.  The
+serving engine feeds a prompt of Smax tokens or more through it, as the
+reference's does, and passes ``past_cache="drop"``: the step then
+computes what the reference computes there (RoPE at the true position,
+the K/V write dropped, attention over all Smax positions).
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ from repro_torch.api.backends import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.models.layers import CDTYPE, _weight
 
 
@@ -40,7 +51,8 @@ class ModelApi:
     init: Callable                    # (generator) -> params
     loss: Callable                    # (params, batch) -> (loss, metrics)
     prefill: Callable                 # (params, batch) -> (logits, cache)
-    decode_step: Callable             # (params, cache, token, cur_len) -> (logits, cache)
+    decode_step: Callable             # (params, cache, token, cur_len, *,
+                                      #  past_cache) -> (logits, cache)
     init_cache: Callable              # (batch, max_len) -> cache
 
 
@@ -78,6 +90,33 @@ def _head(params, cfg, h):
     return (h.to(CDTYPE) @ w).to(torch.float32)
 
 
+def _no_loss(params, batch):
+    raise NotImplementedError(
+        "training is not ported yet (ROADMAP A9 (c)): the loss needs "
+        "chunked_ce and f32 master weights")
+
+
+def _step_lengths(cur_len, smax, past_cache, device):
+    """A decode step's ``cur_len`` (a scalar or (B,)) as a long tensor on
+    ``device``, and whether the step must guard its K/V write.  Host
+    lengths are checked: at least 1, and with ``past_cache="refuse"`` at
+    most ``smax``.  ``"drop"`` lets a length run past the cache; the
+    guard (the write dropped there) runs only when a host length does,
+    or when the lengths are a tensor and cannot be read without a sync,
+    so a step inside the cache is the plain in-place write."""
+    if past_cache not in ("refuse", "drop"):
+        raise ValueError(f"past_cache must be 'refuse' or 'drop', not "
+                         f"{past_cache!r}")
+    drop = past_cache == "drop"
+    if not torch.is_tensor(cur_len):
+        n = np.asarray(cur_len)
+        top = np.inf if drop else smax
+        if n.size and (n.min() < 1 or n.max() > top):
+            raise ValueError(f"cur_len must lie in [1, {top}]: {n}")
+        drop = drop and bool(n.size) and int(n.max()) > smax
+    return _on(cur_len, device).long(), drop
+
+
 def _final_norm(params, cfg, h):
     return (L.rms_norm(h, params.final_norm) if not cfg.nonparam_ln
             else L.nonparam_layer_norm(h))
@@ -102,10 +141,18 @@ class DenseBlock(torch.nn.Module):
             self.register_parameter(name, None if g is None else _weight(g))
 
 
-def _dense_block_decode(p, cfg, h, cache, cur_len):
+def _dense_block(p, cfg, h, *, kind="causal", prefix_len=0):
+    _, apply_n = L.make_norm(cfg)
+    h = h + A.attention_forward(p.attn, cfg, apply_n(p.n1, h),
+                                kind=kind, prefix_len=prefix_len)
+    h = h + L.mlp(p.mlp, cfg, apply_n(p.n2, h))
+    return h
+
+
+def _dense_block_decode(p, cfg, h, cache, cur_len, *, drop=False):
     _, apply_n = L.make_norm(cfg)
     a, cache = A.attention_decode(p.attn, cfg, apply_n(p.n1, h),
-                                  cache, cur_len)
+                                  cache, cur_len, drop=drop)
     h = h + a
     h = h + L.mlp(p.mlp, cfg, apply_n(p.n2, h))
     return h, cache
@@ -144,11 +191,6 @@ def build_dense(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
         on the model's device), one tensor at a time."""
         return DenseLM(cfg, generator, device=dev)
 
-    def loss(params, batch):
-        raise NotImplementedError(
-            "training is not ported yet (ROADMAP A9 (c)): the loss needs "
-            "chunked_ce and f32 master weights")
-
     def _inputs_to_h(params, batch):
         h = params.embed[_on(batch["tokens"], dev).long()]
         if prefix and "patches" in batch:
@@ -182,34 +224,227 @@ def build_dense(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
         return {"k": torch.zeros(shape, dtype=CDTYPE, device=dev),
                 "v": torch.zeros(shape, dtype=CDTYPE, device=dev)}
 
-    def decode_step(params, cache, token, cur_len):
+    def decode_step(params, cache, token, cur_len, *, past_cache="refuse"):
         """One token a slot: ``token`` (B,), ``cur_len`` a scalar or (B,)
         of lengths including it (the token goes to ``cur_len - 1``).
         Writes ``cache`` in place and returns it with the (B, Vp) f32
-        logits."""
-        smax = cache["k"].shape[2]
-        if not torch.is_tensor(cur_len):
-            n = np.asarray(cur_len)
-            if n.size and (n.min() < 1 or n.max() > smax):
-                raise ValueError(f"cur_len must lie in [1, {smax}]: {n}")
-        cl = _on(cur_len, dev).long()
+        logits.  ``past_cache="drop"`` serves a length past the cache as
+        the reference does (module docstring)."""
+        cl, drop = _step_lengths(cur_len, cache["k"].shape[2], past_cache,
+                                 dev)
         h = params.embed[_on(token, dev).long()][:, None, :]
         for i, lp in enumerate(params.layers):
             h, _ = _dense_block_decode(
-                lp, cfg, h, {"k": cache["k"][i], "v": cache["v"][i]}, cl)
+                lp, cfg, h, {"k": cache["k"][i], "v": cache["v"][i]}, cl,
+                drop=drop)
             h = _c(h)
         h = _final_norm(params, cfg, h)
         logits = _head(params, cfg, h)[:, 0]
         return logits, cache
 
-    return ModelApi(cfg, init, loss, prefill, decode_step, init_cache)
+    return ModelApi(cfg, init, _no_loss, prefill, decode_step, init_cache)
+
+
+# ---------------------------------------------------------------------------
+# family: ssm (mamba2)
+# ---------------------------------------------------------------------------
+
+
+class MambaBlock(torch.nn.Module):
+    """``mixer`` (``Mamba2Mixer``) and the gain ``n1`` (d,) f32."""
+
+    def __init__(self, cfg, gen=None, *, device=None):
+        super().__init__()
+        self.mixer = M.Mamba2Mixer(cfg, gen, device=device)
+        self.n1 = _weight(torch.ones(cfg.d_model, dtype=torch.float32,
+                                     device=device))
+
+
+class SSMLM(torch.nn.Module):
+    """The state-space LM's parameters: ``embed`` (vocab_padded, d) bf16,
+    tied to the head as in the reference's, ``layers`` and ``final_norm``
+    (d,) f32."""
+
+    def __init__(self, cfg, gen=None, *, device=None):
+        super().__init__()
+        self.layers = torch.nn.ModuleList(
+            MambaBlock(cfg, gen, device=device) for _ in range(cfg.n_layers))
+        self.embed = _weight(_embed_init(gen, cfg, device=device))
+        self.final_norm = _weight(torch.ones(cfg.d_model, dtype=torch.float32,
+                                             device=device))
+
+
+def build_ssm(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
+              device=None) -> ModelApi:
+    _c = make_constrainer(mesh, dp_axes)
+    dev = resolve_device(device)
+
+    def init(generator):
+        return SSMLM(cfg, generator, device=dev)
+
+    def prefill(params, batch):
+        """The full forward pass over ``batch["tokens"]`` (B, S): the last
+        position's logits and each layer's final (h, conv) state, stacked
+        over the layers ((L, B, H, P, N) f32, (L, B, d_conv - 1, C) bf16)."""
+        h = _c(params.embed[_on(batch["tokens"], dev).long()])
+        hs, convs = [], []
+        for lp in params.layers:
+            y, (st_h, st_c) = M.mamba_forward(
+                lp.mixer, cfg, L.rms_norm(h, lp.n1), return_state=True)
+            h = _c(h + y)
+            hs.append(st_h)
+            convs.append(st_c)
+        h = L.rms_norm(h, params.final_norm)
+        logits = _head(params, cfg, h[:, -1:])[:, 0]
+        return logits, (torch.stack(hs), torch.stack(convs))
+
+    def init_cache(batch, max_len):
+        """Zero states: h f32 and conv bf16, over the layers; ``max_len``
+        does not size them (a state holds no positions)."""
+        h0, c0 = M.init_mamba_state(cfg, batch, CDTYPE, device=dev)
+        return (h0.expand((cfg.n_layers,) + h0.shape).clone(),
+                c0.expand((cfg.n_layers,) + c0.shape).clone())
+
+    def decode_step(params, cache, token, cur_len, *, past_cache="refuse"):
+        """One token a slot: updates the (h, conv) state in place and
+        returns it with the (B, Vp) f32 logits.  ``cur_len`` and
+        ``past_cache`` are ignored, as the reference ignores ``cur_len``:
+        a slot's state runs on from whatever it held (ROADMAP C10)."""
+        hs, convs = cache
+        h = params.embed[_on(token, dev).long()][:, None, :]
+        for i, lp in enumerate(params.layers):
+            y, (st_h, st_c) = M.mamba_decode(
+                lp.mixer, cfg, L.rms_norm(h, lp.n1), (hs[i], convs[i]))
+            h = _c(h + y)
+            hs[i].copy_(st_h)
+            convs[i].copy_(st_c)
+        h = L.rms_norm(h, params.final_norm)
+        return _head(params, cfg, h)[:, 0], cache
+
+    return ModelApi(cfg, init, _no_loss, prefill, decode_step, init_cache)
+
+
+# ---------------------------------------------------------------------------
+# family: encdec (seamless)
+# ---------------------------------------------------------------------------
+
+
+class DecBlock(torch.nn.Module):
+    """``attn``, ``xattn`` (cross attention), ``mlp`` and the gains
+    ``n1``, ``nx``, ``n2``."""
+
+    def __init__(self, cfg, gen=None, *, device=None):
+        super().__init__()
+        init_n, _ = L.make_norm(cfg)
+        self.attn = A.Attention(cfg, gen, device=device)
+        self.xattn = A.Attention(cfg, gen, device=device)
+        self.mlp = L.MLP(cfg, gen, device=device)
+        for name in ("n1", "nx", "n2"):
+            g = init_n(cfg.d_model, device)
+            self.register_parameter(name, None if g is None else _weight(g))
+
+
+class EncDecLM(torch.nn.Module):
+    """The encoder-decoder's parameters: ``embed`` (vocab_padded, d)
+    bf16, ``enc`` (dense blocks), ``dec`` (``DecBlock``s), ``enc_norm`` and
+    ``final_norm`` (d,) f32 and ``lm_head`` (d, vocab_padded) bf16, which
+    the reference always gives this family."""
+
+    def __init__(self, cfg, gen=None, *, device=None):
+        super().__init__()
+        self.enc = torch.nn.ModuleList(
+            DenseBlock(cfg, gen, device=device)
+            for _ in range(cfg.enc_layers))
+        self.dec = torch.nn.ModuleList(
+            DecBlock(cfg, gen, device=device) for _ in range(cfg.n_layers))
+        self.embed = _weight(_embed_init(gen, cfg, device=device))
+        ones = dict(dtype=torch.float32, device=device)
+        self.enc_norm = _weight(torch.ones(cfg.d_model, **ones))
+        self.final_norm = _weight(torch.ones(cfg.d_model, **ones))
+        self.lm_head = _weight(L.dense_init(gen, cfg.d_model,
+                                            cfg.vocab_padded, device=device))
+
+
+def build_encdec(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
+                 device=None) -> ModelApi:
+    _c = make_constrainer(mesh, dp_axes)
+    dev = resolve_device(device)
+
+    def init(generator):
+        return EncDecLM(cfg, generator, device=dev)
+
+    def encode(params, src):
+        """The encoder over ``src`` (B, S_enc, d): bidirectional dense
+        blocks, RoPE on q and k, then ``enc_norm``."""
+        h = _on(src, dev).to(CDTYPE)
+        for lp in params.enc:
+            h = _c(_dense_block(lp, cfg, h, kind="full"))
+        return L.rms_norm(h, params.enc_norm)
+
+    def prefill(params, batch):
+        """Encode ``batch["src_embeds"]`` and run the decoder over
+        ``batch["tokens"]``: the last position's logits and the cache,
+        ``{"self": {"k", "v"}, "cross": {"k", "v"}}``, each (L, B, S, Hkv,
+        hd) bf16; the cross K/V are ``xattn``'s over the encoder memory."""
+        mem = encode(params, batch["src_embeds"])
+        h = params.embed[_on(batch["tokens"], dev).long()]
+        sk, sv, ck, cv = [], [], [], []
+        for lp in params.dec:
+            a, (k, v) = A.attention_forward(
+                lp.attn, cfg, L.rms_norm(h, lp.n1), kind="causal",
+                return_kv=True)
+            h = h + a
+            x, (xk, xv) = A.attention_forward(
+                lp.xattn, cfg, L.rms_norm(h, lp.nx), memory=mem,
+                return_kv=True)
+            h = h + x
+            h = h + L.mlp(lp.mlp, cfg, L.rms_norm(h, lp.n2))
+            for acc, t in ((sk, k), (sv, v), (ck, xk), (cv, xv)):
+                acc.append(t)
+        h = L.rms_norm(h, params.final_norm)
+        logits = _head(params, cfg, h[:, -1:])[:, 0]
+        return logits, {"self": {"k": torch.stack(sk), "v": torch.stack(sv)},
+                        "cross": {"k": torch.stack(ck),
+                                  "v": torch.stack(cv)}}
+
+    def init_cache(batch, max_len, enc_len=1024):
+        """Zero self K/V over ``max_len`` positions and zero cross K/V
+        over ``enc_len``: the engine never runs the encoder, so its
+        decode reads ``enc_len`` zero cross positions, as the
+        reference's does."""
+        def zeros(n):
+            return torch.zeros((cfg.n_layers, batch, n, cfg.n_kv_heads,
+                                cfg.hd), dtype=CDTYPE, device=dev)
+        return {"self": {"k": zeros(max_len), "v": zeros(max_len)},
+                "cross": {"k": zeros(enc_len), "v": zeros(enc_len)}}
+
+    def decode_step(params, cache, token, cur_len, *, past_cache="refuse"):
+        """One token a slot, as the dense ``decode_step``: the self cache
+        written in place, the cross cache read whole."""
+        sc, xc = cache["self"], cache["cross"]
+        cl, drop = _step_lengths(cur_len, sc["k"].shape[2], past_cache, dev)
+        h = params.embed[_on(token, dev).long()][:, None, :]
+        for i, lp in enumerate(params.dec):
+            a, _ = A.attention_decode(
+                lp.attn, cfg, L.rms_norm(h, lp.n1),
+                {"k": sc["k"][i], "v": sc["v"][i]}, cl,
+                drop=drop)
+            h = h + a
+            x, _ = A.attention_decode(
+                lp.xattn, cfg, L.rms_norm(h, lp.nx),
+                {"k": xc["k"][i], "v": xc["v"][i]}, cl, cross=True)
+            h = h + x
+            h = h + L.mlp(lp.mlp, cfg, L.rms_norm(h, lp.n2))
+        h = L.rms_norm(h, params.final_norm)
+        return _head(params, cfg, h)[:, 0], cache
+
+    return ModelApi(cfg, init, _no_loss, prefill, decode_step, init_cache)
 
 
 # ---------------------------------------------------------------------------
 
 
-_NOT_PORTED = {"moe": "build_moe", "ssm": "build_ssm",
-               "hybrid": "build_hybrid", "encdec": "build_encdec"}
+_NOT_PORTED = {"moe": "build_moe", "hybrid": "build_hybrid"}
 
 
 def build_model(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
@@ -220,5 +455,6 @@ def build_model(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
         raise NotImplementedError(
             f"the {cfg.family!r} family ({_NOT_PORTED[cfg.family]}) is not "
             "ported yet (ROADMAP A9 (b))")
-    fam = {"dense": build_dense, "vlm": build_dense}
+    fam = {"dense": build_dense, "vlm": build_dense, "ssm": build_ssm,
+           "encdec": build_encdec}
     return fam[cfg.family](cfg, mesh=mesh, dp_axes=dp_axes, device=device)

@@ -18,6 +18,7 @@ import time
 import numpy as np
 
 from repro_torch.core.engine import QueryBatch, scan_topk
+from repro_torch.core.transforms import cluster_sums
 
 
 def _kmeans_assign(X, cent, *, method=None, schedule=None, stats=None, block=8192):
@@ -64,16 +65,18 @@ class IVFIndex:
         sub = X[rng.choice(n, min(n, 50_000), replace=False)]
         for _ in range(self.kmeans_iters):           # Lloyd on a training slice
             a = _kmeans_assign(sub, cent)
-            sums = np.zeros((k, X.shape[1]), np.float64)
-            np.add.at(sums, a, sub)
-            cnt = np.bincount(a, minlength=k).astype(np.float64)
+            sums, cnt = cluster_sums(sub, a, k)
+            cnt = cnt.astype(np.float64)
             upd = cnt > 0
             cent[upd] = (sums[upd] / cnt[upd, None]).astype(np.float32)
         t1 = time.perf_counter()
         # final assignment pass is where DCO acceleration bites (n x k DCOs)
         assign = _kmeans_assign(X, cent, method=method, schedule=schedule)
         self.centroids = cent
-        self.lists = [np.where(assign == j)[0].astype(np.int64) for j in range(k)]
+        # each partition's rows in ascending order, as np.where gives them
+        order = np.argsort(assign, kind="stable").astype(np.int64)
+        self.lists = np.split(order, np.cumsum(np.bincount(
+            assign, minlength=k))[:-1])
         self.build_seconds = {"lloyd": t1 - t0,
                               "assign": time.perf_counter() - t1}
         self.n = n

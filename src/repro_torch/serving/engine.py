@@ -36,8 +36,14 @@ class ServingEngine:
 
         Prompts are fed token-at-a-time through the same decode path;
         slots with exhausted prompts sample greedily over the real vocab
-        (the logits are copied to the host each step).  Idle slots replay
-        position 1 harmlessly.
+        (the logits are copied to the host each step).  Idle slots step on
+        harmlessly: a later request overwrites a position before it reads
+        it.  A prompt of ``max_len`` tokens
+        or more runs past the cache, as in the reference's engine, whose
+        out-of-range writes are dropped: the step is asked for the same
+        (``past_cache="drop"``).  A slot's cache is not reset when it
+        takes a request, as in the reference's: attention reads only up
+        to ``cur_len``, but an SSM state runs on (ROADMAP C10).
         """
         cfg = self.api.cfg
         queue = deque(requests)      # popleft admission is O(1), not O(n)
@@ -58,7 +64,8 @@ class ServingEngine:
                 break
             toks = cur_tok.astype(np.int32)
             step_len = np.maximum(lens + 1, 1).astype(np.int32)
-            logits, cache = self.decode(params, cache, toks, step_len)
+            logits, cache = self.decode(params, cache, toks, step_len,
+                                        past_cache="drop")
             logits = np.asarray(logits.cpu())
             for s in range(self.slots):
                 req = slot_req[s]

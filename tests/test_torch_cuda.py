@@ -991,3 +991,92 @@ def test_lm_engine_on_the_card(cuda_device):
         near = (top2[:, 0] - top2[:, 1]) <= LM_TOL * gen.abs().amax(-1)
         upto = int(near.int().argmax()) if bool(near.any()) else len(gen)
         assert got[rid][:upto] == want[rid][:upto], (rid, upto)
+
+
+def _assert_caches_close(want, got):
+    """Every tensor of a cache (K/V, self/cross K/V, or the SSM's (h,
+    conv)) on the card, of the CPU's dtype, within LM_TOL of its largest
+    magnitude."""
+    if isinstance(want, tuple):
+        want, got = dict(zip("hc", want)), dict(zip("hc", got))
+    for key, w in want.items():
+        if isinstance(w, dict):
+            _assert_caches_close(w, got[key])
+        elif key != "len":
+            g = got[key]
+            assert g.device.type == "cuda" and g.dtype == w.dtype, key
+            w, g = w.float(), g.float().cpu()
+            assert (g - w).abs().max() <= LM_TOL * w.abs().max(), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_on_the_card_matches_cpu(cuda_device, init):
+    """The chunked and the naive SSD scan in f32 on the card against the
+    same scans on the CPU, and against each other, within 1e-4 of the
+    largest magnitude (tests/test_torch_mamba2.py's SSD_TOL)."""
+    from repro_torch.models import mamba2 as TM
+    rng = np.random.default_rng(3)
+    B, S, H, P, N = 2, 512, 24, 64, 128
+    args = [rng.standard_normal((B, S, H, P)), rng.uniform(0.01, 0.2, (B, S, H)),
+            np.log(np.linspace(1.0, 16.0, H)), rng.standard_normal((B, S, N)),
+            rng.standard_normal((B, S, N))]
+    cpu = [torch.as_tensor(a, dtype=torch.float32) for a in args]
+    h0 = (torch.as_tensor(rng.standard_normal((B, H, P, N)),
+                          dtype=torch.float32) if init else None)
+    card = [a.to(cuda_device) for a in cpu]
+    h0c = None if h0 is None else h0.to(cuda_device)
+    want = TM.ssd_chunked(*cpu, chunk=256, init_state=h0)
+    got = TM.ssd_chunked(*card, chunk=256, init_state=h0c)
+    naive = TM.ssd_naive(*card, init_state=h0c)
+    for w, g, n in zip(want, got, naive):
+        top = w.abs().max()
+        assert (g.cpu() - w).abs().max() < 1e-4 * top
+        assert (n.cpu() - w).abs().max() < 1e-4 * top
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "mamba2-130m"])
+def test_new_family_prefill_and_decode_on_the_card_match_cpu(cuda_device,
+                                                             arch):
+    """Prefill (with seeded source frames for the encoder-decoder), then
+    12 decode steps at per-slot lengths from the zero cache: logits and
+    every cache tensor on the card within LM_TOL of the CPU's."""
+    cfg, cpu_api, cpu_params, api, params = _lm_pair(cuda_device, arch)
+    assert all(p.device.type == "cuda" for p in params.parameters())
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32)
+    batch = {"tokens": tokens}
+    if cfg.family == "encdec":
+        batch["src_embeds"] = rng.standard_normal(
+            (2, 10, cfg.d_model)).astype(np.float32)
+    want, want_cache = cpu_api.prefill(cpu_params, batch)
+    got, cache = api.prefill(params, batch)
+    assert (got.cpu() - want).abs().max() < LM_TOL * want.abs().max()
+    _assert_caches_close(want_cache, cache)
+    cpu_cache, cache = cpu_api.init_cache(2, 16), api.init_cache(2, 16)
+    for t in range(12):
+        lens = np.array([t + 1, max(t - 2, 1)], np.int32)
+        want, cpu_cache = cpu_api.decode_step(cpu_params, cpu_cache,
+                                              tokens[:, t], lens)
+        got, cache = api.decode_step(params, cache, tokens[:, t], lens)
+        assert (got.cpu() - want).abs().max() < LM_TOL * want.abs().max()
+    _assert_caches_close(cpu_cache, cache)
+
+
+@pytest.mark.cuda
+def test_ssm_engine_on_the_card_carries_the_state_as_the_cpu(cuda_device):
+    """Two requests through one slot of the mamba2 smoke engine on the
+    card: the CPU engine's ids, the state carried from the first request
+    into the second (ROADMAP C10)."""
+    from repro_torch.serving import Request, ServingEngine
+    cfg, cpu_api, cpu_params, api, params = _lm_pair(cuda_device,
+                                                     "mamba2-130m")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(4, 9)))
+               for _ in range(2)]
+    want = ServingEngine(cpu_api, slots=1, max_len=32).run(
+        cpu_params, [Request(i, p, 4) for i, p in enumerate(prompts)])
+    got = ServingEngine(api, slots=1, max_len=32).run(
+        params, [Request(i, p, 4) for i, p in enumerate(prompts)])
+    assert got == want

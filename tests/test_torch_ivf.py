@@ -307,3 +307,22 @@ def test_convert_index_from_reference(sift_small):
     b = st.search(ds.Q[:8], K, nprobe=5)
     np.testing.assert_array_equal(b.ids, a.ids)
     assert b.stats.n_dco == a.stats.n_dco
+
+
+@pytest.mark.parametrize("k", [1, 7, 64])
+def test_cluster_sums_equal_the_scatter_they_replace(k):
+    """The host k-means' per-cluster sums (IVF Lloyd and the PQ codebooks)
+    are np.add.at's numbers bit for bit: empty clusters, a cluster of
+    -0.0 rows (0.0 from a zero start) and float32 rows summed in float64
+    in row order."""
+    from repro_torch.core.transforms import cluster_sums
+    rng = np.random.default_rng(k)
+    X = (rng.standard_normal((3000, 24)) * 1e3).astype(np.float32)
+    assign = rng.integers(0, max(k - 2, 1), 3000)     # the last ones empty
+    X[assign == 0] = -0.0
+    want = np.zeros((k, 24), np.float64)
+    np.add.at(want, assign, X)
+    sums, counts = cluster_sums(X, assign, k)
+    np.testing.assert_array_equal(counts, np.bincount(assign, minlength=k))
+    assert sums.dtype == np.float64
+    assert want.tobytes() == sums.tobytes()        # the signs of zeros too

@@ -11,8 +11,16 @@ against the reference package's.
    the model tests' tolerance), and teacher-forced on the reference's ids
    the port's logits stay within that tolerance at every step, past a
    near-tie too.
-3. ``python -m repro_torch.launch.serve --device cpu`` serves every
-   request.
+3. ROADMAP C8: prompts of ``max_len - 1``, ``max_len`` and
+   ``max_len + 4`` tokens on the qwen3-4b and seamless smoke models: the
+   port's engine serves them as the reference's does (the steps past the
+   cache within the tolerance of the reference's logits, the same ids
+   where the margin is clear).
+4. ROADMAP C10: the mamba2 smoke model's state runs on from one request
+   to the next in a slot, as in the reference's engine: the same ids,
+   and not those of the second request served alone.
+5. ``python -m repro_torch.launch.serve --device cpu`` serves every
+   request, for a dense, the encoder-decoder and the SSM smoke config.
 """
 from types import SimpleNamespace
 
@@ -49,7 +57,8 @@ def _jax_stub():
 
 
 def _torch_stub():
-    def decode_step(params, cache, token, cur_len):
+    def decode_step(params, cache, token, cur_len, *, past_cache="refuse"):
+        assert past_cache == "drop"     # the engine serves past the cache
         t = torch.as_tensor(token).long()[:, None]
         c = torch.as_tensor(cur_len).long().expand(t.shape[0])[:, None]
         v = torch.arange(V)[None, :]
@@ -87,14 +96,24 @@ def test_engine_gives_the_reference_results_on_a_stub(n_req, slots, max_len,
         assert len(q.out) == max_new or len(q.prompt) + len(q.out) >= max_len - 1
 
 
+_PAIRS: dict = {}
+
+
+def _pair(arch):
+    """(cfg, reference api, reference params, port api, port params) on
+    the reference's weights at ``arch``'s smoke config."""
+    if arch not in _PAIRS:
+        cfg = smoke_config(arch)
+        rapi = ref_build_model(ref_smoke_config(arch), remat="none")
+        rparams = rapi.init(jax.random.PRNGKey(0))
+        _PAIRS[arch] = (cfg, rapi, rparams, build_model(cfg, device="cpu"),
+                        params_from_reference(cfg, rparams, device="cpu"))
+    return _PAIRS[arch]
+
+
 @pytest.fixture(scope="module")
 def smoke_pair():
-    cfg = smoke_config("qwen3-4b")
-    rapi = ref_build_model(ref_smoke_config("qwen3-4b"), remat="none")
-    rparams = rapi.init(jax.random.PRNGKey(0))
-    api = build_model(cfg, device="cpu")
-    return cfg, rapi, rparams, api, params_from_reference(cfg, rparams,
-                                                         device="cpu")
+    return _pair("qwen3-4b")
 
 
 def _teacher_forced(decode, init_cache, seq):
@@ -137,6 +156,87 @@ def test_engine_serves_the_smoke_model_as_the_reference(smoke_pair):
         assert got[rid][:upto] == want[rid][:upto], (rid, upto)
         compared += upto
     assert compared >= len(prompts)     # the comparison is not vacuous
+
+
+def _recorded(eng):
+    """``eng.decode`` wrapped to keep every step's logits as f32 numpy."""
+    inner, steps = eng.decode, []
+
+    def decode(*args, **kw):
+        logits, cache = inner(*args, **kw)
+        steps.append(np.asarray(logits.cpu() if torch.is_tensor(logits)
+                                else logits, np.float32))
+        return logits, cache
+    eng.decode = decode
+    return steps
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("extra", [-1, 0, 4])
+def test_engine_serves_a_prompt_past_the_cache_as_the_reference(arch, extra):
+    """ROADMAP C8: two prompts of max_len + extra and one more token
+    through 2 slots of an 8-position cache.  Each request samples once
+    (its prompt fills the cache) and stops; every step of an active slot
+    is within TOL of the reference's logits, and the ids agree wherever
+    the reference's top-2 margin exceeds twice the largest gap between
+    the two engines' logits (there the argmax cannot differ)."""
+    cfg, rapi, rparams, api, params = _pair(arch)
+    max_len = 8
+    lens = (max_len + extra, max_len + extra + 1)
+    rng = np.random.default_rng(21 + extra)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    ref_eng = RefEngine(rapi, slots=2, max_len=max_len)
+    eng = ServingEngine(api, slots=2, max_len=max_len)
+    ref_steps, steps = _recorded(ref_eng), _recorded(eng)
+    want = ref_eng.run(rparams, [RefRequest(i, p, 4)
+                                 for i, p in enumerate(prompts)])
+    got = eng.run(params, [Request(i, p, 4) for i, p in enumerate(prompts)])
+    assert sorted(got) == sorted(want) == [0, 1]
+    assert len(steps) == len(ref_steps) == lens[1]
+    clear = 0
+    for slot, n in enumerate(lens):
+        assert len(got[slot]) == len(want[slot]) == 1
+        for t in range(n):                  # the slot is active
+            ref = ref_steps[t][slot]
+            assert np.abs(steps[t][slot] - ref).max() < \
+                TOL * np.abs(ref).max(), (slot, t)
+        ref = ref_steps[n - 1][slot, :cfg.vocab]
+        top2 = np.sort(ref)[-2:]
+        if top2[1] - top2[0] > 2 * np.abs(steps[n - 1][slot, :cfg.vocab]
+                                          - ref).max():
+            assert got[slot] == want[slot], slot
+            clear += 1
+    assert clear                            # the comparison is not vacuous
+
+
+def test_ssm_engine_carries_the_state_across_requests_as_the_reference():
+    """ROADMAP C10: neither engine resets a slot's state when it takes a
+    request, so request 1 after request 0 in one slot runs on request 0's
+    state.  The port's ids equal the reference's both ways, and differ
+    from request 1 served alone."""
+    cfg, rapi, rparams, api, params = _pair("mamba2-130m")
+    prompts = _prompts(2, 4, 9, seed=11, vocab=cfg.vocab)
+
+    def both(ps):
+        want = RefEngine(rapi, slots=1, max_len=32).run(
+            rparams, [RefRequest(i, p, 4) for i, p in enumerate(ps)])
+        got = ServingEngine(api, slots=1, max_len=32).run(
+            params, [Request(i, p, 4) for i, p in enumerate(ps)])
+        assert got == want
+        return got
+
+    after = both(prompts)
+    alone = both(prompts[1:])
+    assert after[1] != alone[0]
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "mamba2-130m"])
+def test_serve_launcher_serves_the_new_families_on_the_cpu(arch, capsys):
+    out = serve.main(["--device", "cpu", "--requests", "3", "--slots", "2",
+                      "--max-new", "4", "--arch", arch, "--seed", "3"])
+    assert sorted(out) == list(range(3))
+    assert all(len(v) == 4 for v in out.values())
+    assert "served 3 requests / 12 tokens" in capsys.readouterr().out
 
 
 def test_serve_launcher_serves_every_request_on_the_cpu(capsys):

@@ -1,15 +1,22 @@
 """The port's LM serving path (``repro_torch.configs``, ``repro_torch.models``)
-against the reference package on the CPU, at the families' smoke configs.
+against the reference package on the CPU, at the families' smoke configs:
+the dense and VLM decoders, the encoder-decoder and the Mamba-2 SSM.
 
 Both packages run on the same weights: the reference's ``init`` with its
-norm gains redrawn from a seed (so a missing gain shows), converted by
-``params_from_reference``.  Inputs are seeded numpy.  The bf16 compute
+norm gains (and the Mamba-2 mixer's ``D`` and ``dt_bias``) redrawn from a
+seed (so a missing gain shows), converted by ``params_from_reference``.
+Inputs are seeded numpy.  Caches are compared leaf by leaf: K and V
+(``self.*`` and ``cross.*`` for the encoder-decoder), or the SSM's
+``h`` and ``conv`` states.  The bf16 compute
 of the two frameworks is not bit-identical: XLA's bf16 ``silu``/``gelu``
 and the transcendentals round differently from torch's in a large share
 of elements, and those few-ulp differences travel through the layers, so
 logits and caches are held to ``TOL`` of their largest magnitude: the
-worst gap measured across the five archs was 1.72e-2 (decode logits,
-qwen3-32b; the K cache 1.52e-2), and ``TOL`` is about 2.3x that.  The
+worst gap measured across the five dense and VLM archs was 1.72e-2
+(decode logits, qwen3-32b; the K cache 1.52e-2), and ``TOL`` is about
+2.3x that; the encoder-decoder's worst is 1.06e-2 (decode logits), and
+the mamba2 smoke model's logits and conv states equal the reference's
+(its f32 SSM state within 1.5e-7).  The
 two mutants below (RoPE one position late, qk-norm without its gains)
 land far outside it.
 """
@@ -34,17 +41,23 @@ from repro_torch.models import build_model
 from repro_torch.models import layers as TL
 
 TOL = 4e-2
-ARCHS = ("qwen3-4b", "qwen3-32b", "olmo-1b", "starcoder2-7b", "paligemma-3b")
+ATTN_ARCHS = ("qwen3-4b", "qwen3-32b", "olmo-1b", "starcoder2-7b",
+              "paligemma-3b", "seamless-m4t-large-v2")
+ARCHS = ATTN_ARCHS + ("mamba2-130m",)
 B, S, SMAX = 2, 12, 16
+S_ENC = 10          # the encoder-decoder's source frames
 LAG = 3             # the vector run's second slot starts LAG steps later
-GAINS = ("q_gamma", "k_gamma", "n1", "n2", "final_norm")
+GAINS = ("q_gamma", "k_gamma", "n1", "nx", "n2", "final_norm", "enc_norm",
+         "norm", "D", "dt_bias")
 
 
 def _rel(ref, got) -> float:
-    """max |got - ref| over max |ref|."""
+    """max |got - ref| over max |ref| (max |got| where ref is all zero,
+    as the engine's cross K/V are)."""
     ref = np.asarray(ref, np.float32)
     got = np.asarray(got, np.float32)
-    return float(np.abs(got - ref).max() / np.abs(ref).max())
+    top = np.abs(ref).max()
+    return float(np.abs(got - ref).max() / top if top else np.abs(got).max())
 
 
 def _np(t) -> np.ndarray:
@@ -59,6 +72,26 @@ def _redraw_gains(tree, rng):
                             jnp.float32)
                 if k in GAINS and v is not None else _redraw_gains(v, rng))
             for k, v in tree.items()}
+
+
+def _leaves(cache) -> dict:
+    """A cache's tensors by name: ``k``/``v``, ``self.k`` ... ``cross.v``,
+    or the SSM's ``h``/``conv``."""
+    if isinstance(cache, (tuple, list)):
+        cache = {"h": cache[0], "conv": cache[1]}
+    out = {}
+    for key, v in cache.items():
+        if isinstance(v, dict):
+            out.update({f"{key}.{k}": x for k, x in v.items()})
+        elif key != "len":
+            out[key] = v
+    return out
+
+
+def _flat(cache) -> dict:
+    """``_leaves`` as f32 numpy arrays."""
+    return {k: _np(v) if torch.is_tensor(v) else np.asarray(v, np.float32)
+            for k, v in _leaves(cache).items()}
 
 
 def _cur_lens(t):
@@ -92,11 +125,15 @@ class Case:
         if self.cfg.prefix_len:
             self.batch["patches"] = rng.standard_normal(
                 (B, self.cfg.prefix_len, self.cfg.d_model)).astype(np.float32)
+        if self.cfg.family == "encdec":
+            self.batch["src_embeds"] = rng.standard_normal(
+                (B, S_ENC, self.cfg.d_model)).astype(np.float32)
         logits, cache = jax.jit(self.rapi.prefill)(
             self.rparams, {k: jnp.asarray(v) for k, v in self.batch.items()})
-        self.ref_prefill = (np.asarray(logits), np.asarray(cache["k"],
-                                                           np.float32),
-                            np.asarray(cache["v"], np.float32))
+        self.ref_prefill = (np.asarray(logits), _flat(cache))
+        self.ref_prefill_dtypes = {k: str(v.dtype)
+                                   for k, v in _leaves(cache).items()}
+        self.ref_prefill_cache = cache
         dec = jax.jit(self.rapi.decode_step)
         self.ref_runs = {}
         for name, lens_of in (("scalar", lambda t: t + 1),
@@ -105,8 +142,7 @@ class Case:
                 lambda c, tok, n: dec(self.rparams, c, jnp.asarray(tok),
                                       jnp.asarray(n)),
                 self.rapi.init_cache(B, SMAX), self.batch["tokens"], lens_of)
-            self.ref_runs[name] = (logits, np.asarray(cache["k"], np.float32),
-                                   np.asarray(cache["v"], np.float32))
+            self.ref_runs[name] = (logits, _flat(cache))
 
     def params(self):
         return params_from_reference(self.cfg, self.rparams, device="cpu")
@@ -117,7 +153,7 @@ class Case:
         logits, cache = _run_decode(
             lambda c, tok, n: self.api.decode_step(params, c, tok, n),
             self.api.init_cache(B, SMAX), self.batch["tokens"], lens_of)
-        return logits, _np(cache["k"]), _np(cache["v"])
+        return logits, _flat(cache)
 
 
 _CASES: dict = {}
@@ -136,39 +172,73 @@ def case(request):
 
 def test_prefill_matches_reference(case):
     logits, cache = case.api.prefill(case.params(), case.batch)
-    ref_logits, ref_k, ref_v = case.ref_prefill
+    ref_logits, ref_cache = case.ref_prefill
     assert logits.shape == ref_logits.shape and logits.dtype == torch.float32
-    assert cache["k"].shape == ref_k.shape and cache["k"].dtype == TL.CDTYPE
-    assert cache["len"] == ref_k.shape[2]
+    got = _flat(cache)
+    assert set(got) == set(ref_cache)
+    # bf16 K/V and conv states, f32 SSM states, as the reference's
+    assert {k: str(t.dtype).removeprefix("torch.")
+            for k, t in _leaves(cache).items()} == case.ref_prefill_dtypes
+    if "k" in cache:
+        assert cache["len"] == ref_cache["k"].shape[2]
     assert _rel(ref_logits, _np(logits)) < TOL
-    assert _rel(ref_k, _np(cache["k"])) < TOL
-    assert _rel(ref_v, _np(cache["v"])) < TOL
+    for key, ref in ref_cache.items():
+        assert got[key].shape == ref.shape, key
+        assert _rel(ref, got[key]) < TOL, key
 
 
 @pytest.mark.parametrize("run", ["scalar", "vector"])
 def test_decode_matches_reference_at_every_step(case, run):
     """Teacher-forced decode, 12 steps: the logits at every step and the
     caches after; ``vector`` puts the two slots at different lengths."""
-    logits, k, v = case.port_run(run)
-    ref_logits, ref_k, ref_v = case.ref_runs[run]
+    logits, cache = case.port_run(run)
+    ref_logits, ref_cache = case.ref_runs[run]
     for t in range(S):
         assert _rel(ref_logits[t], logits[t]) < TOL, t
-    assert _rel(ref_k, k) < TOL and _rel(ref_v, v) < TOL
+    assert set(cache) == set(ref_cache)
+    for key, ref in ref_cache.items():
+        assert _rel(ref, cache[key]) < TOL, key
     # nothing was written beyond each slot's last position
     last = _cur_lens(S - 1) if run == "vector" else np.full(B, S)
-    for b in range(B):
-        assert not k[:, b, last[b]:].any() and not v[:, b, last[b]:].any()
+    for key in set(cache) & {"k", "v", "self.k", "self.v"}:
+        for b in range(B):
+            assert not cache[key][:, b, last[b]:].any(), key
 
 
-def test_rope_one_position_late_fails_the_cache(case, monkeypatch):
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_rope_one_position_late_fails_the_cache(arch, monkeypatch):
     """The tolerance has teeth: RoPE at cur_len instead of cur_len - 1
     barely moves smoke-size logits but moves the K cache far past TOL."""
+    case = _case(arch)
     rope = TA.apply_rope
     monkeypatch.setattr(TA, "apply_rope",
                         lambda x, pos, theta, freqs=None:
                         rope(x, pos + 1, theta, freqs))
-    _, k, _ = case.port_run("vector")
-    assert _rel(case.ref_runs["vector"][1], k) > 4 * TOL
+    _, cache = case.port_run("vector")
+    key = "k" if "k" in cache else "self.k"
+    assert _rel(case.ref_runs["vector"][1][key], cache[key]) > 4 * TOL
+
+
+def test_encdec_decode_runs_from_the_prefill_cross_cache():
+    """The reference's own test skips this (its engine decodes against
+    zero cross K/V): decode from prefill's cross K/V and a zero self cache
+    gives the reference's logits at every step, and its last step the
+    logits of prefill over the same tokens."""
+    case = _case("seamless-m4t-large-v2")
+    params = case.params()
+    pre_logits, pre_cache = case.api.prefill(params, case.batch)
+    port = {"self": case.api.init_cache(B, SMAX)["self"],
+            "cross": pre_cache["cross"]}
+    ref = {"self": case.rapi.init_cache(B, SMAX)["self"],
+           "cross": case.ref_prefill_cache["cross"]}
+    dec = jax.jit(case.rapi.decode_step)
+    for t in range(S):
+        tok = case.batch["tokens"][:, t]
+        want, ref = dec(case.rparams, ref, jnp.asarray(tok), t + 1)
+        got, port = case.api.decode_step(params, port, tok, t + 1)
+        assert _rel(want, _np(got)) < TOL, t
+    assert _rel(_np(pre_logits), _np(got)) < TOL
+    assert _rel(case.ref_prefill[0], _np(got)) < TOL
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "qwen3-32b"])
@@ -178,7 +248,7 @@ def test_qk_norm_without_its_gains_fails_the_logits(arch):
     for blk in params.layers:
         blk.attn.q_gamma.fill_(1.0)
         blk.attn.k_gamma.fill_(1.0)
-    logits, _, _ = case.port_run("scalar", params)
+    logits, _ = case.port_run("scalar", params)
     ref_logits = case.ref_runs["scalar"][0]
     assert max(_rel(r, g) for r, g in zip(ref_logits, logits)) > 4 * TOL
 
@@ -311,8 +381,7 @@ def test_retrieval_config_equals_reference():
 
 
 @pytest.mark.parametrize("arch,family", [
-    ("deepseek-v2-236b", "moe"), ("mamba2-130m", "ssm"),
-    ("jamba-v0.1-52b", "hybrid"), ("seamless-m4t-large-v2", "encdec")])
+    ("deepseek-v2-236b", "moe"), ("jamba-v0.1-52b", "hybrid")])
 def test_unported_families_name_their_item(arch, family):
     with pytest.raises(NotImplementedError, match=rf"{family}.*A9 \(b\)"):
         build_model(smoke_config(arch), device="cpu")
@@ -320,6 +389,13 @@ def test_unported_families_name_their_item(arch, family):
 
 def test_loss_names_the_training_item():
     api = build_model(smoke_config("qwen3-4b"), device="cpu")
+    with pytest.raises(NotImplementedError, match=r"A9 \(c\)"):
+        api.loss(None, {})
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "mamba2-130m"])
+def test_loss_of_the_new_families_names_the_training_item(arch):
+    api = build_model(smoke_config(arch), device="cpu")
     with pytest.raises(NotImplementedError, match=r"A9 \(c\)"):
         api.loss(None, {})
 
@@ -361,3 +437,135 @@ def test_params_from_reference_refuses_a_tree_of_another_shape():
         params_from_reference(
             smoke_config("qwen3-4b").scaled(tie_embeddings=False), tree,
             device="cpu")
+
+
+@pytest.mark.parametrize("arch,key,change", [
+    ("seamless-m4t-large-v2", "w1", dict(d_ff=96)),
+    ("seamless-m4t-large-v2", "stacks 2 enc", dict(enc_layers=1)),
+    ("mamba2-130m", "conv_w", dict(ssm=dataclasses.replace(
+        smoke_config("mamba2-130m").ssm, d_conv=3)))])
+def test_params_from_reference_refuses_a_new_family_tree_of_another_shape(
+        arch, key, change):
+    tree = _case(arch).rparams
+    with pytest.raises(ValueError, match=key):
+        params_from_reference(smoke_config(arch).scaled(**change), tree,
+                              device="cpu")
+
+
+def test_params_from_reference_keeps_the_mixer_leaves_f32():
+    """The mixer's conv, decay, skip and gain leaves keep the reference's
+    f32 values bit for bit; in_proj, out_proj and the embedding are its
+    values rounded once to bf16."""
+    case = _case("mamba2-130m")
+    params = case.params()
+    mixer = case.rparams["layers"]["mixer"]
+    for i, blk in enumerate(params.layers):
+        for name in ("conv_w", "A_log", "D", "dt_bias", "norm"):
+            leaf = getattr(blk.mixer, name)
+            assert leaf.dtype == torch.float32, name
+            np.testing.assert_array_equal(leaf.numpy(),
+                                          np.asarray(mixer[name][i]))
+        for name in ("in_proj", "out_proj"):
+            leaf = getattr(blk.mixer, name)
+            assert leaf.dtype == torch.bfloat16, name
+            want = torch.as_tensor(np.array(mixer[name][i])).to(
+                torch.bfloat16)
+            assert torch.equal(leaf, want), name
+    assert params.embed.dtype == torch.bfloat16
+    assert not hasattr(params, "lm_head")               # tied
+
+
+def test_ssm_init_draws_the_reference_distributions():
+    """in_proj and out_proj bf16 N(0, 1)/sqrt(d_in); conv_w f32
+    N(0, 1) * 0.2; A_log log(linspace(1, 16, H)), D ones, dt_bias zeros
+    and norm ones, f32, as the reference's init_mamba."""
+    cfg = get_arch("mamba2-130m").scaled(n_layers=1, vocab=1000)
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    mixer = params.layers[0].mixer
+    d_inner = cfg.ssm.expand * cfg.d_model
+    H = d_inner // cfg.ssm.head_dim
+    assert mixer.in_proj.shape == (cfg.d_model,
+                                   2 * d_inner + 2 * cfg.ssm.d_state + H)
+    for w, d_in in ((mixer.in_proj, cfg.d_model), (mixer.out_proj, d_inner)):
+        assert w.dtype == torch.bfloat16
+        assert abs(float(w.float().std()) * np.sqrt(d_in) - 1.0) < 0.01
+    assert mixer.conv_w.dtype == torch.float32
+    assert abs(float(mixer.conv_w.std()) - 0.2) < 0.01
+    np.testing.assert_allclose(
+        mixer.A_log.numpy(), np.log(np.linspace(1.0, 16.0, H)), rtol=1e-6)
+    assert torch.equal(mixer.D, torch.ones(H))
+    assert torch.equal(mixer.dt_bias, torch.zeros(H))
+    assert torch.equal(mixer.norm, torch.ones(d_inner))
+    assert all(not p.requires_grad for p in params.parameters())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "seamless-m4t-large-v2"])
+def test_decode_past_the_cache_with_drop_matches_reference(arch):
+    """ROADMAP C8: with ``past_cache="drop"`` a length past the cache is
+    served as the reference serves it (RoPE at the true position, the
+    write dropped, attention over every position): 12 steps through an
+    8-position cache, one slot LAG steps behind, against the reference's
+    logits at every step and its caches after."""
+    case = _case(arch)
+    params, smax = case.params(), 8
+    ref, port = case.rapi.init_cache(B, smax), case.api.init_cache(B, smax)
+    dec = jax.jit(case.rapi.decode_step)
+    for t in range(S):
+        tok, n = case.batch["tokens"][:, t], _cur_lens(t)
+        want, ref = dec(case.rparams, ref, jnp.asarray(tok), jnp.asarray(n))
+        got, port = case.api.decode_step(params, port, tok, n,
+                                         past_cache="drop")
+        assert _rel(want, _np(got)) < TOL, t
+    want, got = _flat(ref), _flat(port)
+    for key in want:
+        assert _rel(want[key], got[key]) < TOL, key
+    with pytest.raises(ValueError, match="past_cache"):
+        case.api.decode_step(params, port, tok, n, past_cache="clip")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "seamless-m4t-large-v2"])
+def test_drop_guards_the_write_only_past_the_cache(arch, monkeypatch):
+    """``past_cache="drop"`` guards the K/V write only where a host length
+    runs past the cache, or where the lengths are a tensor: a step inside
+    the cache is the plain write, bit for bit, and a tensor of lengths
+    past it gives what the host lengths give."""
+    case = _case(arch)
+    params, smax = case.params(), 8
+    guards = []
+    inner = TA.attention_decode
+
+    def spy(*args, drop=False, **kw):
+        if not kw.get("cross"):
+            guards.append(drop)
+        return inner(*args, drop=drop, **kw)
+
+    monkeypatch.setattr(TA, "attention_decode", spy)
+    tok = case.batch["tokens"][:, 0]
+
+    def step(lens, **kw):
+        guards.clear()
+        logits, cache = case.api.decode_step(
+            params, case.api.init_cache(B, smax), tok, lens, **kw)
+        return logits, _leaves(cache), set(guards)
+
+    inside = np.array([smax, 3], np.int32)
+    plain, plain_cache, seen = step(inside)
+    dropped, dropped_cache, seen_drop = step(inside, past_cache="drop")
+    assert seen == seen_drop == {False}
+    assert torch.equal(plain, dropped)
+    assert all(torch.equal(plain_cache[k], dropped_cache[k])
+               for k in plain_cache)
+    past = np.array([smax + 3, 3], np.int32)
+    host, host_cache, seen = step(past, past_cache="drop")
+    dev, dev_cache, seen_dev = step(torch.from_numpy(past),
+                                    past_cache="drop")
+    assert seen == seen_dev == {True}
+    assert torch.equal(host, dev)
+    assert all(torch.equal(host_cache[k], dev_cache[k]) for k in host_cache)
+
+
+def test_params_from_reference_names_the_item_of_an_unported_family():
+    with pytest.raises(NotImplementedError, match=r"moe.*A9 \(b\)"):
+        params_from_reference(smoke_config("deepseek-v2-236b"), {},
+                              device="cpu")
