@@ -43,7 +43,26 @@ Phases, one JSON line each:
               to the next (ROADMAP C10) against the CPU engine's ids, the
               lm phase's engine arm, and a prefill of 32,768 tokens at
               batch 4 (prefill_32k cut from batch 32: time, peak memory);
-  7. graph    PDScanning+ fitted on the 1M corpus below: the engine's
+  7. moe      the MoE serving path on DeepSeek-V2 at its published widths,
+              cut from 60 to 6 layers (the dense first layer and 5 MoE
+              layers, 42.50 GB of random bf16 weights from a seed, the
+              router f32): decode from a prefill's latent cache against
+              the full forward pass over every prefix of 1 x 32 tokens
+              (the MoE's dropless path throughout), one MoE layer's
+              capacity path without drops against its dropless path at
+              256 tokens, the DeepSeek-V2 and V3 smoke configs on the card
+              against the CPU, prompts past an engine's cache (C8), and
+              the lm phase's engine arm (bytes a step counting the experts
+              its tokens touch);
+  8. hybrid   the hybrid serving path on Jamba-v0.1 at its published
+              widths, cut from 4 groups to 1 (8 layers: 7 Mamba-2 blocks,
+              one attention layer, MoE on the 4 odd layers; 26.54 GB):
+              decode from a prefill's K/V and SSM states against the full
+              forward pass over every prefix of 1 x 32 tokens, the smoke
+              config on the card against the CPU, C8 prompts, the state
+              carried across requests (C10) against the CPU engine's ids,
+              and the engine arm;
+  9. graph    PDScanning+ fitted on the 1M corpus below: the engine's
               block walk run eagerly on the card (its walls taken first,
               before any CUDA graph of the process) against the walk
               captured once as a CUDA graph a query chunk and replayed
@@ -52,7 +71,7 @@ Phases, one JSON line each:
               the session served by the same graph; an arm at
               query_chunk = 100; and the top-k selection against the
               stable sort it replaced, on the engine's real score rows;
-  8. main     the flat streaming search at GIST1M shape (1M x 960 f32,
+ 10. main     the flat streaming search at GIST1M shape (1M x 960 f32,
               100 queries, k = 10, the default SchedulePolicy) for
               PDScanning+ (dco_scan) and DDCopq (pq_lookup), with the
               kernels' launch counts over one batch, QPS, recall against a
@@ -60,10 +79,10 @@ Phases, one JSON line each:
               every stream session from here on: its timed batches replay
               the graph captured by its first batch, and no batch
               captures another;
-  9. pdx      the same PDScanning+ method, unrefitted, served from the PDX
+ 11. pdx      the same PDScanning+ method, unrefitted, served from the PDX
               layout (SchedulePolicy(dim_groups=4), dco_scan_grouped) with
               the same record, its ids held against the flat path's;
- 10. ivf      an IVF index over the 1M corpus (n_list = 4096, the 4 sqrt(N)
+ 12. ivf      an IVF index over the 1M corpus (n_list = 4096, the 4 sqrt(N)
               rule of Faiss's wiki for about 1M vectors; nprobe = 64) built
               on the host, served on the card by the same fitted
               PDScanning+ (flat: dco_scan; PDX: dco_scan_grouped) and
@@ -74,7 +93,7 @@ Phases, one JSON line each:
               ids held against the port's host IVF (IVFIndex.search through
               scan_topk) for every query, and 0 uncertified at the row
               block's budget;
- 11. delta    the LSM write path: PDScanning+ fitted on 1M - 4,096 rows
+ 13. delta    the LSM write path: PDScanning+ fitted on 1M - 4,096 rows
               with the graph phase's PCA (fitted on all 1M rows, the delta
               included, so its QPS is not that of a main-rows fit; the ids
               check does not depend on the fit), the last 4,096 added (the
@@ -82,10 +101,10 @@ Phases, one JSON line each:
               a freshly materialized session on the same method, the next
               add a "merge"; then an IVF delta at 100k rows (n_list = 64,
               nprobe = n_list) held against the host IVF;
- 12. two_stage the 1M PDScanning+ on engine="two_stage" (no kernel): QPS,
+ 14. two_stage the 1M PDScanning+ on engine="two_stage" (no kernel): QPS,
               recall, per-query survivors against its capacity, ids held
               against the streaming engine's where nothing was cut;
- 13. adaptive SchedulePolicy(adaptive=True) at 1M on the fitted
+ 15. adaptive SchedulePolicy(adaptive=True) at 1M on the fitted
               PDScanning+: the dataset's queries flat and PDX (ids held
               against the fixed session's, no dco_scan launch), 100 OOD
               queries (make_ood_queries, severity 1.0; ids held against an
@@ -93,22 +112,22 @@ Phases, one JSON line each:
               DDCopq (pq_lookup launches in the graph); each batch's six
               outputs and report held against the eager walk of the same
               chunks, fallback blocks, forced chunks, QPS;
- 14. anytime  the flat PDScanning+ at anytime_block_group = 8: the grouped
+ 16. anytime  the flat PDScanning+ at anytime_block_group = 8: the grouped
               walk eagerly and as a graph a group span, a 60 s deadline
               (outputs equal to the non-deadline batch, coverage 1.0,
               launches, syncs) and a 10 ms one (coverage in (0, 1), every
               query uncertified, within the full wall plus one group);
               one 60 s batch on the PDX layout;
- 15. host     backend="host" (the numpy scan) over the first 100k rows
+ 17. host     backend="host" (the numpy scan) over the first 100k rows
               with 10 queries, its ids held against the torch backend's;
               HNSW built on the first 2,000 rows with FDScanning and
               PDScanning+ (build seconds, DCOs and dims scanned), recall@10
               of its walk;
- 16. guardrails an 18-batch "recovering" drift scenario at 100k through a
+ 18. guardrails an 18-batch "recovering" drift scenario at 100k through a
               guarded PDScanning+ session: the breaker opens during the
               drift, every demoted batch gives an FDScanning session's
               ids, and it closes again after;
- 17. serving  the serving front (SearchService(slots=16, k=10)) over a
+ 19. serving  the serving front (SearchService(slots=16, k=10)) over a
               fixed PDScanning+ session on the first 994,880 rows, with the
               fitted PCA: its capacity calibrated on the session itself
               (steady step, one 1,024-row add and the stall of the step
@@ -120,31 +139,31 @@ Phases, one JSON line each:
               rows visible when it was served; latency percentiles,
               sustained QPS, graphs captured (one, and one a write),
               dco_scan launches a step, device bytes after the last write;
- 18. serving_overload the grown session at 2x its steady capacity,
+ 20. serving_overload the grown session at 2x its steady capacity,
               max_queue 64, shed_oldest, a deadline of 4 steady steps (the
               anytime spans captured first): every ticket done, shed or
               timed out, partial answers uncertified, full certified ones
               exact;
- 19. serving_ood the adaptive PDScanning+ session at 1M behind the service,
+ 21. serving_ood the adaptive PDScanning+ session at 1M behind the service,
               a 50/50 interleave of the dataset's and OOD queries at 0.7 of
               its own capacity: per class p50/p99, fallback blocks, every
               answer exact and certified, no dco_scan launch;
- 20. replica  shard mode over the 1M corpus in 3 sessions (healthy: the flat
+ 22. replica  shard mode over the 1M corpus in 3 sessions (healthy: the flat
               session's ids; shard 1 dead: coverage 2/3, uncertified, the
               live shards' top-10; revived: full answers again), then
               replicate mode over 3 sessions of the first 100k rows (a slow
               replica hedged; replica 0 killed after 5 dispatches,
               ejected, revived through half-open), virtual and real walls
               and the tier's counters;
- 21. persist  a card session at 95,904 rows saved, three 1,024-row adds in
+ 23. persist  a card session at 95,904 rows saved, three 1,024-row adds in
               the WAL, a fourth torn mid-frame, the session dropped and
               loaded back onto the card (the frames replayed "cold", no
               device work before the first search; the live ids, exact), a
               bit-flipped snapshot refused;
- 22. rules    all 8 methods at 100k x 960 with the same queries, and each
+ 24. rules    all 8 methods at 100k x 960 with the same queries, and each
               method that groups again at dim_groups = 4 (and PDScanning+
               on the inline R-cut path);
- 23. mesh     the sharded global top-k as rank processes on this card,
+ 25. mesh     the sharded global top-k as rank processes on this card,
               each rank ``chip_smoke.py --mesh-rank DIR BACKEND`` (file
               rendezvous, a deadline, killed past it): an NCCL group of
               two on one card refused before its initialisation; two gloo
@@ -159,7 +178,7 @@ Phases, one JSON line each:
               exchange on device tensors; every arm held against the same
               method on one card at the shard's row block, the exact rules
               against FDScanning's ids;
- 24. attention DCO-screened decode attention at Qwen3-4B's decode shapes
+ 26. attention DCO-screened decode attention at Qwen3-4B's decode shapes
               (B 8, 32 heads, 8 KV heads, head_dim 128, a 32,768-position
               bf16 cache, ragged cur_len): cap = S against exact
               attention, one sequence on the CPU against the card, CUDA-
@@ -168,8 +187,10 @@ Phases, one JSON line each:
               yardstick), the error, the softmax mass the top-C keeps, the
               bytes each reads by formula and the screened call's device
               operations under torch.profiler;
- 25. profile  for each 1M session (flat, PDX, DDCopq), served again from
-              its fitted method: one batch under torch.profiler (device
+ 27. profile  for each 1M session (flat, PDX, DDCopq), the main phase's
+              own, kept alive until here (about 32 GB of the card with
+              the others below) rather than built again: one more batch
+              under torch.profiler (device
               operations, zero fills, CUDA runtime calls, device-busy share
               against the phase's unprofiled wall), then its kernel's time
               at the main path's real inputs beside its bound, its plain
@@ -188,10 +209,12 @@ Phases, one JSON line each:
               (scripts/pdx_ab.py measures it), which would bias the QPS of
               later phases.  The IVF flat sessions (at both completion
               budgets), the two-stage session and the adaptive arms (in
-              distribution, OOD beside the fixed screen, DDCopq) are
-              profiled too, without a kernel timing;
- 26. lm_profile the lm, encdec and ssm phases' steps under torch.profiler
-              on the same seeded weights, with past_cache="drop" as the
+              distribution, OOD beside the fixed screen, DDCopq), each
+              kept from its phase, are profiled too, without a kernel
+              timing;
+ 28. lm_profile the lm, encdec, ssm, moe and hybrid phases' steps under
+              torch.profiler on the same seeded weights and depths, with
+              past_cache="drop" as the
               engine passes it: three engine-shaped steps of each, three
               of Qwen3-4B with one slot past the cache (the C8 guard on),
               and one of Qwen3-4B over the 32,768-position cache
@@ -231,6 +254,8 @@ DELTA_ROWS = 4096                # SchedulePolicy.delta_merge_threshold
 #: 512 left some uncertified at 1M on the card (lists of up to 1,026
 #: rows).  The default budget's share is logged beside it.
 IVF_BLOCK_CAPACITY = 4096
+#: the IVF sessions the profile phase profiles (phase_ivf label -> row)
+KEPT_IVF = {"flat": "ivf", "flat_default_budget": "ivf_default_budget"}
 HOST_QUERIES = 10                # the numpy scan takes about 1 s a query
 #: a graph built row by row in Python (3,000 rows before the lm phase
 #: came; cut for the run's time limit)
@@ -642,6 +667,26 @@ def run_method(X, Q, gt, method, dev, *, fitted=None, schedule=None,
     return sess, res, rec
 
 
+def device_events(prof):
+    """A finished torch.profiler session's events summed by name, read
+    from its kineto results: ({name: (count, device us)} of the device's
+    kernels, copies and fills, {name: count} of the host's events, CUDA
+    runtime calls among them).  The same sums as ``key_averages()``'s
+    device and runtime rows, without the Python event tree it builds
+    first (about 80 us an event: 20 s for a 250,000-kernel batch)."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    device, host = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == cuda:
+            count, us = device.get(name, (0, 0.0))
+            device[name] = (count + 1, us + e.duration_ns() / 1e3)
+        else:
+            host[name] = host.get(name, 0) + 1
+    return device, host
+
+
 def profile_batch(sess, Q, wall_s: float, nprobe: int = NPROBE) -> dict:
     """One more batch under torch.profiler: the device operations it ran
     (kernels apart from copies and fills), the CUDA runtime calls the host
@@ -656,25 +701,21 @@ def profile_batch(sess, Q, wall_s: float, nprobe: int = NPROBE) -> dict:
         sess.search(Q, K, nprobe=nprobe)
         torch.cuda.synchronize()
         profiled_wall_s = time.perf_counter() - t0
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = memops = runtime = fills = 0
+    device, host = device_events(prof)
+    kernels = memops = fills = 0
     dev_us = 0.0
     top = []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) == cuda:
-            us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-            dev_us += us
-            if e.key.startswith(("Memcpy", "Memset")):
-                memops += e.count
-            else:
-                kernels += e.count
-                fills += e.count if "FillFunctor" in e.key else 0
-            top.append((us, e.count, e.key[:60]))
-        elif e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel",
-                               "cudaGraphLaunch", "cudaMemcpy",
-                               "cudaMemset")):
-            runtime += e.count
+    for name, (count, us) in device.items():
+        dev_us += us
+        if name.startswith(("Memcpy", "Memset")):
+            memops += count
+        else:
+            kernels += count
+            fills += count if "FillFunctor" in name else 0
+        top.append((us, count, name[:60]))
+    runtime = sum(c for name, c in host.items() if name.startswith(
+        ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+         "cudaMemcpy", "cudaMemset")))
     top.sort(reverse=True)
     return {
         "device_kernels": kernels, "device_copies_fills": memops,
@@ -1038,9 +1079,11 @@ def blocks_hit(sess, Q, nprobe):
             "blocks_hit_per_query_mean": float(hit.sum(1).mean())}
 
 
-def phase_ivf(X, Q, gt, pdsp, opq, dev):
-    """The IVF probe path at 1M: one host-built index, three sessions on
-    the fitted methods.  Returns the index and each session's record."""
+def phase_ivf(X, Q, gt, pdsp, opq, dev, kept):
+    """The IVF probe path at 1M: one host-built index, four sessions on
+    the fitted methods.  Returns the index and each session's record; the
+    flat PDScanning+ sessions at both budgets stay in ``kept`` (as
+    ``"ivf"`` and ``"ivf_default_budget"``) for the profile phase."""
     import numpy as np
     import torch
     from repro_torch.api import SchedulePolicy
@@ -1098,6 +1141,8 @@ def phase_ivf(X, Q, gt, pdsp, opq, dev):
             check(rec["uncertified_queries"] == 0.0,
                   f"IVF {label} PDScanning+ left queries uncertified")
         recs[label] = rec
+        if label in KEPT_IVF:
+            kept[KEPT_IVF[label]] = (sess, res)
         del sess, res
         torch.cuda.empty_cache()
     return ivf, recs
@@ -1214,9 +1259,10 @@ def phase_delta(X, Q, gt, Xr, gt_r, pdsp, dev):
     torch.cuda.empty_cache()
 
 
-def phase_two_stage(X, Q, gt, pdsp, flat_ids, dev):
+def phase_two_stage(X, Q, gt, pdsp, flat_ids, dev, kept):
     """The 1M PDScanning+ on the two-stage engine; per-query survivors
-    from one more direct call of two_stage_topk on the session's state."""
+    from one more direct call of two_stage_topk on the session's state.
+    The session stays in ``kept["two_stage"]`` for the profile phase."""
     import numpy as np
     import torch
     from repro_torch.api import SchedulePolicy
@@ -1246,8 +1292,7 @@ def phase_two_stage(X, Q, gt, pdsp, flat_ids, dev):
           "the two-stage engine launched a kernel")
     check(bool(same[under].all()), "two-stage ids differ from the stream "
           "engine's on a query whose survivors fit the capacity")
-    del sess, res
-    torch.cuda.empty_cache()
+    kept["two_stage"] = (sess, res)
     return rec
 
 
@@ -1585,7 +1630,7 @@ def adaptive_record(rec, res) -> dict:
                     if "rule_timeline" in ex else None))
 
 
-def phase_adaptive(X, Q, gt, pdsp, opq, opq_ids, fixed, dev):
+def phase_adaptive(X, Q, gt, pdsp, opq, opq_ids, fixed, dev, kept):
     """A3 on the card at 1M x 960 (DESIGN.md §5), reusing the fitted
     PDScanning+ and DDCopq: in-distribution queries through the adaptive
     session against the fixed one (``fixed``: the main phase's flat ids,
@@ -1594,7 +1639,9 @@ def phase_adaptive(X, Q, gt, pdsp, opq, opq_ids, fixed, dev):
     fixed and an FDScanning session, and DDCopq adaptive (pq_lookup in
     the graph); each adaptive batch held against the eager walk of the
     same chunks on the card.  Returns the OOD queries, their distances to
-    every row (distances64) and the records."""
+    every row (distances64) and the records; the flat in-distribution and
+    the DDCopq adaptive sessions stay in ``kept`` (``"adaptive"``,
+    ``"adaptive_ddcopq"``) for the profile phase."""
     import numpy as np
     import torch
     from repro_torch.api import SchedulePolicy
@@ -1625,6 +1672,8 @@ def phase_adaptive(X, Q, gt, pdsp, opq, opq_ids, fixed, dev):
         launches = rec["launches_per_batch"]
         check(launches["dco_scan"] == 0 == launches["dco_scan_grouped"],
               f"adaptive {label} launched a dco_scan kernel: {launches}")
+        if label == "id":
+            kept["adaptive"] = (sess, res)
         del sess, res
         torch.cuda.empty_cache()
     # -- out of distribution: adaptive, fixed and FDScanning -------------
@@ -1682,6 +1731,7 @@ def phase_adaptive(X, Q, gt, pdsp, opq, opq_ids, fixed, dev):
     check(rec["anytime"]["ids_equal_fixed"]
           and rec["anytime"]["coverage"] == 1.0,
           "a generous deadline on DDCopq differs from the fixed batch")
+    kept["adaptive_ddcopq"] = (sess, res)
     del sess, res, anyt
     torch.cuda.empty_cache()
     log("adaptive_done", seconds=time.perf_counter() - t_phase)
@@ -2999,23 +3049,19 @@ def rel_gap(ref, got) -> float:
 def device_profile(prof, steps: int) -> dict:
     """Per step: device kernels (apart from copies and fills), copies and
     fills, CUDA runtime launch calls, device ms; the top 5 device ops."""
-    import torch
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = memops = runtime = 0
+    device, host = device_events(prof)
+    kernels = memops = 0
     dev_us = 0.0
     top = []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) == cuda:
-            us = getattr(e, "self_device_time_total", 0)
-            dev_us += us
-            if e.key.startswith(("Memcpy", "Memset")):
-                memops += e.count
-            else:
-                kernels += e.count
-            top.append((us, e.count, e.key[:70]))
-        elif e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel",
-                               "cudaMemcpy", "cudaMemset")):
-            runtime += e.count
+    for name, (count, us) in device.items():
+        dev_us += us
+        if name.startswith(("Memcpy", "Memset")):
+            memops += count
+        else:
+            kernels += count
+        top.append((us, count, name[:70]))
+    runtime = sum(c for name, c in host.items() if name.startswith(
+        ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cudaMemset")))
     top.sort(reverse=True)
     return {"device_kernels_per_step": kernels / steps,
             "device_copies_fills_per_step": memops / steps,
@@ -3057,11 +3103,14 @@ def fill_long_cache(cfg, size, dev):
 
 def cache_leaves(cache) -> dict:
     """A cache's tensors by name: ``k``/``v``, ``self.k`` ... ``cross.v``
-    (encoder-decoder) or the SSM's ``h``/``conv``."""
+    (encoder-decoder), the SSM's ``h``/``conv``, the MoE's ``dense.c_kv``
+    ... ``moe.k_rope`` or the hybrid's ``kv.k`` ... ``ssm.conv``."""
     if isinstance(cache, tuple):
         return {"h": cache[0], "conv": cache[1]}
     out = {}
     for key, v in cache.items():
+        if isinstance(v, tuple):
+            v = {"h": v[0], "conv": v[1]}
         if isinstance(v, dict):
             out.update({f"{key}.{k}": x for k, x in v.items()})
         elif key != "len":
@@ -3096,13 +3145,18 @@ def card_against_cpu(arch, seed, rng, dev) -> dict:
     from the zero cache (the logits every step, the caches after), then
     LM_PAST_STEPS steps with ``past_cache="drop"`` at lengths past the
     cache (ROADMAP C8: the logits every step, the caches after), each
-    within LM_TOL of the CPU's largest magnitude."""
+    within LM_TOL of the CPU's largest magnitude.  A MoE's card pass takes
+    the experts the CPU's chose (``repro_torch.testing.routing``: a
+    one-ulp gap at a near-tied expert flips the choice, and every later
+    value of the token with it); the tokens whose own choice differed
+    are counted."""
     import copy
 
     import numpy as np
     import torch
     from repro_torch.configs import smoke_config
     from repro_torch.models import build_model
+    from repro_torch.testing.routing import routing
 
     scfg = smoke_config(arch)
     cpu_api = build_model(scfg, device="cpu")
@@ -3111,8 +3165,20 @@ def card_against_cpu(arch, seed, rng, dev) -> dict:
     s_params = copy.deepcopy(cpu_params).to(dev)
     stoks = rng.integers(0, scfg.vocab, (2, LM_SMOKE_STEPS)).astype(np.int32)
     batch = prefill_batch(scfg, rng, stoks, 10)
-    want, c_cache = cpu_api.prefill(cpu_params, batch)
-    got, s_cache = s_api.prefill(s_params, batch)
+    moved = 0
+
+    def both(cpu_call, card_call):
+        nonlocal moved
+        with routing() as rec:
+            want = cpu_call()
+        with routing(rec["calls"]) as rec:
+            got = card_call()
+        moved += rec["moved"]
+        return want, got
+
+    (want, c_cache), (got, s_cache) = both(
+        lambda: cpu_api.prefill(cpu_params, batch),
+        lambda: s_api.prefill(s_params, batch))
     gaps = {"prefill_rel_logit_gap": rel_gap(want, got)}
     for key, w in cache_leaves(c_cache).items():
         gaps[f"prefill_{key}_rel_gap"] = rel_gap(w, cache_leaves(s_cache)[key])
@@ -3122,9 +3188,10 @@ def card_against_cpu(arch, seed, rng, dev) -> dict:
     smoke_gap = 0.0
     for t in range(LM_SMOKE_STEPS):
         lens = np.array([t + 1, max(t - 2, 1)], np.int32)
-        want, c_cache = cpu_api.decode_step(cpu_params, c_cache, stoks[:, t],
-                                            lens)
-        got, s_cache = s_api.decode_step(s_params, s_cache, stoks[:, t], lens)
+        (want, c_cache), (got, s_cache) = both(
+            lambda: cpu_api.decode_step(cpu_params, c_cache, stoks[:, t],
+                                        lens),
+            lambda: s_api.decode_step(s_params, s_cache, stoks[:, t], lens))
         smoke_gap = max(smoke_gap, rel_gap(want, got))
     gaps["max_rel_logit_gap"] = smoke_gap
     for key, w in cache_leaves(c_cache).items():
@@ -3135,10 +3202,11 @@ def card_against_cpu(arch, seed, rng, dev) -> dict:
     for j in range(LM_PAST_STEPS):
         lens = np.array([smax + 1 + j, smax - 2 + j], np.int32)
         tok = stoks[:, j % LM_SMOKE_STEPS]
-        want, c_cache = cpu_api.decode_step(cpu_params, c_cache, tok, lens,
-                                            past_cache="drop")
-        got, s_cache = s_api.decode_step(s_params, s_cache, tok, lens,
-                                         past_cache="drop")
+        (want, c_cache), (got, s_cache) = both(
+            lambda: cpu_api.decode_step(cpu_params, c_cache, tok, lens,
+                                        past_cache="drop"),
+            lambda: s_api.decode_step(s_params, s_cache, tok, lens,
+                                      past_cache="drop"))
         past_gap = max(past_gap, rel_gap(want, got))
     gaps["past_cache_max_rel_logit_gap"] = past_gap
     for key, w in cache_leaves(c_cache).items():
@@ -3147,7 +3215,7 @@ def card_against_cpu(arch, seed, rng, dev) -> dict:
     check(max(gaps.values()) < LM_TOL,
           f"{arch}: the card differs from the CPU at the smoke config {gaps}")
     return {"steps": LM_SMOKE_STEPS, "past_cache_steps": LM_PAST_STEPS,
-            "tol": LM_TOL, **gaps}
+            "tol": LM_TOL, "routings_differing_from_the_cpu": moved, **gaps}
 
 
 def engine_arm(api, params, cfg, size, rng, label, dev) -> dict:
@@ -3427,7 +3495,6 @@ def _phase_encdec(dev, t_phase, card, size):
     import torch
     from repro_torch.configs import get_arch, smoke_config
     from repro_torch.models import build_model
-    from repro_torch.serving import Request, ServingEngine
 
     cfg = get_arch(ENCDEC_ARCH) if card else smoke_config(ENCDEC_ARCH)
     api = build_model(cfg, device=dev)
@@ -3473,19 +3540,8 @@ def _phase_encdec(dev, t_phase, card, size):
     check_c = card_against_cpu(ENCDEC_ARCH, ENCDEC_SEED, rng, dev)
     split_s["check_c"] = time.perf_counter() - t0
 
-    # (d): prompts of max_len - 1, max_len and max_len + 4 tokens: each
-    # request samples once (its prompt fills the cache) and stops
     t0 = time.perf_counter()
-    prompts = [rng.integers(0, cfg.vocab, C8_MAX_LEN + extra).astype(np.int32)
-               for extra in (-1, 0, 4)]
-    out = ServingEngine(api, slots=3, max_len=C8_MAX_LEN).run(
-        params, [Request(i, p, 4) for i, p in enumerate(prompts)])
-    check(sorted(out) == [0, 1, 2] and all(len(v) == 1 for v in out.values()),
-          f"encdec: prompts past the cache were not served as the "
-          f"reference serves them ({out})")
-    check_d = {"max_len": C8_MAX_LEN, "prompt_tokens": [len(p) for p in
-                                                        prompts],
-               "generated": [out[i] for i in range(3)]}
+    check_d = past_the_cache(api, params, cfg, rng, "encdec")
     split_s["check_d"] = time.perf_counter() - t0
 
     engine = engine_arm(api, params, cfg, size, rng, "encdec", dev)
@@ -3539,15 +3595,64 @@ def phase_ssm(dev):
                           LM_SIZES["card" if card else "cpu"])
 
 
-def _phase_ssm(dev, t_phase, card, size):
+def carried_state(arch, seed, rng, dev) -> dict:
+    """(d) against the CPU at ``arch``'s smoke config, on the card and on
+    the CPU, a MoE's card steps taking the experts the CPU's chose: ROADMAP
+    C10, two requests through one slot, the second running on the first's
+    state (the card's ids equal the CPU's; the second request served alone
+    is reported beside them); and for a model with attention, ROADMAP C8,
+    prompts of C8_MAX_LEN - 1, C8_MAX_LEN and C8_MAX_LEN + 4 tokens
+    through 3 slots of a C8_MAX_LEN-position cache (the same ids)."""
     import copy
 
+    import numpy as np
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.testing.routing import routing
+
+    scfg = smoke_config(arch)
+    cpu_api = build_model(scfg, device="cpu")
+    cpu_params = cpu_api.init(torch.Generator().manual_seed(seed))
+    s_api = build_model(scfg, device=dev)
+    s_params = copy.deepcopy(cpu_params).to(dev)
+    out = {"routings_differing_from_the_cpu": 0}
+
+    def serve(a, p, ps, slots, max_len):
+        return ServingEngine(a, slots=slots, max_len=max_len).run(
+            p, [Request(i, q, 4) for i, q in enumerate(ps)])
+
+    def both(ps, slots, max_len):
+        with routing() as rec:
+            want = serve(cpu_api, cpu_params, ps, slots, max_len)
+        with routing(rec["calls"]) as rec:
+            got = serve(s_api, s_params, ps, slots, max_len)
+        out["routings_differing_from_the_cpu"] += rec["moved"]
+        check(got == want, f"{arch}: the card engine's ids {got} differ "
+              f"from the CPU's {want}")
+        return got
+
+    prompts = [rng.integers(0, scfg.vocab, int(rng.integers(4, 9)))
+               for _ in range(2)]
+    got = both(prompts, 1, 32)
+    alone = serve(s_api, s_params, prompts[1:], 1, 32)
+    out.update(ids=[got[0], got[1]], second_alone=alone[0],
+               carried_state_changed_ids=alone[0] != got[1])
+    if scfg.family != "ssm":
+        prompts = [rng.integers(0, scfg.vocab, C8_MAX_LEN + extra).astype(
+            np.int32) for extra in (-1, 0, 4)]
+        got = both(prompts, 3, C8_MAX_LEN)
+        out["past_the_cache_ids"] = [got[i] for i in range(3)]
+    return out
+
+
+def _phase_ssm(dev, t_phase, card, size):
     import numpy as np
     import torch
     from repro_torch.configs import get_arch, smoke_config
     from repro_torch.models import build_model
     from repro_torch.models import mamba2 as M
-    from repro_torch.serving import Request, ServingEngine
 
     where = "card" if card else "cpu"
     cfg = get_arch(SSM_ARCH) if card else smoke_config(SSM_ARCH)
@@ -3613,26 +3718,7 @@ def _phase_ssm(dev, t_phase, card, size):
     # (d): two requests through one slot of the smoke engine, on the card
     # and the CPU: the second runs on the first's state (ROADMAP C10)
     t0 = time.perf_counter()
-    scfg = smoke_config(SSM_ARCH)
-    cpu_api = build_model(scfg, device="cpu")
-    cpu_params = cpu_api.init(torch.Generator().manual_seed(SSM_SEED))
-    s_api = build_model(scfg, device=dev)
-    s_params = copy.deepcopy(cpu_params).to(dev)
-    prompts = [rng.integers(0, scfg.vocab, int(rng.integers(4, 9)))
-               for _ in range(2)]
-
-    def serve(a, p, ps):
-        return ServingEngine(a, slots=1, max_len=32).run(
-            p, [Request(i, q, 4) for i, q in enumerate(ps)])
-
-    want, got = serve(cpu_api, cpu_params, prompts), serve(s_api, s_params,
-                                                           prompts)
-    check(got == want, f"ssm: the card engine's ids {got} differ from the "
-          f"CPU's {want}")
-    alone = serve(s_api, s_params, prompts[1:])
-    check_d = {"ids": [got[0], got[1]], "second_alone": alone[0],
-               "carried_state_changed_ids": alone[0] != got[1]}
-    del cpu_params, s_params
+    check_d = carried_state(SSM_ARCH, SSM_SEED, rng, dev)
     split_s["check_d"] = time.perf_counter() - t0
 
     engine = engine_arm(api, params, cfg, size, rng, "ssm", dev)
@@ -3692,6 +3778,272 @@ def _phase_ssm(dev, t_phase, card, size):
     return rec
 
 
+# ------------------------------------------------------ moe, hybrid ---
+MOE_ARCH, MOE_SEED = "deepseek-v2-236b", 23
+MOE_V3_ARCH, MOE_V3_SEED = "deepseek-v3-671b", 25
+HYBRID_ARCH, HYBRID_SEED = "jamba-v0.1-52b", 24
+#: the depths one card holds at the published widths: DeepSeek-V2's dense
+#: first layer and 5 of its 59 MoE layers (21,247,144,960 parameters,
+#: 42.50 GB in bf16), and one of Jamba-v0.1's 4 groups of 8 layers
+#: (13,267,598,848 parameters, 26.54 GB); whole, they hold 236 B and 52 B
+CUT_LAYERS = {MOE_ARCH: 6, HYBRID_ARCH: 8}
+#: check (a) of the routed families at B x S <= 32 tokens, so every prefix
+#: takes the MoE's dropless path, as decode does (past 32 tokens the
+#: capacity path may drop tokens, which a decode step never does): a
+#: prefill over ROUTED_PROMPT tokens, then decode to ROUTED_CHECK_S
+ROUTED_CHECK_B, ROUTED_CHECK_S, ROUTED_PROMPT = 1, 32, 8
+#: check (a2): one MoE layer's capacity path at A2_TOKENS tokens with a
+#: capacity factor of E (no token dropped) against its dropless path over
+#: chunks of A2_CHUNK tokens
+A2_TOKENS, A2_CHUNK = 256, 32
+
+
+def lm_config(arch, card):
+    """``arch``'s config: on the card its published widths, cut to the
+    depth of CUT_LAYERS where the whole model does not fit, else its
+    smoke config."""
+    from repro_torch.configs import get_arch, smoke_config
+    if not card:
+        return smoke_config(arch)
+    cfg = get_arch(arch)
+    return cfg.scaled(n_layers=CUT_LAYERS[arch]) if arch in CUT_LAYERS \
+        else cfg
+
+
+def routed_decode_vs_prefill(api, params, cfg, rng, label, dev) -> dict:
+    """(a): prefill over ROUTED_PROMPT tokens, its caches copied into a
+    ROUTED_CHECK_S-position cache (positions) and taken whole (SSM
+    states), then decode token by token against the full forward pass
+    over every prefix: the logits at every step and every cache tensor
+    after, within LM_TOL.  Every pass takes the experts the full forward
+    pass over all ROUTED_CHECK_S tokens chose for each token and layer
+    (``repro_torch.testing.routing``): decode and prefill round apart by
+    bf16 ulps, which flip near-tied experts (ROADMAP C11).  The tokens
+    whose own choice differed are counted.  Reading the routing syncs,
+    so no timed run records it."""
+    import numpy as np
+    from repro_torch.testing.routing import routing
+    B, S, P = ROUTED_CHECK_B, ROUTED_CHECK_S, ROUTED_PROMPT
+    toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    with routing() as full:
+        api.prefill(params, {"tokens": toks})
+    full = [r.reshape(B, S, -1) for r in full["calls"]]
+
+    def at(positions):
+        return [r[:, positions].reshape(-1, r.shape[-1]) for r in full]
+
+    moved = 0
+    with routing(at(slice(0, P))) as rec:
+        _, pre_cache = api.prefill(params, {"tokens": toks[:, :P]})
+    moved += rec["moved"]
+    cache = api.init_cache(B, S)
+    for key, whole in cache_leaves(cache).items():
+        part = cache_leaves(pre_cache)[key]
+        (whole if whole.shape == part.shape else whole[:, :, :P]).copy_(part)
+    del pre_cache
+    gaps = []
+    for t in range(P, S):
+        with routing(at(slice(t, t + 1))) as rec:
+            dec, cache = api.decode_step(params, cache, toks[:, t], t + 1)
+        moved += rec["moved"]
+        with routing(at(slice(0, t + 1))) as rec:
+            pre, pre_cache = api.prefill(params, {"tokens": toks[:, :t + 1]})
+        moved += rec["moved"]
+        gaps.append(rel_gap(pre, dec))
+        check(gaps[-1] < LM_TOL, f"{label}: decode differs from prefill at "
+              f"position {t} ({gaps[-1]} of max |logits|)")
+    kv_gap = {key: rel_gap(w, cache_leaves(cache)[key])
+              for key, w in cache_leaves(pre_cache).items()}
+    check(max(kv_gap.values()) < LM_TOL,
+          f"{label}: the decoded caches differ from prefill's {kv_gap}")
+    check(on_device(dev, params, cache),
+          f"{label}: a model or cache tensor is not on the card")
+    token_routings = len(full) * B * ((S - P) + sum(range(P, S + 1)))
+    return {"batch": B, "prompt": P, "steps": S - P, "tol": LM_TOL,
+            "max_rel_logit_gap": max(gaps), "rel_logit_gaps": gaps,
+            "token_layer_routings": token_routings,
+            "routings_differing_from_the_full_pass": moved,
+            **{f"{k}_rel_gap": v for k, v in kv_gap.items()}}
+
+
+def capacity_vs_dropless(layer, cfg, dev) -> dict:
+    """(a2): one MoE layer at its full width over A2_TOKENS seeded tokens
+    (unit-RMS bf16 rows, as a norm leaves them) through the capacity path
+    with a capacity factor of E, so every expert takes every token and
+    none is dropped, against the dropless path over chunks of A2_CHUNK
+    tokens; the two round the SwiGLU at other points (f32 against
+    bf16)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    mc = cfg.moe
+    uncapped = dataclasses.replace(cfg, moe=dataclasses.replace(
+        mc, capacity_factor=float(mc.n_experts)))
+    cap = int(A2_TOKENS * mc.top_k / mc.n_experts * mc.n_experts)
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED + 1)
+    x = L.rms_norm(torch.randn((1, A2_TOKENS, cfg.d_model), generator=gen,
+                               device=dev)).to(torch.bfloat16)
+    capacity, _ = MOE.moe_forward(layer, uncapped, x)
+    dropless = torch.cat(
+        [MOE.moe_forward(layer, uncapped, x[:, i:i + A2_CHUNK])[0]
+         for i in range(0, A2_TOKENS, A2_CHUNK)], 1)
+    gap = rel_gap(capacity, dropless)
+    check(cap >= A2_TOKENS and gap < LM_TOL,
+          f"moe: the capacity path without drops differs from the dropless "
+          f"path ({gap} of max |out|, capacity {cap})")
+    return {"tokens": A2_TOKENS, "chunk": A2_CHUNK, "capacity": cap,
+            "tol": LM_TOL, "rel_gap": gap}
+
+
+def past_the_cache(api, params, cfg, rng, label) -> dict:
+    """(d), ROADMAP C8: prompts of C8_MAX_LEN - 1, C8_MAX_LEN and
+    C8_MAX_LEN + 4 tokens through an engine: each samples once (its prompt
+    fills the cache) and stops."""
+    import numpy as np
+    from repro_torch.serving import Request, ServingEngine
+    prompts = [rng.integers(0, cfg.vocab, C8_MAX_LEN + extra).astype(np.int32)
+               for extra in (-1, 0, 4)]
+    out = ServingEngine(api, slots=3, max_len=C8_MAX_LEN).run(
+        params, [Request(i, p, 4) for i, p in enumerate(prompts)])
+    check(sorted(out) == [0, 1, 2] and all(len(v) == 1 for v in out.values()),
+          f"{label}: prompts past the cache were not served as the "
+          f"reference serves them ({out})")
+    return {"max_len": C8_MAX_LEN, "prompt_tokens": [len(p) for p in prompts],
+            "generated": [out[i] for i in range(3)]}
+
+
+def routed_step_bounds(api, params, cfg, size, rng, dev) -> dict:
+    """The engine arm's bytes a step and its bounds (``step_bounds``): the
+    weights a step reads once (the embedding's rows and V3's unused MTP
+    head aside), each MoE layer's experts only those that one recorded
+    engine-shaped step (``size["slots"]`` slots, ragged lengths) routes
+    its tokens to, and the cache or state (read, and the SSM state
+    written).  The flop bound counts the top-k experts a token runs."""
+    import numpy as np
+    from repro_torch.testing.routing import routing
+    B, S = size["slots"], size["max_len"]
+    cache = api.init_cache(B, S)
+    with routing() as rec:
+        api.decode_step(params, cache, rng.integers(0, cfg.vocab, B),
+                        rng.integers(1, S - 1, B).astype(np.int32))
+    mc = cfg.moe
+    per_expert = 3 * cfg.d_model * mc.d_expert
+    experts = [m for m in params.modules() if hasattr(m, "router")]
+    skip = {id(p) for m in experts for p in (m.wg, m.wu, m.wd)}
+    if hasattr(params, "mtp"):
+        skip |= {id(p) for p in params.mtp.parameters()}
+    if hasattr(params, "lm_head"):
+        skip.add(id(params.embed))
+    dense = [p for p in params.parameters() if id(p) not in skip]
+    touched = [len(np.unique(r.cpu().numpy())) for r in rec["calls"]]
+    state = cache_leaves(cache)
+    state_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    state_bytes += sum(t.numel() * t.element_size()      # SSM states written
+                       for k, t in state.items() if k.startswith("ssm."))
+    del cache
+    out = step_bounds(param_bytes(dense) + sum(touched) * per_expert * 2,
+                      state_bytes,
+                      sum(p.numel() for p in dense)
+                      + len(experts) * mc.top_k * per_expert, B)
+    out.update(experts_touched_per_layer=touched,
+               experts_per_layer=mc.n_experts,
+               step_bytes_all_experts=param_bytes(dense) + len(experts)
+               * mc.n_experts * per_expert * 2 + state_bytes)
+    return out
+
+
+def phase_moe(dev):
+    """The MoE serving path at DeepSeek-V2's published widths, cut from 60
+    to 6 layers (the dense first layer and 5 MoE layers, random bf16
+    weights from a seed, made on the card a tensor at a time, the router
+    f32): (a) decode from a prefill's latent cache against the full
+    forward pass over every prefix of 1 x 32 tokens; (a2) one MoE layer's
+    capacity path without drops against its dropless path at 256 tokens;
+    (c) the DeepSeek-V2 and V3 smoke configs on the card against the CPU;
+    (d) prompts past an engine's cache (ROADMAP C8); (e) every tensor on
+    the card; the lm phase's engine arm with its bytes a step and
+    bound."""
+    t_phase = time.perf_counter()
+    card = on_card(dev)
+    with f32_accumulation():
+        return _phase_routed(dev, t_phase, card, "moe", MOE_ARCH, MOE_SEED)
+
+
+def phase_hybrid(dev):
+    """The hybrid serving path at Jamba-v0.1's published widths, cut from 4
+    groups to 1 (8 layers: 7 Mamba-2, 1 attention, MoE on the 4 odd
+    ones): (a) decode from a prefill's K/V and SSM states against the
+    full forward pass over every prefix of 1 x 32 tokens; (c) the smoke
+    config on the card against the CPU; (d) prompts past an engine's
+    cache (C8) and the state carried across requests (C10) against the
+    CPU engine's ids; (e); the engine arm with its bytes a step and
+    bound."""
+    t_phase = time.perf_counter()
+    card = on_card(dev)
+    with f32_accumulation():
+        return _phase_routed(dev, t_phase, card, "hybrid", HYBRID_ARCH,
+                             HYBRID_SEED)
+
+
+def _phase_routed(dev, t_phase, card, label, arch, seed):
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    size = LM_SIZES["card" if card else "cpu"]
+    cfg = lm_config(arch, card)
+    api = build_model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=dev).manual_seed(seed))
+    sync(dev)
+    split_s = {"init": time.perf_counter() - t0}
+    rng = np.random.default_rng(seed)
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "published_layers": get_arch(arch).n_layers,
+           "d_model": cfg.d_model,
+           "n_params": sum(p.numel() for p in params.parameters()),
+           "weight_bytes": param_bytes(params.parameters())}
+
+    t0 = time.perf_counter()
+    rec["check_decode_vs_prefill"] = routed_decode_vs_prefill(
+        api, params, cfg, rng, label, dev)
+    split_s["check_a"] = time.perf_counter() - t0
+    if label == "moe":
+        t0 = time.perf_counter()
+        rec["check_capacity_vs_dropless"] = capacity_vs_dropless(
+            params.moe_layers[0].moe, cfg, dev)
+        free_card(dev)
+        split_s["check_a2"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rec["check_card_vs_cpu"] = card_against_cpu(arch, seed, rng, dev)
+    if label == "moe":
+        rec["check_card_vs_cpu_v3"] = card_against_cpu(
+            MOE_V3_ARCH, MOE_V3_SEED, rng, dev)
+    split_s["check_c"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rec["check_past_the_cache"] = past_the_cache(api, params, cfg, rng, label)
+    if label == "hybrid":
+        rec["check_carried_state"] = carried_state(arch, seed, rng, dev)
+    split_s["check_d"] = time.perf_counter() - t0
+
+    engine = engine_arm(api, params, cfg, size, rng, label, dev)
+    engine.update(routed_step_bounds(api, params, cfg, size, rng, dev))
+    split_s["engine"] = engine["engine_wall_s"]
+    rec.update(engine=engine,
+               peak_device_bytes=(torch.cuda.max_memory_allocated(dev)
+                                  if card else 0),
+               split_s=split_s, phase_s=time.perf_counter() - t_phase)
+    del params
+    free_card(dev)
+    log(label, **rec)
+    return rec
+
+
 def profiled_steps(api, params, cache, tok, lens, steps, dev) -> tuple:
     """``steps`` decode steps under torch.profiler, each followed by the
     logits' copy to the host, after one unprofiled warm-up step, with
@@ -3717,35 +4069,42 @@ def profiled_steps(api, params, cache, tok, lens, steps, dev) -> tuple:
     return device_profile(prof, steps), wall_ms
 
 
-def phase_lm_profile(dev, rec, encdec_rec, ssm_rec):
-    """The lm, encdec and ssm phases' steps under torch.profiler, after
-    every wall of the run, on the same seeded weights: for each, three
-    engine-shaped steps (8 slots, max_len 1,024, ragged lengths), and for
+def phase_lm_profile(dev, rec, encdec_rec, ssm_rec, moe_rec, hybrid_rec):
+    """The lm, encdec, ssm, moe and hybrid phases' steps under
+    torch.profiler, after every wall of the run, on the same seeded
+    weights and depths: for each, three engine-shaped steps (8 slots,
+    max_len 1,024, ragged lengths), and for
     Qwen3-4B the same with slot 0 past the cache (the C8 write guard on)
     and one step over the 32,768-position cache; device kernels, copies
     and launches a step, device ms, the busy share against the phase's
     unprofiled step (none for the guarded steps, which the engine arm
-    does not run), the top 5 device ops."""
+    does not run), the top 5 device ops; the seconds each model took to
+    build and each arm to run (the phase's time, A22)."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_arch, smoke_config
     from repro_torch.models import build_model
 
     t_phase = time.perf_counter()
     card = on_card(dev)
     size = LM_SIZES["card" if card else "cpu"]
     rng = np.random.default_rng(LM_SEED + 2)
-    out = {}
+    out, split_s = {}, {}
     with f32_accumulation():
         for arch, seed, arms, arch_rec in (
                 (LM_ARCH, LM_SEED, ("engine", "engine_past_cache",
                                     "long_cache"), rec),
                 (ENCDEC_ARCH, ENCDEC_SEED, ("engine",), encdec_rec),
-                (SSM_ARCH, SSM_SEED, ("engine",), ssm_rec)):
-            cfg = get_arch(arch) if card else smoke_config(arch)
+                (SSM_ARCH, SSM_SEED, ("engine",), ssm_rec),
+                (MOE_ARCH, MOE_SEED, ("engine",), moe_rec),
+                (HYBRID_ARCH, HYBRID_SEED, ("engine",), hybrid_rec)):
+            t0 = time.perf_counter()
+            cfg = lm_config(arch, card)
             api = build_model(cfg, device=dev)
             params = api.init(torch.Generator(device=dev).manual_seed(seed))
+            sync(dev)
+            split_s[f"{arch}_init"] = time.perf_counter() - t0
             for arm in arms:
+                t0 = time.perf_counter()
                 if arm.startswith("engine"):
                     B, S = size["slots"], size["max_len"]
                     cache, steps = api.init_cache(B, S), LM_PROFILE_STEPS
@@ -3770,9 +4129,11 @@ def phase_lm_profile(dev, rec, encdec_rec, ssm_rec):
                                   / unprofiled)
                 del cache
                 free_card(dev)
+                split_s[label] = time.perf_counter() - t0
             del params
             free_card(dev)
-    log("lm_profile", **out, phase_s=time.perf_counter() - t_phase)
+    log("lm_profile", **out, split_s=split_s,
+        phase_s=time.perf_counter() - t_phase)
     return out
 
 
@@ -3785,7 +4146,7 @@ def main() -> int:
         return mesh_rank(sys.argv[2], sys.argv[3])
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
-    from repro_torch.api import SchedulePolicy, SearchSession
+    from repro_torch.api import SchedulePolicy
     from repro_torch.kernels import _build
     from repro_torch.vecdata import load_dataset, recall_at_k
 
@@ -3817,6 +4178,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     encdec_rec = phase_encdec(dev)
     ssm_rec = phase_ssm(dev)
+    moe_rec = phase_moe(dev)
+    hybrid_rec = phase_hybrid(dev)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -3850,6 +4213,9 @@ def main() -> int:
     # time, so the flat session goes first
     pdsp, flat_ids, flat_dists, flat_rec = (sess.method, res.ids, res.dists,
                                             rec)
+    # A22: the sessions the profile phase profiles stay alive until it
+    # (about 32 GB of the card in all) instead of being built again there
+    kept = {"dco_scan": (sess, res)}
     del sess, res
     torch.cuda.empty_cache()
 
@@ -3869,6 +4235,7 @@ def main() -> int:
     check(np.array_equal(np.sort(res.ids, 1), np.sort(flat_ids, 1)),
           "PDX PDScanning+ ids differ from the flat path's")
     pdx_rec = rec
+    kept["dco_scan_grouped"] = (sess, res)
     del sess, res
     torch.cuda.empty_cache()
 
@@ -3892,16 +4259,18 @@ def main() -> int:
     check(agree >= 0.99 and abs(inline_recall - rec["recall_at_10"]) <= 0.01,
           "DDCopq results differ between pq_lookup and the plain gather")
     opq, opq_rec, opq_ids = sess.method, rec, res.ids
+    kept["pq_lookup"] = (sess, res)
     del sess, res, ds
     torch.cuda.empty_cache()
 
-    ivf, ivf_recs = phase_ivf(X, Q, gt, pdsp, opq, dev)
+    ivf, ivf_recs = phase_ivf(X, Q, gt, pdsp, opq, dev, kept)
     Xr = np.ascontiguousarray(X[:N_RULES])
     gt_r = nearest(d2[:, :N_RULES])
     phase_delta(X, Q, gt, Xr, gt_r, pdsp, dev)
-    ts_rec = phase_two_stage(X, Q, gt, pdsp, flat_ids, dev)
+    ts_rec = phase_two_stage(X, Q, gt, pdsp, flat_ids, dev, kept)
     Qo, d2o, ada_recs = phase_adaptive(X, Q, gt, pdsp, opq, opq_ids,
-                                       (flat_ids, flat_dists, flat_rec), dev)
+                                       (flat_ids, flat_dists, flat_rec), dev,
+                                       kept)
     any_rec = phase_anytime(X, Q, gt, pdsp, dev)
     phase_host(Xr, Q, gt_r, dev)
     phase_guardrails(Xr, dev)
@@ -3973,18 +4342,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     rows = {}
-    for kernel, fitted, schedule, rec, timer in (
-            ("dco_scan", pdsp, SchedulePolicy(), flat_rec, time_dco_scan),
-            ("dco_scan_grouped", pdsp, SchedulePolicy(dim_groups=4), pdx_rec,
-             time_dco_scan_grouped),
-            ("pq_lookup", opq, SchedulePolicy(), opq_rec,
+    for kernel, rec, timer in (
+            ("dco_scan", flat_rec, time_dco_scan),
+            ("dco_scan_grouped", pdx_rec, time_dco_scan_grouped),
+            ("pq_lookup", opq_rec,
              lambda sess, Q, res, dev: time_pq_lookup(sess, Q, dev))):
-        t_setup = time.perf_counter()
-        sess = SearchSession(fitted, schedule, device=dev)
-        res = sess.search(Q, K)                 # materializes the layout
-        setup_s = time.perf_counter() - t_setup
+        sess, res = kept.pop(kernel)
         log("profile", method=rec["method"], dim_groups=rec["dim_groups"],
-            setup_s=setup_s,
             **profile_batch(sess, Q, float(np.median(rec["search_walls_s"]))))
         if kernel == "dco_scan":    # the fixed screen on the OOD batch
             sess.search(Qo, K)
@@ -3998,20 +4362,11 @@ def main() -> int:
             seconds=time.perf_counter() - t_timer)
         del sess, res
         torch.cuda.empty_cache()
-    for label, schedule, rec, index_kind in (
-            ("ivf", SchedulePolicy(block_capacity=IVF_BLOCK_CAPACITY),
-             ivf_recs["flat"], "ivf"),
-            ("ivf_default_budget", SchedulePolicy(),
-             ivf_recs["flat_default_budget"], "ivf"),
-            ("two_stage", SchedulePolicy(engine="two_stage"), ts_rec,
-             "flat")):
-        t_setup = time.perf_counter()
-        sess = SearchSession(pdsp, schedule, index_kind=index_kind,
-                             index=ivf if index_kind == "ivf" else None,
-                             device=dev)
-        sess.search(Q, K, nprobe=NPROBE)        # materializes the layout
+    for label, rec in (("ivf", ivf_recs["flat"]),
+                       ("ivf_default_budget", ivf_recs["flat_default_budget"]),
+                       ("two_stage", ts_rec)):
+        sess, _ = kept.pop(label)
         log("profile", method="PDScanning+", label=label,
-            setup_s=time.perf_counter() - t_setup,
             **profile_batch(sess, Q,
                             float(np.median(rec["search_walls_s"]))))
         del sess
@@ -4020,26 +4375,21 @@ def main() -> int:
     # full-scan body (OOD) beside the fixed screen and FDScanning on the
     # same OOD batch, and DDCopq's switching walk with pq_lookup
     # (one adaptive session serves both PDScanning+ batches)
-    ada = SchedulePolicy(adaptive=True)
-    sess = None
-    for label, fitted, schedule, Qx, rec in (
-            ("adaptive_id", pdsp, ada, Q, ada_recs["id"]),
-            ("adaptive_ood", pdsp, ada, Qo, ada_recs["ood"]),
-            ("adaptive_ddcopq", opq, ada, Q, ada_recs["ddcopq"])):
-        t_setup = time.perf_counter()
-        if sess is None or sess.method is not fitted:
-            sess = None
-            torch.cuda.empty_cache()
-            sess = SearchSession(fitted, schedule, device=dev)
-        sess.search(Qx, K)                      # materializes the layout
+    for label, session, Qx, rec in (
+            ("adaptive_id", "adaptive", Q, ada_recs["id"]),
+            ("adaptive_ood", "adaptive", Qo, ada_recs["ood"]),
+            ("adaptive_ddcopq", "adaptive_ddcopq", Q, ada_recs["ddcopq"])):
+        sess, _ = kept[session]
+        if Qx is Qo:
+            sess.search(Qx, K)                  # the OOD batch's graphs
         log("profile", method=rec["method"], label=label,
-            setup_s=time.perf_counter() - t_setup,
             **profile_batch(sess, Qx,
                             float(np.median(rec["search_walls_s"]))))
-    del sess
+        del sess
+    kept.clear()
     torch.cuda.empty_cache()
     log("profile_done", seconds=time.perf_counter() - t0)
-    phase_lm_profile(dev, lm_rec, encdec_rec, ssm_rec)
+    phase_lm_profile(dev, lm_rec, encdec_rec, ssm_rec, moe_rec, hybrid_rec)
 
     # launches on the IVF, adaptive, anytime and serving paths of each
     # kernel, beside the main path's

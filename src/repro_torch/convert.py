@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.api.backends import resolve_device
 from repro_torch.core.methods import make_method
-from repro_torch.models.lm import DenseLM, EncDecLM, SSMLM
+from repro_torch.models.lm import DenseLM, EncDecLM, HybridLM, MoELM, SSMLM
 from repro_torch.search.ivf import IVFIndex
 
 
@@ -64,43 +64,63 @@ def params_from_reference(cfg, ref_params, device=None) -> torch.nn.Module:
       ``final_norm`` and ``lm_head``;
     * ssm (``SSMLM``): ``embed``, ``layers`` (``mixer`` with ``in_proj``,
       ``conv_w``, ``A_log``, ``D``, ``dt_bias``, ``norm``, ``out_proj``,
-      and ``n1``) and ``final_norm``.
+      and ``n1``) and ``final_norm``;
+    * moe (``MoELM``): ``embed``, ``dense_layers`` and ``moe_layers``
+      (``attn``, ``n1``, ``n2`` and ``mlp`` or ``moe``), ``final_norm``,
+      ``lm_head`` and, with ``cfg.mtp``, ``mtp`` (``proj``, ``block``,
+      ``norm``);
+    * hybrid (``HybridLM``): ``embed``, ``groups`` (``mamba``, ``attn``,
+      ``moe``, ``mlp``, ``ffn_norms``), ``final_norm`` and, untied,
+      ``lm_head``.
 
-    The leaves of ``layers``, ``enc`` and ``dec`` are stacked over a
-    leading (L, ...) axis of the model's depth.  Every leaf is copied into the model's tensor of
-    the same name, so matmul weights and the embedding are rounded once to
-    bf16, and the gains and the mixer's f32 leaves stay f32: both packages
-    compute on the same numbers.  A leaf of another shape, or an
-    ``lm_head`` that does not fit ``tie_embeddings``, is refused."""
+    A list of blocks is one leaf stacked over a leading axis in the
+    reference's tree: ``layers``, ``enc``, ``dec``, ``dense_layers`` and
+    ``moe_layers`` over the model's depth, ``groups`` over the groups and,
+    within a group, ``mamba``, ``moe`` and ``mlp`` over a second axis
+    (``mtp`` is not stacked).  Every leaf is copied into the model's
+    tensor of the same name, so matmul weights and the embedding are
+    rounded once to bf16, and the gains, the mixer's f32 leaves and the
+    MoE router stay f32: both packages compute on the same numbers.  A
+    leaf of another shape, a stack of another depth, an ``lm_head`` the
+    family does not hold (or lacks), or a part the model does not hold
+    (V3's ``mtp`` for a config without it) is refused."""
     families = {"dense": DenseLM, "vlm": DenseLM, "encdec": EncDecLM,
-                "ssm": SSMLM}
+                "ssm": SSMLM, "moe": MoELM, "hybrid": HybridLM}
     if cfg.family not in families:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP A9 (b))")
+        raise ValueError(f"unknown model family {cfg.family!r}; the "
+                         f"families are {sorted(families)}")
     model = families[cfg.family](cfg, None, device=resolve_device(device))
-    if ("lm_head" in ref_params) == bool(cfg.tie_embeddings):
-        raise ValueError(f"lm_head in the reference tree does not fit "
+    if ("lm_head" in ref_params) != hasattr(model, "lm_head"):
+        raise ValueError(f"lm_head in the reference tree does not fit the "
+                         f"{cfg.family!r} family at "
                          f"tie_embeddings={cfg.tie_embeddings}")
+    extra = set(ref_params) - {name.split(".")[0]
+                               for name, _ in model.named_parameters()}
+    if extra:
+        raise ValueError(f"the reference tree holds {sorted(extra)}, which "
+                         f"the {cfg.family!r} model of this config does not")
     stacked: dict = {}
     with torch.no_grad():
         for name, p in model.named_parameters():
             parts = name.split(".")
-            if parts[0] in ("layers", "enc", "dec"):
-                path = (parts[0],) + tuple(parts[2:])
-                if path not in stacked:
-                    leaf = ref_params
-                    for key in path:
-                        leaf = leaf[key]
-                    stacked[path] = np.array(leaf, np.float32)
-                    n = len(getattr(model, parts[0]))
-                    if stacked[path].shape[0] != n:
+            # the reference's key path, and the index on each stacked axis
+            path = tuple(q for q in parts if not q.isdigit())
+            idx = tuple(int(q) for q in parts if q.isdigit())
+            if path not in stacked:
+                leaf = ref_params
+                for key in path:
+                    leaf = leaf[key]
+                stacked[path] = np.array(leaf, np.float32)
+                axes = [j for j, q in enumerate(parts) if q.isdigit()]
+                for axis, j in enumerate(axes):
+                    n = len(model.get_submodule(".".join(parts[:j])))
+                    got = stacked[path].shape[axis] \
+                        if stacked[path].ndim > axis else None
+                    if got != n:
                         raise ValueError(
-                            f"{name}: the reference stacks "
-                            f"{stacked[path].shape[0]} {parts[0]}, the model "
-                            f"holds {n}")
-                src = stacked[path][int(parts[1])]
-            else:
-                src = np.array(ref_params[name], np.float32)
+                            f"{name}: the reference stacks {got} "
+                            f"{parts[j - 1]}, the model holds {n}")
+            src = stacked[path][idx]
             if tuple(src.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: the reference holds {src.shape}, "
                                  f"the model {tuple(p.shape)}")

@@ -7,9 +7,11 @@
 The model runs on the CUDA card unless ``--device cpu`` is given; its
 weights are random, drawn from ``--seed`` (no download).  ``--full``
 serves the published widths and depth, else the family's reduced smoke
-config.  Every family ``build_model`` serves runs: the dense and VLM
-decoders, seamless-m4t-large-v2 (its engine decodes against zero cross
-K/V, as the reference's does) and mamba2-130m.
+config.  Every family runs: the dense and VLM decoders,
+seamless-m4t-large-v2 (its engine decodes against zero cross K/V, as the
+reference's does), mamba2-130m, DeepSeek-V2/V3 and Jamba-v0.1 (whose
+full configs, 236 B, 671 B and 52 B parameters, do not fit one card:
+``chip_smoke.py`` serves them at a cut depth).
 """
 from __future__ import annotations
 

@@ -55,6 +55,15 @@ def nonparam_layer_norm(x, eps=1e-6):
     return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
+def make_constrainer(mesh, dp_axes):
+    """Activation sharding constraint: the identity without a mesh (the
+    mesh placements are ROADMAP A9 (d))."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "models on a mesh are not ported yet (ROADMAP A9 (d))")
+    return lambda x: x
+
+
 def make_norm(cfg):
     """(init, apply): ``init(d, device)`` gives the gain (f32 ones, or
     None for the non-parametric norm), ``apply(gain, x)`` the norm."""
@@ -103,6 +112,16 @@ def apply_rope(x, positions, theta, freqs=None):
 def _einsum_f32(eq, a, b):
     """``einsum`` with f32 accumulation: the operands widened to f32."""
     return torch.einsum(eq, a.to(torch.float32), b.to(torch.float32))
+
+
+def bmm_f32(a, b):
+    """``torch.bmm`` with an f32 result (the reference's
+    ``preferred_element_type=float32``): of two bf16 CUDA operands one
+    bf16 GEMM with an f32 output, read in place; otherwise both operands
+    widened to f32 first (the CPU has no bf16 GEMM with an f32 output)."""
+    if a.is_cuda and a.dtype == b.dtype == CDTYPE:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.to(torch.float32), b.to(torch.float32))
 
 
 def grouped_scores_upcast(qg, k):
@@ -273,6 +292,16 @@ class MLP(torch.nn.Module):
             self.w2 = _weight(dense_init(gen, f, d, device=device))
 
 
+def silu(x):
+    """``x * (1 / (1 + exp(-x)))`` op by op in x's dtype, as the
+    reference's ``jax.nn.silu`` is written: in bf16 each of the four ops
+    rounds, where ``F.silu`` rounds once, and the two differ in about 40 %
+    of bf16 elements.  Those one-ulp gaps flip near-tied MoE routing
+    between the two packages; op by op the port's bf16 SwiGLU equals the
+    reference's on the CPU."""
+    return x * torch.reciprocal(1.0 + torch.exp(-x))
+
+
 def _gelu(x):
     # jax.nn.gelu's default is the tanh approximation
     return F.gelu(x, approximate="tanh")
@@ -281,7 +310,7 @@ def _gelu(x):
 def mlp(params, cfg, x):
     xc = x.to(CDTYPE)
     if cfg.act in ("swiglu", "geglu"):
-        act = F.silu if cfg.act == "swiglu" else _gelu
+        act = silu if cfg.act == "swiglu" else _gelu
         h = act(xc @ params.wg) * (xc @ params.wu)
         return (h @ params.wd).to(x.dtype)
     h = _gelu(xc @ params.w1)

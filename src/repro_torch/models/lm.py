@@ -1,27 +1,28 @@
-"""Model assembly behind one ``ModelApi``: the dense, VLM, encoder-decoder
-and state-space families.
+"""Model assembly: every LM family of the reference behind one ``ModelApi``.
 
-Counterpart of the reference package's ``models/lm.py`` for the families
-the port serves so far:
+Counterpart of the reference package's ``models/lm.py``:
   dense  — qwen3-32b/4b, olmo-1b, starcoder2-7b
   vlm    — paligemma (stubbed patch-embedding prefix, prefix-LM mask)
   encdec — seamless-m4t (stubbed audio-frame encoder input)
   ssm    — mamba2-130m
-The other families (moe, hybrid) raise ``NotImplementedError`` naming
-their ROADMAP item (A9 (b)), and so does ``ModelApi.loss`` (training,
-A9 (c)).
+  moe    — deepseek-v2/v3 (MLA attention + shared/routed experts; V3's
+           MTP head is held but runs only in the loss)
+  hybrid — jamba (1 attn : 7 mamba interleave, MoE every other layer)
+``ModelApi.loss`` raises ``NotImplementedError`` naming its ROADMAP item
+(training, A9 (c)).
 
 The parameters are an ``nn.Module`` tree (``DenseLM``, ``EncDecLM``,
-``SSMLM``: the embedding, ``ModuleList``s of blocks, the final norm and
-an optional ``lm_head``), passed as ``params`` to the same call shapes as
-the reference's: ``decode_step(params, cache, token, cur_len)``.  Serving
-holds every matmul weight and the embedding once in bf16, the norm gains
-(and the Mamba-2 mixer's conv, decay and skip parameters) in f32: the
-reference keeps f32 weights and casts them to bf16 at each use, which
-gives the same numbers; the training slice will add f32 master weights
-beside them.  Layers run in a Python loop, eagerly; the KV cache is one
-preallocated (L, B, Smax, Hkv, hd) bf16 tensor pair and the SSM state an
-(L, ...) pair, both written in place.
+``SSMLM``, ``MoELM``, ``HybridLM``: the embedding, ``ModuleList``s of
+blocks, the final norm and an optional ``lm_head``), passed as ``params``
+to the same call shapes as the reference's: ``decode_step(params, cache,
+token, cur_len)``.  Serving holds every matmul weight and the embedding
+once in bf16, the norm gains (and the Mamba-2 mixer's conv, decay and
+skip parameters, and the MoE router) in f32: the reference keeps f32
+weights and casts them to bf16 at each use, which gives the same numbers;
+the training slice will add f32 master weights beside them.  Layers run
+in a Python loop, eagerly; the KV cache is one preallocated (L, B, Smax,
+Hkv, hd) bf16 tensor pair (MLA: the latent ``c_kv`` and ``k_rope``), and
+the SSM state an (L, ...) pair, all written in place.
 
 ``decode_step`` refuses a ``cur_len`` outside [1, Smax] by default.  The
 serving engine feeds a prompt of Smax tokens or more through it, as the
@@ -42,7 +43,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
-from repro_torch.models.layers import CDTYPE, _weight
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
+from repro_torch.models.layers import CDTYPE, _weight, make_constrainer
 
 
 @dataclass
@@ -54,15 +57,6 @@ class ModelApi:
     decode_step: Callable             # (params, cache, token, cur_len, *,
                                       #  past_cache) -> (logits, cache)
     init_cache: Callable              # (batch, max_len) -> cache
-
-
-def make_constrainer(mesh, dp_axes):
-    """Activation sharding constraint: the identity without a mesh (the
-    mesh placements are ROADMAP A9 (d))."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "models on a mesh are not ported yet (ROADMAP A9 (d))")
-    return lambda x: x
 
 
 # ---------------------------------------------------------------------------
@@ -440,21 +434,329 @@ def build_encdec(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
 
     return ModelApi(cfg, init, _no_loss, prefill, decode_step, init_cache)
 
-
+# ---------------------------------------------------------------------------
+# family: deepseek MoE (MLA + experts + optional MTP)
 # ---------------------------------------------------------------------------
 
 
-_NOT_PORTED = {"moe": "build_moe", "hybrid": "build_hybrid"}
+class MLABlock(torch.nn.Module):
+    """``attn`` (``MLA``), the gains ``n1``, ``n2`` (d,) f32, and ``moe``
+    (``MoE``) or ``mlp``."""
+
+    def __init__(self, cfg, gen=None, *, use_moe, device=None):
+        super().__init__()
+        self.attn = MLA.MLA(cfg, gen, device=device)
+        ones = dict(dtype=torch.float32, device=device)
+        self.n1 = _weight(torch.ones(cfg.d_model, **ones))
+        self.n2 = _weight(torch.ones(cfg.d_model, **ones))
+        if use_moe:
+            self.moe = MOE.MoE(cfg, gen, device=device)
+        else:
+            self.mlp = L.MLP(cfg, gen, device=device)
+
+
+def _mla_ffn(p, cfg, h):
+    """The block's feed-forward on ``n2``'s norm of h: (out, aux)."""
+    hn = L.rms_norm(h, p.n2)
+    if hasattr(p, "moe"):
+        return MOE.moe_forward(p.moe, cfg, hn)
+    return L.mlp(p.mlp, cfg, hn), 0.0
+
+
+def _mla_block(p, cfg, h):
+    a, kv = MLA.mla_forward(p.attn, cfg, L.rms_norm(h, p.n1))
+    h = h + a
+    f, aux = _mla_ffn(p, cfg, h)
+    return h + f, aux, kv
+
+
+def _mla_block_decode(p, cfg, h, cache, cur_len, *, drop=False):
+    a, _ = MLA.mla_decode(p.attn, cfg, L.rms_norm(h, p.n1), cache, cur_len,
+                          drop=drop)
+    h = h + a
+    f, _ = _mla_ffn(p, cfg, h)
+    return h + f
+
+
+class MTPHead(torch.nn.Module):
+    """DeepSeek-V3's multi-token prediction head: ``proj`` (2 d, d) bf16,
+    a dense ``MLABlock`` and the gain ``norm``.  Serving never runs it
+    (the reference runs it in the loss only, ROADMAP A9 (c))."""
+
+    def __init__(self, cfg, gen=None, *, device=None):
+        super().__init__()
+        self.proj = _weight(L.dense_init(gen, 2 * cfg.d_model, cfg.d_model,
+                                         device=device))
+        self.block = MLABlock(cfg, gen, use_moe=False, device=device)
+        self.norm = _weight(torch.ones(cfg.d_model, dtype=torch.float32,
+                                       device=device))
+
+
+class MoELM(torch.nn.Module):
+    """The DeepSeek LM's parameters: ``embed`` (vocab_padded, d) bf16,
+    ``dense_layers`` (``first_dense`` MLA blocks with a dense MLP),
+    ``moe_layers`` (the rest, with ``MoE``), ``final_norm`` (d,) f32,
+    ``lm_head`` (d, vocab_padded) bf16, which the reference always gives
+    this family, and with ``cfg.mtp`` the ``mtp`` head."""
+
+    def __init__(self, cfg, gen=None, *, device=None):
+        super().__init__()
+        nd = cfg.moe.first_dense
+        self.dense_layers = torch.nn.ModuleList(
+            MLABlock(cfg, gen, use_moe=False, device=device)
+            for _ in range(nd))
+        self.moe_layers = torch.nn.ModuleList(
+            MLABlock(cfg, gen, use_moe=True, device=device)
+            for _ in range(cfg.n_layers - nd))
+        self.embed = _weight(_embed_init(gen, cfg, device=device))
+        self.final_norm = _weight(torch.ones(cfg.d_model, dtype=torch.float32,
+                                             device=device))
+        self.lm_head = _weight(L.dense_init(gen, cfg.d_model,
+                                            cfg.vocab_padded, device=device))
+        if cfg.mtp:
+            self.mtp = MTPHead(cfg, gen, device=device)
+
+
+def build_moe(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
+              device=None) -> ModelApi:
+    nd = cfg.moe.first_dense
+    nm = cfg.n_layers - nd
+    _c = make_constrainer(mesh, dp_axes)
+    dev = resolve_device(device)
+
+    def init(generator):
+        return MoELM(cfg, generator, device=dev)
+
+    def init_cache(batch, max_len):
+        """Zero latent caches of both stacks: ``{"dense": {"c_kv",
+        "k_rope"}, "moe": {...}}``, each (n, B, max_len, ·) bf16."""
+        m = cfg.mla
+
+        def mk(n):
+            return {"c_kv": torch.zeros((n, batch, max_len, m.kv_lora),
+                                        dtype=CDTYPE, device=dev),
+                    "k_rope": torch.zeros((n, batch, max_len, m.rope_dim),
+                                          dtype=CDTYPE, device=dev)}
+        return {"dense": mk(nd), "moe": mk(nm)}
+
+    def prefill(params, batch):
+        """The full forward pass over ``batch["tokens"]`` (B, S): the last
+        position's logits and the latent caches of all S positions.  Its
+        MoE layers take the dropless path at B x S <= 32 tokens and the
+        capacity path above, as the reference's do."""
+        h = params.embed[_on(batch["tokens"], dev).long()]
+        cache = init_cache(h.shape[0], h.shape[1])
+        for name, layers in (("dense", params.dense_layers),
+                             ("moe", params.moe_layers)):
+            for i, lp in enumerate(layers):
+                h, _, (c_kv, k_rope) = _mla_block(lp, cfg, h)
+                h = _c(h)
+                cache[name]["c_kv"][i].copy_(c_kv)
+                cache[name]["k_rope"][i].copy_(k_rope)
+        h = L.rms_norm(h, params.final_norm)
+        return _head(params, cfg, h[:, -1:])[:, 0], cache
+
+    def decode_step(params, cache, token, cur_len, *, past_cache="refuse"):
+        """One token a slot, as the dense ``decode_step``: the absorbed
+        MLA decode writes each layer's latent cache in place."""
+        cl, drop = _step_lengths(cur_len, cache["moe"]["c_kv"].shape[2],
+                                 past_cache, dev)
+        h = params.embed[_on(token, dev).long()][:, None, :]
+        for name, layers in (("dense", params.dense_layers),
+                             ("moe", params.moe_layers)):
+            c = cache[name]
+            for i, lp in enumerate(layers):
+                h = _c(_mla_block_decode(
+                    lp, cfg, h, {"c_kv": c["c_kv"][i],
+                                 "k_rope": c["k_rope"][i]}, cl, drop=drop))
+        h = L.rms_norm(h, params.final_norm)
+        return _head(params, cfg, h)[:, 0], cache
+
+    return ModelApi(cfg, init, _no_loss, prefill, decode_step, init_cache)
+
+
+# ---------------------------------------------------------------------------
+# family: hybrid (jamba)
+# ---------------------------------------------------------------------------
+
+
+def _hybrid_positions(cfg):
+    """(moe_pos, mlp_pos): the group positions whose feed-forward is an
+    MoE (the odd ones with ``every_other``) and a dense MLP."""
+    per = cfg.attn_every
+    moe_pos = [i for i in range(per) if i % 2 == 1] \
+        if cfg.moe.every_other else list(range(per))
+    return moe_pos, [i for i in range(per) if i not in moe_pos]
+
+
+class AttnLayer(torch.nn.Module):
+    """A hybrid group's attention layer: ``attn`` and its gain ``n1``."""
+
+    def __init__(self, cfg, gen=None, *, device=None):
+        super().__init__()
+        self.attn = A.Attention(cfg, gen, device=device)
+        self.n1 = _weight(torch.ones(cfg.d_model, dtype=torch.float32,
+                                     device=device))
+
+
+class HybridGroup(torch.nn.Module):
+    """One group of ``attn_every`` layers: ``mamba`` (``attn_every - 1``
+    ``MambaBlock``s), ``attn`` (``AttnLayer``, at ``attn_offset``), the
+    feed-forwards ``moe`` (``MoE``s at the MoE positions) and ``mlp``
+    (``MLP``s at the others), and ``ffn_norms`` (attn_every, d) f32."""
+
+    def __init__(self, cfg, gen=None, *, device=None):
+        super().__init__()
+        moe_pos, mlp_pos = _hybrid_positions(cfg)
+        self.mamba = torch.nn.ModuleList(
+            MambaBlock(cfg, gen, device=device)
+            for _ in range(cfg.attn_every - 1))
+        self.attn = AttnLayer(cfg, gen, device=device)
+        self.moe = torch.nn.ModuleList(MOE.MoE(cfg, gen, device=device)
+                                       for _ in moe_pos)
+        self.mlp = torch.nn.ModuleList(L.MLP(cfg, gen, device=device)
+                                       for _ in mlp_pos)
+        self.ffn_norms = _weight(torch.ones((cfg.attn_every, cfg.d_model),
+                                            dtype=torch.float32,
+                                            device=device))
+
+
+class HybridLM(torch.nn.Module):
+    """The hybrid LM's parameters: ``groups`` (``n_layers / attn_every``
+    ``HybridGroup``s), ``embed`` (vocab_padded, d) bf16, ``final_norm``
+    (d,) f32 and, untied, ``lm_head`` (d, vocab_padded) bf16."""
+
+    def __init__(self, cfg, gen=None, *, device=None):
+        super().__init__()
+        self.groups = torch.nn.ModuleList(
+            HybridGroup(cfg, gen, device=device)
+            for _ in range(cfg.n_layers // cfg.attn_every))
+        self.embed = _weight(_embed_init(gen, cfg, device=device))
+        self.final_norm = _weight(torch.ones(cfg.d_model, dtype=torch.float32,
+                                             device=device))
+        if not cfg.tie_embeddings:
+            self.lm_head = _weight(L.dense_init(
+                gen, cfg.d_model, cfg.vocab_padded, device=device))
+
+
+def _mamba_index(cfg, i):
+    """The Mamba-2 block of group position i (every position but the
+    attention layer's)."""
+    return i if i < cfg.attn_offset else i - 1
+
+
+def _hybrid_ffn(gp, cfg, h, i):
+    """Group position i's feed-forward on its norm of h: an MoE (its aux
+    loss belongs to the loss, not to serving) or a dense MLP."""
+    moe_pos, _ = _hybrid_positions(cfg)
+    hn = L.rms_norm(h, gp.ffn_norms[i])
+    if i in moe_pos:
+        return MOE.moe_forward(gp.moe[moe_pos.index(i)], cfg, hn)[0]
+    return L.mlp(gp.mlp[i - sum(j < i for j in moe_pos)], cfg, hn)
+
+
+def _hybrid_layer(gp, cfg, h, i):
+    """Group position i over the whole sequence: (h, its cache), the
+    attention layer's (k, v) or the Mamba-2 block's final (h, conv)
+    state."""
+    if i == cfg.attn_offset:
+        a, st = A.attention_forward(gp.attn.attn, cfg,
+                                    L.rms_norm(h, gp.attn.n1),
+                                    kind="causal", return_kv=True)
+    else:
+        lp = gp.mamba[_mamba_index(cfg, i)]
+        a, st = M.mamba_forward(lp.mixer, cfg, L.rms_norm(h, lp.n1),
+                                return_state=True)
+    h = h + a
+    return h + _hybrid_ffn(gp, cfg, h, i), st
+
+
+def build_hybrid(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
+                 device=None) -> ModelApi:
+    G = cfg.n_layers // cfg.attn_every          # groups
+    per, off = cfg.attn_every, cfg.attn_offset
+    n_mamba = per - 1
+    _c = make_constrainer(mesh, dp_axes)
+    dev = resolve_device(device)
+
+    def init(generator):
+        return HybridLM(cfg, generator, device=dev)
+
+    def prefill(params, batch):
+        """The full forward pass over ``batch["tokens"]`` (B, S): the last
+        position's logits and ``{"kv": {"k", "v"}, "ssm": (h, conv)}``,
+        the attention layers' K/V (G, B, S, Hkv, hd) bf16 and the Mamba-2
+        layers' final states (G, n_mamba, B, ...), h f32 and conv bf16."""
+        h = params.embed[_on(batch["tokens"], dev).long()]
+        kvs, hs, convs = [], [], []
+        for gp in params.groups:
+            states = []
+            for i in range(per):
+                h, st = _hybrid_layer(gp, cfg, h, i)
+                h = _c(h)
+                (kvs if i == off else states).append(st)
+            hs.append(torch.stack([st[0] for st in states]))
+            convs.append(torch.stack([st[1] for st in states]))
+        h = L.rms_norm(h, params.final_norm)
+        logits = _head(params, cfg, h[:, -1:])[:, 0]
+        return logits, {"kv": {"k": torch.stack([kv[0] for kv in kvs]),
+                               "v": torch.stack([kv[1] for kv in kvs])},
+                        "ssm": (torch.stack(hs), torch.stack(convs))}
+
+    def init_cache(batch, max_len):
+        """Zero K/V (G, B, max_len, Hkv, hd) bf16 and zero states (G,
+        n_mamba, B, ...), h f32 and conv bf16."""
+        kv = (G, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        h0, c0 = M.init_mamba_state(cfg, batch, CDTYPE, device=dev)
+        return {"kv": {"k": torch.zeros(kv, dtype=CDTYPE, device=dev),
+                       "v": torch.zeros(kv, dtype=CDTYPE, device=dev)},
+                "ssm": (h0.expand((G, n_mamba) + h0.shape).clone(),
+                        c0.expand((G, n_mamba) + c0.shape).clone())}
+
+    def decode_step(params, cache, token, cur_len, *, past_cache="refuse"):
+        """One token a slot: the attention layers write their K/V in place
+        at ``cur_len - 1`` (``past_cache`` as the dense ``decode_step``),
+        the Mamba-2 layers update their states in place and ignore
+        ``cur_len``, as the reference's: a slot's state runs on from
+        whatever it held (ROADMAP C10)."""
+        kc, vc = cache["kv"]["k"], cache["kv"]["v"]
+        hs, convs = cache["ssm"]
+        cl, drop = _step_lengths(cur_len, kc.shape[2], past_cache, dev)
+        h = params.embed[_on(token, dev).long()][:, None, :]
+        for g, gp in enumerate(params.groups):
+            for i in range(per):
+                if i == off:
+                    a, _ = A.attention_decode(
+                        gp.attn.attn, cfg, L.rms_norm(h, gp.attn.n1),
+                        {"k": kc[g], "v": vc[g]}, cl, drop=drop)
+                else:
+                    mi = _mamba_index(cfg, i)
+                    lp = gp.mamba[mi]
+                    a, (sh, sc) = M.mamba_decode(
+                        lp.mixer, cfg, L.rms_norm(h, lp.n1),
+                        (hs[g, mi], convs[g, mi]))
+                    hs[g, mi].copy_(sh)
+                    convs[g, mi].copy_(sc)
+                h = h + a
+                h = h + _hybrid_ffn(gp, cfg, h, i)
+            h = _c(h)
+        h = L.rms_norm(h, params.final_norm)
+        return _head(params, cfg, h)[:, 0], cache
+
+    return ModelApi(cfg, init, _no_loss, prefill, decode_step, init_cache)
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_model(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
                 device=None) -> ModelApi:
     """The ``ModelApi`` of ``cfg``'s family on ``device`` (default: the
-    CUDA card; without one this raises ``RuntimeError``)."""
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family ({_NOT_PORTED[cfg.family]}) is not "
-            "ported yet (ROADMAP A9 (b))")
-    fam = {"dense": build_dense, "vlm": build_dense, "ssm": build_ssm,
-           "encdec": build_encdec}
+    CUDA card; without one this raises ``RuntimeError``).  A family the
+    reference does not have raises ``ValueError``."""
+    fam = {"dense": build_dense, "vlm": build_dense, "moe": build_moe,
+           "ssm": build_ssm, "hybrid": build_hybrid, "encdec": build_encdec}
+    if cfg.family not in fam:
+        raise ValueError(f"unknown model family {cfg.family!r}; the "
+                         f"families are {sorted(fam)}")
     return fam[cfg.family](cfg, mesh=mesh, dp_axes=dp_axes, device=device)

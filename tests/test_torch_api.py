@@ -282,7 +282,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert ROOT / "src" / "repro_torch" / "serving" / "replica.py" in files
     assert ROOT / "src" / "repro_torch" / "launch" / "mesh.py" in files
     assert ROOT / "src" / "repro_torch" / "serving" / "dco_attention.py" in files
-    for mod in ("models/lm.py", "models/mamba2.py", "configs/base.py",
+    for mod in ("models/lm.py", "models/mamba2.py", "models/mla.py",
+                "models/moe.py", "configs/base.py",
                 "serving/engine.py", "launch/serve.py"):
         assert ROOT / "src" / "repro_torch" / mod in files
     for f in files:

@@ -4,7 +4,8 @@ probes, the IVF streaming scan, a delta session) against the CPU or a
 merged session, the block walk captured as a CUDA graph against the same
 walk run eagerly on the card, the top-k selection against a stable
 sort, the serving front, snapshots and shard tier on the card, and the
-LM decoder and its engine on the card against the CPU.
+LM decoders and their engine on the card against the CPU, and the MoE
+layer's two paths and MLA's two forms against each other on the card.
 These tests need a CUDA card and skip without one; the module imports no
 jax, so it also runs where only PyTorch is installed:
 
@@ -1000,7 +1001,7 @@ def _assert_caches_close(want, got):
     if isinstance(want, tuple):
         want, got = dict(zip("hc", want)), dict(zip("hc", got))
     for key, w in want.items():
-        if isinstance(w, dict):
+        if isinstance(w, (dict, tuple)):
             _assert_caches_close(w, got[key])
         elif key != "len":
             g = got[key]
@@ -1036,12 +1037,17 @@ def test_ssd_on_the_card_matches_cpu(cuda_device, init):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "mamba2-130m",
+                                  "deepseek-v2-236b", "deepseek-v3-671b",
+                                  "jamba-v0.1-52b"])
 def test_new_family_prefill_and_decode_on_the_card_match_cpu(cuda_device,
                                                              arch):
     """Prefill (with seeded source frames for the encoder-decoder), then
     12 decode steps at per-slot lengths from the zero cache: logits and
-    every cache tensor on the card within LM_TOL of the CPU's."""
+    every cache tensor on the card within LM_TOL of the CPU's.  A MoE's
+    card pass takes the experts the CPU's chose (``testing.routing``):
+    a one-ulp gap at a near-tied expert would flip the choice."""
+    from repro_torch.testing.routing import routing
     cfg, cpu_api, cpu_params, api, params = _lm_pair(cuda_device, arch)
     assert all(p.device.type == "cuda" for p in params.parameters())
     rng = np.random.default_rng(4)
@@ -1050,16 +1056,25 @@ def test_new_family_prefill_and_decode_on_the_card_match_cpu(cuda_device,
     if cfg.family == "encdec":
         batch["src_embeds"] = rng.standard_normal(
             (2, 10, cfg.d_model)).astype(np.float32)
-    want, want_cache = cpu_api.prefill(cpu_params, batch)
-    got, cache = api.prefill(params, batch)
+
+    def both(cpu_call, card_call):
+        with routing() as rec:
+            want = cpu_call()
+        with routing(rec["calls"]):
+            return want, card_call()
+
+    (want, want_cache), (got, cache) = both(
+        lambda: cpu_api.prefill(cpu_params, batch),
+        lambda: api.prefill(params, batch))
     assert (got.cpu() - want).abs().max() < LM_TOL * want.abs().max()
     _assert_caches_close(want_cache, cache)
     cpu_cache, cache = cpu_api.init_cache(2, 16), api.init_cache(2, 16)
     for t in range(12):
         lens = np.array([t + 1, max(t - 2, 1)], np.int32)
-        want, cpu_cache = cpu_api.decode_step(cpu_params, cpu_cache,
-                                              tokens[:, t], lens)
-        got, cache = api.decode_step(params, cache, tokens[:, t], lens)
+        (want, cpu_cache), (got, cache) = both(
+            lambda: cpu_api.decode_step(cpu_params, cpu_cache, tokens[:, t],
+                                        lens),
+            lambda: api.decode_step(params, cache, tokens[:, t], lens))
         assert (got.cpu() - want).abs().max() < LM_TOL * want.abs().max()
     _assert_caches_close(cpu_cache, cache)
 
@@ -1080,3 +1095,55 @@ def test_ssm_engine_on_the_card_carries_the_state_as_the_cpu(cuda_device):
     got = ServingEngine(api, slots=1, max_len=32).run(
         params, [Request(i, p, 4) for i, p in enumerate(prompts)])
     assert got == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "jamba-v0.1-52b"])
+def test_moe_capacity_path_without_drops_equals_dropless_on_the_card(
+        cuda_device, arch):
+    """T = 256 tokens through the capacity path with a capacity factor of
+    E (no token dropped) against the dropless path over chunks of 32
+    tokens, on the card: the two round the SwiGLU at other points (f32
+    against bf16), within LM_TOL of the largest magnitude."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import moe as TMOE
+    cfg = smoke_config(arch)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    layer = TMOE.MoE(cfg, torch.Generator(device=cuda_device).manual_seed(6),
+                     device=cuda_device)
+    x = torch.randn(1, 256, cfg.d_model, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device).manual_seed(
+                        7)).to(torch.bfloat16)
+    capacity, _ = TMOE.moe_forward(layer, cfg, x)
+    dropless = torch.cat([TMOE.moe_forward(layer, cfg, x[:, i:i + 32])[0]
+                          for i in range(0, 256, 32)], 1)
+    top = capacity.float().abs().max()
+    assert (dropless.float() - capacity.float()).abs().max() < LM_TOL * top
+
+
+@pytest.mark.cuda
+def test_absorbed_mla_decode_equals_expanded_on_the_card(cuda_device):
+    """DeepSeek-V2's MLA at its smoke widths on the card: the absorbed
+    decode (one bf16 bmm with an f32 result a product) token by token
+    against the expanded forward pass over every prefix, and the latent
+    caches, within LM_TOL."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import mla as TMLA
+    cfg = smoke_config("deepseek-v2-236b")
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    attn = TMLA.MLA(cfg, gen, device=cuda_device)
+    x = torch.randn(2, 12, cfg.d_model, device=cuda_device,
+                    generator=gen).to(torch.bfloat16)
+    cache = TMLA.init_mla_cache(cfg, 2, 12, device=cuda_device)
+    for t in range(12):
+        dec, cache = TMLA.mla_decode(attn, cfg, x[:, t:t + 1], cache, t + 1)
+        full, (c_kv, k_rope) = TMLA.mla_forward(attn, cfg, x[:, :t + 1])
+        want = full[:, -1].float()
+        assert (dec[:, 0].float() - want).abs().max() < \
+            LM_TOL * want.abs().max(), t
+    for w, g in ((c_kv, cache["c_kv"]), (k_rope, cache["k_rope"])):
+        assert (g.float() - w.float()).abs().max() < \
+            LM_TOL * w.float().abs().max()

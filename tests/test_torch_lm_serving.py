@@ -16,12 +16,21 @@ against the reference package's.
    port's engine serves them as the reference's does (the steps past the
    cache within the tolerance of the reference's logits, the same ids
    where the margin is clear).
-4. ROADMAP C10: the mamba2 smoke model's state runs on from one request
-   to the next in a slot, as in the reference's engine: the same ids,
-   and not those of the second request served alone.
-5. ``python -m repro_torch.launch.serve --device cpu`` serves every
-   request, for a dense, the encoder-decoder and the SSM smoke config.
+4. ROADMAP C10: the mamba2 and jamba smoke models' states run on from
+   one request to the next in a slot, as in the reference's engine: the
+   same ids, and not those of the second request served alone.
+5. The DeepSeek-V2 and Jamba smoke models (MLA, routed experts, the
+   hybrid's Mamba-2 and attention layers): requests served one after
+   another through one slot give the reference's logits at every step
+   and its ids up to the first near-tie; with the C8 prompts above too.
+   Their reference engines decode with ``xla_allow_excess_precision``
+   off, so its bf16 ops round one by one as the port's do
+   (``tests/test_torch_moe.py`` says why routing needs it).
+6. ``python -m repro_torch.launch.serve --device cpu`` serves every
+   request, for a dense, the encoder-decoder, the SSM, the MoE and the
+   hybrid smoke config.
 """
+import functools
 from types import SimpleNamespace
 
 import jax
@@ -41,6 +50,9 @@ from repro_torch.models import build_model
 from repro_torch.serving import Request, ServingEngine
 
 TOL = 4e-2          # tests/test_torch_models.py's, relative to max |logits|
+ROUTED_ARCHS = ("deepseek-v2-236b", "jamba-v0.1-52b")
+exact_jit = functools.partial(
+    jax.jit, compiler_options={"xla_allow_excess_precision": False})
 V, VOCAB = 41, 37   # the stub's padded and real vocab
 
 
@@ -97,6 +109,15 @@ def test_engine_gives_the_reference_results_on_a_stub(n_req, slots, max_len,
 
 
 _PAIRS: dict = {}
+
+
+def _ref_engine(arch, rapi, **kw):
+    """The reference's engine; for the routed families its decode step is
+    compiled with bf16 ops rounded one by one."""
+    eng = RefEngine(rapi, **kw)
+    if arch in ROUTED_ARCHS:
+        eng.decode = exact_jit(rapi.decode_step)
+    return eng
 
 
 def _pair(arch):
@@ -171,7 +192,8 @@ def _recorded(eng):
     return steps
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "seamless-m4t-large-v2"]
+                         + list(ROUTED_ARCHS))
 @pytest.mark.parametrize("extra", [-1, 0, 4])
 def test_engine_serves_a_prompt_past_the_cache_as_the_reference(arch, extra):
     """ROADMAP C8: two prompts of max_len + extra and one more token
@@ -185,7 +207,7 @@ def test_engine_serves_a_prompt_past_the_cache_as_the_reference(arch, extra):
     lens = (max_len + extra, max_len + extra + 1)
     rng = np.random.default_rng(21 + extra)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
-    ref_eng = RefEngine(rapi, slots=2, max_len=max_len)
+    ref_eng = _ref_engine(arch, rapi, slots=2, max_len=max_len)
     eng = ServingEngine(api, slots=2, max_len=max_len)
     ref_steps, steps = _recorded(ref_eng), _recorded(eng)
     want = ref_eng.run(rparams, [RefRequest(i, p, 4)
@@ -209,16 +231,17 @@ def test_engine_serves_a_prompt_past_the_cache_as_the_reference(arch, extra):
     assert clear                            # the comparison is not vacuous
 
 
-def test_ssm_engine_carries_the_state_across_requests_as_the_reference():
+@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-v0.1-52b"])
+def test_ssm_engine_carries_the_state_across_requests_as_the_reference(arch):
     """ROADMAP C10: neither engine resets a slot's state when it takes a
     request, so request 1 after request 0 in one slot runs on request 0's
     state.  The port's ids equal the reference's both ways, and differ
     from request 1 served alone."""
-    cfg, rapi, rparams, api, params = _pair("mamba2-130m")
+    cfg, rapi, rparams, api, params = _pair(arch)
     prompts = _prompts(2, 4, 9, seed=11, vocab=cfg.vocab)
 
     def both(ps):
-        want = RefEngine(rapi, slots=1, max_len=32).run(
+        want = _ref_engine(arch, rapi, slots=1, max_len=32).run(
             rparams, [RefRequest(i, p, 4) for i, p in enumerate(ps)])
         got = ServingEngine(api, slots=1, max_len=32).run(
             params, [Request(i, p, 4) for i, p in enumerate(ps)])
@@ -230,7 +253,9 @@ def test_ssm_engine_carries_the_state_across_requests_as_the_reference():
     assert after[1] != alone[0]
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "mamba2-130m",
+                                  "deepseek-v2-236b", "deepseek-v3-671b",
+                                  "jamba-v0.1-52b"])
 def test_serve_launcher_serves_the_new_families_on_the_cpu(arch, capsys):
     out = serve.main(["--device", "cpu", "--requests", "3", "--slots", "2",
                       "--max-new", "4", "--arch", arch, "--seed", "3"])
@@ -245,3 +270,47 @@ def test_serve_launcher_serves_every_request_on_the_cpu(capsys):
     assert sorted(out) == list(range(5))
     assert all(len(v) == 4 for v in out.values())
     assert "served 5 requests / 20 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ROUTED_ARCHS)
+def test_engine_serves_the_routed_families_as_the_reference(arch):
+    """Four requests one after another through one slot (the hybrid's
+    state carried from each to the next): the port's logits are within
+    TOL of the reference's at every step, and each sampled id equals the
+    reference's wherever its top-2 margin exceeds twice the largest gap
+    between the two engines' logits (there the argmax cannot differ),
+    up to the first step where it does not."""
+    cfg, rapi, rparams, api, params = _pair(arch)
+    prompts = _prompts(4, 3, 9, seed=13, vocab=cfg.vocab)
+    ref_eng = _ref_engine(arch, rapi, slots=1, max_len=32)
+    eng = ServingEngine(api, slots=1, max_len=32)
+    ref_steps, steps = _recorded(ref_eng), _recorded(eng)
+    want = ref_eng.run(rparams, [RefRequest(i, p, 6)
+                                 for i, p in enumerate(prompts)])
+    got = eng.run(params, [Request(i, p, 6) for i, p in enumerate(prompts)])
+    assert sorted(got) == sorted(want) == list(range(4))
+    clear = _clear_ids_agree(cfg, prompts, want, got, ref_steps, steps)
+    assert clear >= len(prompts)        # the comparison is not vacuous
+
+
+def _clear_ids_agree(cfg, prompts, want, got, ref_steps, steps) -> int:
+    """Walk one slot's steps request by request: every step's logits
+    within TOL, and each sampled id equal to the reference's while its
+    top-2 margin exceeds twice the gap; the count of ids compared."""
+    t, clear = 0, 0
+    for rid, prompt in enumerate(prompts):
+        n_steps = len(prompt) + len(want[rid]) - 1
+        for j in range(n_steps):
+            ref, port = ref_steps[t + j][0], steps[t + j][0]
+            gap = np.abs(port - ref).max()
+            assert gap < TOL * np.abs(ref).max(), (rid, j)
+            k = j - (len(prompt) - 1)           # the id this step samples
+            if k < 0:
+                continue
+            top2 = np.sort(ref[:cfg.vocab])[-2:]
+            if top2[1] - top2[0] <= 2 * gap:
+                return clear                    # ids may part from here
+            assert got[rid][k] == want[rid][k], (rid, k)
+            clear += 1
+        t += n_steps
+    return clear

@@ -1,26 +1,41 @@
 """The port's LM serving path (``repro_torch.configs``, ``repro_torch.models``)
 against the reference package on the CPU, at the families' smoke configs:
-the dense and VLM decoders, the encoder-decoder and the Mamba-2 SSM.
+the dense and VLM decoders, the encoder-decoder, the Mamba-2 SSM, the
+DeepSeek MoE (MLA and routed experts) and the Jamba hybrid.
 
 Both packages run on the same weights: the reference's ``init`` with its
 norm gains (and the Mamba-2 mixer's ``D`` and ``dt_bias``) redrawn from a
 seed (so a missing gain shows), converted by ``params_from_reference``.
 Inputs are seeded numpy.  Caches are compared leaf by leaf: K and V
 (``self.*`` and ``cross.*`` for the encoder-decoder), or the SSM's
-``h`` and ``conv`` states.  The bf16 compute
-of the two frameworks is not bit-identical: XLA's bf16 ``silu``/``gelu``
-and the transcendentals round differently from torch's in a large share
-of elements, and those few-ulp differences travel through the layers, so
-logits and caches are held to ``TOL`` of their largest magnitude: the
-worst gap measured across the five dense and VLM archs was 1.72e-2
-(decode logits, qwen3-32b; the K cache 1.52e-2), and ``TOL`` is about
-2.3x that; the encoder-decoder's worst is 1.06e-2 (decode logits), and
-the mamba2 smoke model's logits and conv states equal the reference's
-(its f32 SSM state within 1.5e-7).  The
-two mutants below (RoPE one position late, qk-norm without its gains)
-land far outside it.
+``h`` and ``conv`` states (``dense.c_kv`` ... ``moe.k_rope`` for the
+MoE, ``kv.*`` and ``ssm.*`` for the hybrid).  The bf16 compute of the
+two frameworks is not bit-identical: under a plain ``jax.jit`` XLA keeps
+f32 inside fused bf16 ops, its ``gelu`` and transcendentals round
+otherwise than torch's, and those few-ulp differences travel through the
+layers, so logits and caches are held to ``TOL`` of their largest
+magnitude: the worst gap measured across the five dense and VLM archs
+is 1.97e-2 (decode logits, qwen3-32b; the K cache 2.52e-2), and ``TOL``
+is about 1.6x that; the encoder-decoder's worst is 1.06e-2 (decode
+logits), and the mamba2 smoke model's logits and conv states equal the
+reference's (its f32 SSM state within 1.5e-7).  The two mutants below
+(RoPE one position late, qk-norm without its gains) land far outside
+it.
+
+The MoE and hybrid families run the reference compiled with
+``xla_allow_excess_precision`` off (``exact_jit``), so its bf16 ops round
+one by one as its code is written, as the port's do (``layers.silu`` is
+``jax.nn.silu`` op by op): with excess precision, on these smoke models,
+the reference moves by up to 0.59 of max |logits| against its own eager
+run, where a one-ulp change flips a near-tied expert
+(``tests/test_torch_moe.py``).  Against it the port's prefill is equal
+or within 1.94e-2 and its decode within 2.45e-2 (jamba; the caches
+within 2.40e-2, DeepSeek-V2's equal).  Past 32 tokens the capacity
+cut-off is a second discontinuity, and that prefill is held block by
+block (``test_prefill_past_32_tokens_takes_the_capacity_path``).
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -34,21 +49,33 @@ from repro.configs import smoke_config as ref_smoke_config
 from repro.models import attention as RA
 from repro.models import build_model as ref_build_model
 from repro.models import layers as RL
+from repro.models import lm as RLM
+from repro.models import moe as RMOE
 from repro_torch.configs import ARCH_NAMES, get_arch, smoke_config
 from repro_torch.convert import params_from_reference
 from repro_torch.models import attention as TA
 from repro_torch.models import build_model
 from repro_torch.models import layers as TL
+from repro_torch.models import lm as TLM
+from repro_torch.models import mla as TMLA
+from repro_torch.models import moe as TMOE
 
 TOL = 4e-2
 ATTN_ARCHS = ("qwen3-4b", "qwen3-32b", "olmo-1b", "starcoder2-7b",
               "paligemma-3b", "seamless-m4t-large-v2")
-ARCHS = ATTN_ARCHS + ("mamba2-130m",)
+ROUTED_ARCHS = ("deepseek-v2-236b", "deepseek-v3-671b", "jamba-v0.1-52b")
+ARCHS = ATTN_ARCHS + ("mamba2-130m",) + ROUTED_ARCHS
 B, S, SMAX = 2, 12, 16
 S_ENC = 10          # the encoder-decoder's source frames
 LAG = 3             # the vector run's second slot starts LAG steps later
 GAINS = ("q_gamma", "k_gamma", "n1", "nx", "n2", "final_norm", "enc_norm",
-         "norm", "D", "dt_bias")
+         "norm", "D", "dt_bias", "q_norm", "kv_norm", "ffn_norms")
+#: the references of the routed families: bf16 ops rounded one by one
+exact_jit = functools.partial(
+    jax.jit, compiler_options={"xla_allow_excess_precision": False})
+#: the caches that hold positions (written only up to each slot's length)
+POSITION_KEYS = {"k", "v", "self.k", "self.v", "kv.k", "kv.v", "dense.c_kv",
+                 "dense.k_rope", "moe.c_kv", "moe.k_rope"}
 
 
 def _rel(ref, got) -> float:
@@ -76,11 +103,14 @@ def _redraw_gains(tree, rng):
 
 def _leaves(cache) -> dict:
     """A cache's tensors by name: ``k``/``v``, ``self.k`` ... ``cross.v``,
-    or the SSM's ``h``/``conv``."""
+    the SSM's ``h``/``conv``, the MoE's ``dense.c_kv`` ... ``moe.k_rope``
+    or the hybrid's ``kv.k``, ``kv.v``, ``ssm.h``, ``ssm.conv``."""
     if isinstance(cache, (tuple, list)):
         cache = {"h": cache[0], "conv": cache[1]}
     out = {}
     for key, v in cache.items():
+        if isinstance(v, (tuple, list)):
+            v = {"h": v[0], "conv": v[1]}
         if isinstance(v, dict):
             out.update({f"{key}.{k}": x for k, x in v.items()})
         elif key != "len":
@@ -119,6 +149,7 @@ class Case:
         self.rparams = _redraw_gains(self.rapi.init(jax.random.PRNGKey(0)),
                                      np.random.default_rng(1))
         self.api = build_model(self.cfg, device="cpu")
+        self.ref_jit = exact_jit if arch in ROUTED_ARCHS else jax.jit
         rng = np.random.default_rng(0)
         self.batch = {"tokens": rng.integers(0, self.cfg.vocab, (B, S)
                                              ).astype(np.int32)}
@@ -128,13 +159,13 @@ class Case:
         if self.cfg.family == "encdec":
             self.batch["src_embeds"] = rng.standard_normal(
                 (B, S_ENC, self.cfg.d_model)).astype(np.float32)
-        logits, cache = jax.jit(self.rapi.prefill)(
+        logits, cache = self.ref_jit(self.rapi.prefill)(
             self.rparams, {k: jnp.asarray(v) for k, v in self.batch.items()})
         self.ref_prefill = (np.asarray(logits), _flat(cache))
         self.ref_prefill_dtypes = {k: str(v.dtype)
                                    for k, v in _leaves(cache).items()}
         self.ref_prefill_cache = cache
-        dec = jax.jit(self.rapi.decode_step)
+        dec = self.ref_jit(self.rapi.decode_step)
         self.ref_runs = {}
         for name, lens_of in (("scalar", lambda t: t + 1),
                               ("vector", _cur_lens)):
@@ -200,12 +231,12 @@ def test_decode_matches_reference_at_every_step(case, run):
         assert _rel(ref, cache[key]) < TOL, key
     # nothing was written beyond each slot's last position
     last = _cur_lens(S - 1) if run == "vector" else np.full(B, S)
-    for key in set(cache) & {"k", "v", "self.k", "self.v"}:
+    for key in set(cache) & POSITION_KEYS:
         for b in range(B):
             assert not cache[key][:, b, last[b]:].any(), key
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS + ("jamba-v0.1-52b",))
 def test_rope_one_position_late_fails_the_cache(arch, monkeypatch):
     """The tolerance has teeth: RoPE at cur_len instead of cur_len - 1
     barely moves smoke-size logits but moves the K cache far past TOL."""
@@ -215,7 +246,7 @@ def test_rope_one_position_late_fails_the_cache(arch, monkeypatch):
                         lambda x, pos, theta, freqs=None:
                         rope(x, pos + 1, theta, freqs))
     _, cache = case.port_run("vector")
-    key = "k" if "k" in cache else "self.k"
+    key = next(k for k in ("k", "self.k", "kv.k") if k in cache)
     assert _rel(case.ref_runs["vector"][1][key], cache[key]) > 4 * TOL
 
 
@@ -325,6 +356,23 @@ def test_blockwise_attention_matches_reference(kind, prefix):
     assert TL._pick(24, 7) == 6 and TL._pick(24, 8) == 8
 
 
+@pytest.mark.parametrize("scale", [0.5, 4.0])
+def test_silu_equals_the_reference_bit_for_bit_in_bf16(scale):
+    """``layers.silu`` rounds each of ``jax.nn.silu``'s bf16 ops as the
+    reference does (``F.silu``, which rounds once, differs in about 40 %
+    of elements); in f32 the two agree to an ulp."""
+    rng = np.random.default_rng(11)
+    xj, xt = _bf16(rng, 64, 512)
+    xj, xt = xj * scale, (xt.float() * scale).to(torch.bfloat16)
+    want = np.asarray(exact_jit(jax.nn.silu)(xj).astype(jnp.float32))
+    np.testing.assert_array_equal(_np(TL.silu(xt)), want)
+    assert (_np(torch.nn.functional.silu(xt)) != want).mean() > 0.2
+    np.testing.assert_allclose(
+        _np(TL.silu(xt.float())),
+        np.asarray(jax.nn.silu(xj.astype(jnp.float32))), rtol=1e-6,
+        atol=1e-7)
+
+
 @pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu"])
 def test_mlp_matches_reference(act):
     cfg = dataclasses.replace(smoke_config("qwen3-4b"), act=act)
@@ -381,10 +429,12 @@ def test_retrieval_config_equals_reference():
 
 
 @pytest.mark.parametrize("arch,family", [
-    ("deepseek-v2-236b", "moe"), ("jamba-v0.1-52b", "hybrid")])
-def test_unported_families_name_their_item(arch, family):
-    with pytest.raises(NotImplementedError, match=rf"{family}.*A9 \(b\)"):
-        build_model(smoke_config(arch), device="cpu")
+    ("deepseek-v2-236b", "mixture"), ("jamba-v0.1-52b", "transformer")])
+def test_an_unknown_family_raises(arch, family):
+    """Every family of the reference is served; another name is refused."""
+    cfg = dataclasses.replace(smoke_config(arch), family=family)
+    with pytest.raises(ValueError, match=rf"unknown model family '{family}'"):
+        build_model(cfg, device="cpu")
 
 
 def test_loss_names_the_training_item():
@@ -393,7 +443,9 @@ def test_loss_names_the_training_item():
         api.loss(None, {})
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "mamba2-130m",
+                                  "deepseek-v2-236b", "deepseek-v3-671b",
+                                  "jamba-v0.1-52b"])
 def test_loss_of_the_new_families_names_the_training_item(arch):
     api = build_model(smoke_config(arch), device="cpu")
     with pytest.raises(NotImplementedError, match=r"A9 \(c\)"):
@@ -500,7 +552,8 @@ def test_ssm_init_draws_the_reference_distributions():
     assert all(not p.requires_grad for p in params.parameters())
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "seamless-m4t-large-v2",
+                                  "deepseek-v2-236b", "jamba-v0.1-52b"])
 def test_decode_past_the_cache_with_drop_matches_reference(arch):
     """ROADMAP C8: with ``past_cache="drop"`` a length past the cache is
     served as the reference serves it (RoPE at the true position, the
@@ -510,7 +563,7 @@ def test_decode_past_the_cache_with_drop_matches_reference(arch):
     case = _case(arch)
     params, smax = case.params(), 8
     ref, port = case.rapi.init_cache(B, smax), case.api.init_cache(B, smax)
-    dec = jax.jit(case.rapi.decode_step)
+    dec = case.ref_jit(case.rapi.decode_step)
     for t in range(S):
         tok, n = case.batch["tokens"][:, t], _cur_lens(t)
         want, ref = dec(case.rparams, ref, jnp.asarray(tok), jnp.asarray(n))
@@ -524,7 +577,8 @@ def test_decode_past_the_cache_with_drop_matches_reference(arch):
         case.api.decode_step(params, port, tok, n, past_cache="clip")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "seamless-m4t-large-v2",
+                                  "deepseek-v2-236b", "jamba-v0.1-52b"])
 def test_drop_guards_the_write_only_past_the_cache(arch, monkeypatch):
     """``past_cache="drop"`` guards the K/V write only where a host length
     runs past the cache, or where the lengths are a tensor: a step inside
@@ -533,14 +587,16 @@ def test_drop_guards_the_write_only_past_the_cache(arch, monkeypatch):
     case = _case(arch)
     params, smax = case.params(), 8
     guards = []
-    inner = TA.attention_decode
 
-    def spy(*args, drop=False, **kw):
-        if not kw.get("cross"):
-            guards.append(drop)
-        return inner(*args, drop=drop, **kw)
+    def spy(inner):
+        def step(*args, drop=False, **kw):
+            if not kw.get("cross"):
+                guards.append(drop)
+            return inner(*args, drop=drop, **kw)
+        return step
 
-    monkeypatch.setattr(TA, "attention_decode", spy)
+    monkeypatch.setattr(TA, "attention_decode", spy(TA.attention_decode))
+    monkeypatch.setattr(TMLA, "mla_decode", spy(TMLA.mla_decode))
     tok = case.batch["tokens"][:, 0]
 
     def step(lens, **kw):
@@ -565,7 +621,229 @@ def test_drop_guards_the_write_only_past_the_cache(arch, monkeypatch):
     assert all(torch.equal(host_cache[k], dev_cache[k]) for k in host_cache)
 
 
-def test_params_from_reference_names_the_item_of_an_unported_family():
-    with pytest.raises(NotImplementedError, match=r"moe.*A9 \(b\)"):
-        params_from_reference(smoke_config("deepseek-v2-236b"), {},
-                              device="cpu")
+def test_params_from_reference_refuses_an_unknown_family():
+    cfg = dataclasses.replace(smoke_config("deepseek-v2-236b"),
+                              family="mixture")
+    with pytest.raises(ValueError, match="unknown model family 'mixture'"):
+        params_from_reference(cfg, {}, device="cpu")
+
+
+# ------------------------------------------------- moe and hybrid families ---
+def _ref_mla_block(rcfg):
+    return exact_jit(lambda lp, h: RLM._mla_block(lp, rcfg, h, mesh=None,
+                                                  dp_axes=("data",)))
+
+
+def _ref_hybrid_layer(rcfg):
+    """The reference's group position i over the whole sequence, as its
+    ``group_fwd`` computes it: (h, (k, v) or the Mamba-2 state)."""
+    moe_pos = [i for i in range(rcfg.attn_every) if i % 2 == 1] \
+        if rcfg.moe.every_other else list(range(rcfg.attn_every))
+    off = rcfg.attn_offset
+
+    def layer(rg, h, i):
+        def at(tree, j):
+            return jax.tree.map(lambda x: x[j], tree)
+        if i == off:
+            a, st = RA.attention_forward(
+                rg["attn"]["attn"], rcfg, RL.rms_norm(h, rg["attn"]["n1"]),
+                kind="causal", return_kv=True)
+            h = h + a
+        else:
+            h, st = RLM._mamba_block(at(rg["mamba"], i if i < off else i - 1),
+                                     rcfg, h, return_state=True)
+        hn = RL.rms_norm(h, rg["ffn_norms"][i])
+        if i in moe_pos:
+            f, _ = RMOE.moe_forward(at(rg["moe"], moe_pos.index(i)), rcfg, hn)
+        else:
+            f = RL.mlp(at(rg["mlp"], i - sum(j < i for j in moe_pos)), rcfg,
+                       hn)
+        return h + f, st
+    return exact_jit(layer, static_argnums=2)
+
+
+@pytest.mark.parametrize("arch", ROUTED_ARCHS)
+def test_prefill_past_32_tokens_takes_the_capacity_path(arch, monkeypatch):
+    """B x S = 48 tokens: the MoE layers take the capacity path, as the
+    reference's do.  Here one ulp upstream can move a token across an
+    expert's capacity cut-off, so the prefill is held block by block: the
+    port's prefill runs with each of its blocks fed the reference's input
+    and passing the reference's output on; every block's output and cache
+    is within TOL of the reference's, and so are the logits and caches
+    the port's prefill assembles from them."""
+    case = _case(arch)
+    rcfg = ref_smoke_config(arch)
+    tokens = np.random.default_rng(9).integers(
+        0, case.cfg.vocab, (2, 24)).astype(np.int32)
+    want, ref = case.ref_jit(case.rapi.prefill)(
+        case.rparams, {"tokens": jnp.asarray(tokens)})
+    stream = {"h": jnp.asarray(case.rparams["embed"])[tokens].astype(
+        jnp.bfloat16), "n": 0}
+    gaps, capacity = [], []
+
+    def as_torch(x):
+        return torch.as_tensor(np.array(x.astype(jnp.float32))).to(
+            torch.bfloat16)
+
+    def forced(inner, ref_step):
+        def block(*args):
+            args = list(args)
+            args[2] = as_torch(stream["h"])
+            out, *rest = inner(*args)
+            want_out, *want_rest = ref_step(stream["n"], stream["h"], *args)
+            gaps.append(_rel(want_out, _np(out)))
+            for w, g in zip(jax.tree_util.tree_leaves(want_rest[-1]),
+                            torch.utils._pytree.tree_leaves(rest[-1])):
+                gaps.append(_rel(w, _np(g)))
+            stream["h"], stream["n"] = want_out, stream["n"] + 1
+            return (as_torch(want_out), *rest)
+        return block
+
+    if case.cfg.family == "moe":
+        nd = case.cfg.moe.first_dense
+        ref_block = _ref_mla_block(rcfg)
+        stacks = [("dense_layers", i) for i in range(nd)] + [
+            ("moe_layers", i) for i in range(case.cfg.n_layers - nd)]
+        monkeypatch.setattr(TLM, "_mla_block", forced(
+            TLM._mla_block, lambda n, h, *a: ref_block(jax.tree.map(
+                lambda x: x[stacks[n][1]], case.rparams[stacks[n][0]]), h)))
+    else:
+        ref_layer = _ref_hybrid_layer(rcfg)
+        per = case.cfg.attn_every
+        monkeypatch.setattr(TLM, "_hybrid_layer", forced(
+            TLM._hybrid_layer, lambda n, h, *a: ref_layer(jax.tree.map(
+                lambda x: x[n // per], case.rparams["groups"]), h, a[3])))
+    inner = TMOE._capacity
+    monkeypatch.setattr(TMOE, "_capacity",
+                        lambda *a: capacity.append(a[2].shape[0]) or inner(*a))
+    logits, cache = case.api.prefill(case.params(), {"tokens": tokens})
+    assert capacity and set(capacity) == {48}
+    assert stream["n"] == case.cfg.n_layers
+    assert max(gaps) < TOL
+    assert _rel(want, _np(logits)) < TOL
+    ref, got = _flat(ref), _flat(cache)
+    assert set(got) == set(ref)
+    for key in ref:
+        assert got[key].shape == ref[key].shape, key
+        assert _rel(ref[key], got[key]) < TOL, key
+
+
+def test_moe_init_draws_the_reference_distributions():
+    """MLA projections and experts bf16 N(0, 1)/sqrt(d_in), the router f32
+    N(0, 1) * 0.02, gains f32 ones, lm_head always (the reference gives
+    this family one), V3's MTP head; every tensor on the model's device."""
+    cfg = smoke_config("deepseek-v3-671b")
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    assert len(params.dense_layers) == cfg.moe.first_dense
+    assert len(params.moe_layers) == cfg.n_layers - cfg.moe.first_dense
+    blk = params.moe_layers[0]
+    assert not hasattr(blk, "mlp") and not hasattr(params.dense_layers[0],
+                                                    "moe")
+    wq_a = blk.attn.wq_a
+    assert wq_a.dtype == torch.bfloat16
+    assert abs(float(wq_a.float().std()) * np.sqrt(cfg.d_model) - 1) < 0.05
+    for name in ("q_norm", "kv_norm"):
+        assert torch.equal(getattr(blk.attn, name),
+                           torch.ones_like(getattr(blk.attn, name)))
+    assert blk.moe.router.dtype == torch.float32
+    assert abs(float(blk.moe.router.std()) - 0.02) < 2e-3
+    wd = blk.moe.wd
+    assert wd.dtype == torch.bfloat16
+    assert abs(float(wd.float().std()) * np.sqrt(cfg.moe.d_expert) - 1) < 0.05
+    assert params.lm_head.shape == (cfg.d_model, cfg.vocab_padded)
+    assert params.mtp.proj.shape == (2 * cfg.d_model, cfg.d_model)
+    assert hasattr(params.mtp.block, "mlp")
+    assert params.mtp.norm.dtype == torch.float32
+    assert all(not p.requires_grad for p in params.parameters())
+    assert all(t.device.type == "cpu" for t in params.parameters())
+
+
+def test_hybrid_init_lays_out_the_reference_group():
+    """One group of attn_every layers: attn_every - 1 Mamba-2 blocks, one
+    attention layer, MoE at the odd positions and dense MLPs at the even
+    ones, ffn_norms (attn_every, d) f32 ones."""
+    cfg = smoke_config("jamba-v0.1-52b")
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    per = cfg.attn_every
+    assert len(params.groups) == cfg.n_layers // per
+    grp = params.groups[0]
+    assert len(grp.mamba) == per - 1
+    assert len(grp.moe) == len(grp.mlp) == per // 2     # every_other
+    assert grp.moe[0].router.dtype == torch.float32
+    assert grp.moe[0].wg.dtype == torch.bfloat16
+    assert grp.attn.attn.wq.dtype == torch.bfloat16
+    assert torch.equal(grp.ffn_norms, torch.ones(per, cfg.d_model))
+    assert params.lm_head.dtype == torch.bfloat16      # untied
+    assert all(not p.requires_grad for p in params.parameters())
+
+
+def test_params_from_reference_carries_mtp_and_keeps_the_router_f32():
+    """DeepSeek-V3: the MTP head (not stacked) carried across, the routers
+    and the gains bit for bit f32, the expert weights rounded once to
+    bf16."""
+    case = _case("deepseek-v3-671b")
+    params = case.params()
+    ref = case.rparams
+    np.testing.assert_array_equal(params.mtp.norm.numpy(),
+                                  np.asarray(ref["mtp"]["norm"]))
+    want = torch.as_tensor(np.array(ref["mtp"]["proj"])).to(torch.bfloat16)
+    assert torch.equal(params.mtp.proj, want)
+    want = torch.as_tensor(np.array(
+        ref["mtp"]["block"]["attn"]["wkv_a"])).to(torch.bfloat16)
+    assert torch.equal(params.mtp.block.attn.wkv_a, want)
+    for i, blk in enumerate(params.moe_layers):
+        np.testing.assert_array_equal(
+            blk.moe.router.numpy(),
+            np.asarray(ref["moe_layers"]["moe"]["router"][i]))
+        np.testing.assert_array_equal(
+            blk.attn.kv_norm.numpy(),
+            np.asarray(ref["moe_layers"]["attn"]["kv_norm"][i]))
+        want = torch.as_tensor(np.array(
+            ref["moe_layers"]["moe"]["wu"][i])).to(torch.bfloat16)
+        assert torch.equal(blk.moe.wu, want)
+        assert blk.moe.router.dtype == torch.float32
+
+
+def test_params_from_reference_unstacks_the_hybrid_groups_twice():
+    """``groups`` is stacked over the groups and, within a group, over its
+    Mamba-2 blocks, MoEs and MLPs: every copied leaf is its reference
+    slice."""
+    case = _case("jamba-v0.1-52b")
+    params = case.params()
+    grp = case.rparams["groups"]
+    for g, gp in enumerate(params.groups):
+        for mi, blk in enumerate(gp.mamba):
+            np.testing.assert_array_equal(
+                blk.mixer.A_log.numpy(),
+                np.asarray(grp["mamba"]["mixer"]["A_log"][g, mi]))
+        for oi, moe in enumerate(gp.moe):
+            np.testing.assert_array_equal(
+                moe.router.numpy(), np.asarray(grp["moe"]["router"][g, oi]))
+        for ei, mlp in enumerate(gp.mlp):
+            want = torch.as_tensor(np.array(
+                grp["mlp"]["wd"][g, ei])).to(torch.bfloat16)
+            assert torch.equal(mlp.wd, want)
+        np.testing.assert_array_equal(gp.ffn_norms.numpy(),
+                                      np.asarray(grp["ffn_norms"][g]))
+
+
+@pytest.mark.parametrize("arch,key,change", [
+    ("deepseek-v2-236b", "wq_b", lambda c: dict(mla=dataclasses.replace(
+        c.mla, nope_dim=8))),
+    ("deepseek-v2-236b", "stacks 3 moe_layers", lambda c: dict(n_layers=3)),
+    ("deepseek-v3-671b", "mtp", lambda c: dict(mtp=False)),
+    ("jamba-v0.1-52b", "stacks 1 groups", lambda c: dict(n_layers=16)),
+    ("jamba-v0.1-52b", "ffn_norms", lambda c: dict(attn_every=6,
+                                                    n_layers=6)),
+    ("jamba-v0.1-52b", "wg", lambda c: dict(moe=dataclasses.replace(
+        c.moe, d_expert=16)))])
+def test_params_from_reference_refuses_a_routed_tree_of_another_shape(
+        arch, key, change):
+    """A leaf of another shape, a stack of another depth, or a tree whose
+    MTP head the config does not hold, is refused by name."""
+    tree = _case(arch).rparams
+    cfg = smoke_config(arch)
+    with pytest.raises(ValueError, match=key):
+        params_from_reference(cfg.scaled(**change(cfg)), tree, device="cpu")
