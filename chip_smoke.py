@@ -17,7 +17,7 @@ Phases, one JSON line each:
               (prefill) over every prefix of 2 x 24 tokens (logits, K/V,
               greedy ids where the margin is clear), the smoke config on
               the card against the same weights on the CPU, the engine
-              (8 slots, max_len 1,024) over 32 seeded requests of 16-128
+              (8 slots, max_len 1,024) over 16 seeded requests of 16-128
               prompt tokens and 64 new (walls, tokens/s, step ms from CUDA
               events, bytes a step and its bound), then decode
               steps over a 32,768-position cache at batch 8 (decode_32k
@@ -62,7 +62,24 @@ Phases, one JSON line each:
               config on the card against the CPU, C8 prompts, the state
               carried across requests (C10) against the CPU engine's ids,
               and the engine arm;
-  9. graph    PDScanning+ fitted on the 1M corpus below: the engine's
+  9. train    the training path (repro_torch.train, the data pipeline, the
+              CLI's checkpoint/restart driver): each family's smoke config
+              (OLMo, PaliGemma, seamless, mamba2, DeepSeek-V2 and V3,
+              Jamba) two train steps on the card against the CPU from one
+              state (loss, gnorm, f32 masters; the CPU's MoE routing
+              imposed, the moves counted); OLMo-1B at its published widths
+              and depth (1.18 B parameters, f32 masters and AdamW moments,
+              bf16 weights and grads), remat="block" against "none" on 1 x
+              4,096 tokens, then 8 x 4,096 (train_4k cut from batch 256)
+              as 2 microbatches of 4: a warm-up and 4 timed steps on the
+              pipeline's batches (step ms from CUDA events, tokens/s, peak
+              bytes, flops by formula and their bound), 2 more steps on
+              the last batch, whose loss must fall; mamba2-130m at full
+              size, 2 steps at 4 x 4,096; the CLI crashed at step 5 and
+              resumed, bit for bit an uninterrupted run; eager, before any
+              CUDA graph or profiler session, its profiled step in
+              lm_profile;
+ 10. graph    PDScanning+ fitted on the 1M corpus below: the engine's
               block walk run eagerly on the card (its walls taken first,
               before any CUDA graph of the process) against the walk
               captured once as a CUDA graph a query chunk and replayed
@@ -71,7 +88,7 @@ Phases, one JSON line each:
               the session served by the same graph; an arm at
               query_chunk = 100; and the top-k selection against the
               stable sort it replaced, on the engine's real score rows;
- 10. main     the flat streaming search at GIST1M shape (1M x 960 f32,
+ 11. main     the flat streaming search at GIST1M shape (1M x 960 f32,
               100 queries, k = 10, the default SchedulePolicy) for
               PDScanning+ (dco_scan) and DDCopq (pq_lookup), with the
               kernels' launch counts over one batch, QPS, recall against a
@@ -79,10 +96,10 @@ Phases, one JSON line each:
               every stream session from here on: its timed batches replay
               the graph captured by its first batch, and no batch
               captures another;
- 11. pdx      the same PDScanning+ method, unrefitted, served from the PDX
+ 12. pdx      the same PDScanning+ method, unrefitted, served from the PDX
               layout (SchedulePolicy(dim_groups=4), dco_scan_grouped) with
               the same record, its ids held against the flat path's;
- 12. ivf      an IVF index over the 1M corpus (n_list = 4096, the 4 sqrt(N)
+ 13. ivf      an IVF index over the 1M corpus (n_list = 4096, the 4 sqrt(N)
               rule of Faiss's wiki for about 1M vectors; nprobe = 64) built
               on the host, served on the card by the same fitted
               PDScanning+ (flat: dco_scan; PDX: dco_scan_grouped) and
@@ -93,7 +110,7 @@ Phases, one JSON line each:
               ids held against the port's host IVF (IVFIndex.search through
               scan_topk) for every query, and 0 uncertified at the row
               block's budget;
- 13. delta    the LSM write path: PDScanning+ fitted on 1M - 4,096 rows
+ 14. delta    the LSM write path: PDScanning+ fitted on 1M - 4,096 rows
               with the graph phase's PCA (fitted on all 1M rows, the delta
               included, so its QPS is not that of a main-rows fit; the ids
               check does not depend on the fit), the last 4,096 added (the
@@ -101,10 +118,10 @@ Phases, one JSON line each:
               a freshly materialized session on the same method, the next
               add a "merge"; then an IVF delta at 100k rows (n_list = 64,
               nprobe = n_list) held against the host IVF;
- 14. two_stage the 1M PDScanning+ on engine="two_stage" (no kernel): QPS,
+ 15. two_stage the 1M PDScanning+ on engine="two_stage" (no kernel): QPS,
               recall, per-query survivors against its capacity, ids held
               against the streaming engine's where nothing was cut;
- 15. adaptive SchedulePolicy(adaptive=True) at 1M on the fitted
+ 16. adaptive SchedulePolicy(adaptive=True) at 1M on the fitted
               PDScanning+: the dataset's queries flat and PDX (ids held
               against the fixed session's, no dco_scan launch), 100 OOD
               queries (make_ood_queries, severity 1.0; ids held against an
@@ -112,22 +129,22 @@ Phases, one JSON line each:
               DDCopq (pq_lookup launches in the graph); each batch's six
               outputs and report held against the eager walk of the same
               chunks, fallback blocks, forced chunks, QPS;
- 16. anytime  the flat PDScanning+ at anytime_block_group = 8: the grouped
+ 17. anytime  the flat PDScanning+ at anytime_block_group = 8: the grouped
               walk eagerly and as a graph a group span, a 60 s deadline
               (outputs equal to the non-deadline batch, coverage 1.0,
               launches, syncs) and a 10 ms one (coverage in (0, 1), every
               query uncertified, within the full wall plus one group);
               one 60 s batch on the PDX layout;
- 17. host     backend="host" (the numpy scan) over the first 100k rows
+ 18. host     backend="host" (the numpy scan) over the first 100k rows
               with 10 queries, its ids held against the torch backend's;
               HNSW built on the first 2,000 rows with FDScanning and
               PDScanning+ (build seconds, DCOs and dims scanned), recall@10
               of its walk;
- 18. guardrails an 18-batch "recovering" drift scenario at 100k through a
+ 19. guardrails an 18-batch "recovering" drift scenario at 100k through a
               guarded PDScanning+ session: the breaker opens during the
               drift, every demoted batch gives an FDScanning session's
               ids, and it closes again after;
- 19. serving  the serving front (SearchService(slots=16, k=10)) over a
+ 20. serving  the serving front (SearchService(slots=16, k=10)) over a
               fixed PDScanning+ session on the first 994,880 rows, with the
               fitted PCA: its capacity calibrated on the session itself
               (steady step, one 1,024-row add and the stall of the step
@@ -139,31 +156,31 @@ Phases, one JSON line each:
               rows visible when it was served; latency percentiles,
               sustained QPS, graphs captured (one, and one a write),
               dco_scan launches a step, device bytes after the last write;
- 20. serving_overload the grown session at 2x its steady capacity,
+ 21. serving_overload the grown session at 2x its steady capacity,
               max_queue 64, shed_oldest, a deadline of 4 steady steps (the
               anytime spans captured first): every ticket done, shed or
               timed out, partial answers uncertified, full certified ones
               exact;
- 21. serving_ood the adaptive PDScanning+ session at 1M behind the service,
+ 22. serving_ood the adaptive PDScanning+ session at 1M behind the service,
               a 50/50 interleave of the dataset's and OOD queries at 0.7 of
               its own capacity: per class p50/p99, fallback blocks, every
               answer exact and certified, no dco_scan launch;
- 22. replica  shard mode over the 1M corpus in 3 sessions (healthy: the flat
+ 23. replica  shard mode over the 1M corpus in 3 sessions (healthy: the flat
               session's ids; shard 1 dead: coverage 2/3, uncertified, the
               live shards' top-10; revived: full answers again), then
               replicate mode over 3 sessions of the first 100k rows (a slow
               replica hedged; replica 0 killed after 5 dispatches,
               ejected, revived through half-open), virtual and real walls
               and the tier's counters;
- 23. persist  a card session at 95,904 rows saved, three 1,024-row adds in
+ 24. persist  a card session at 95,904 rows saved, three 1,024-row adds in
               the WAL, a fourth torn mid-frame, the session dropped and
               loaded back onto the card (the frames replayed "cold", no
               device work before the first search; the live ids, exact), a
               bit-flipped snapshot refused;
- 24. rules    all 8 methods at 100k x 960 with the same queries, and each
+ 25. rules    all 8 methods at 100k x 960 with the same queries, and each
               method that groups again at dim_groups = 4 (and PDScanning+
               on the inline R-cut path);
- 25. mesh     the sharded global top-k as rank processes on this card,
+ 26. mesh     the sharded global top-k as rank processes on this card,
               each rank ``chip_smoke.py --mesh-rank DIR BACKEND`` (file
               rendezvous, a deadline, killed past it): an NCCL group of
               two on one card refused before its initialisation; two gloo
@@ -178,7 +195,7 @@ Phases, one JSON line each:
               exchange on device tensors; every arm held against the same
               method on one card at the shard's row block, the exact rules
               against FDScanning's ids;
- 26. attention DCO-screened decode attention at Qwen3-4B's decode shapes
+ 27. attention DCO-screened decode attention at Qwen3-4B's decode shapes
               (B 8, 32 heads, 8 KV heads, head_dim 128, a 32,768-position
               bf16 cache, ragged cur_len): cap = S against exact
               attention, one sequence on the CPU against the card, CUDA-
@@ -187,7 +204,7 @@ Phases, one JSON line each:
               yardstick), the error, the softmax mass the top-C keeps, the
               bytes each reads by formula and the screened call's device
               operations under torch.profiler;
- 27. profile  for each 1M session (flat, PDX, DDCopq), the main phase's
+ 28. profile  for each 1M session (flat, PDX, DDCopq), the main phase's
               own, kept alive until here (about 32 GB of the card with
               the others below) rather than built again: one more batch
               under torch.profiler (device
@@ -212,8 +229,9 @@ Phases, one JSON line each:
               distribution, OOD beside the fixed screen, DDCopq), each
               kept from its phase, are profiled too, without a kernel
               timing;
- 28. lm_profile the lm, encdec, ssm, moe and hybrid phases' steps under
-              torch.profiler on the same seeded weights and depths, with
+ 29. lm_profile the lm, encdec, ssm, moe and hybrid phases' steps under
+              torch.profiler on the same seeded weights and depths (and
+              one train step of check (c) from the same masters), with
               past_cache="drop" as the
               engine passes it: three engine-shaped steps of each, three
               of Qwen3-4B with one slot past the cache (the C8 guard on),
@@ -230,6 +248,7 @@ or without the repo beside it, it prints no result and exits nonzero.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -3016,11 +3035,13 @@ def phase_attention(dev):
 # -------------------------------------------------------------------- lm ---
 LM_ARCH = "qwen3-4b"
 LM_SEED = 20
-#: the engine arm and the long-cache arm (Qwen3-4B's decode_32k shape,
-#: SHAPES in configs/base.py, cut from batch 128 to 8 to fit one card);
-#: the CPU rehearsal runs the same code at the smoke config and toy sizes
+#: the engine arm (every LM phase's: 16 requests, 32 before the train
+#: phase came; cut for the run's time limit) and the long-cache arm
+#: (Qwen3-4B's decode_32k shape, SHAPES in configs/base.py, cut from
+#: batch 128 to 8 to fit one card); the CPU rehearsal runs the same code
+#: at the smoke config and toy sizes
 LM_SIZES = {
-    "card": dict(slots=8, max_len=1024, requests=32, max_new=64,
+    "card": dict(slots=8, max_len=1024, requests=16, max_new=64,
                  prompt=(16, 128), long_b=8, long_len=32_768,
                  long_min=30_000, long_steps=5),
     "cpu": dict(slots=4, max_len=64, requests=6, max_new=8, prompt=(4, 16),
@@ -3298,7 +3319,7 @@ def phase_lm(dev):
     """The LM serving path at Qwen3-4B's published widths and depth with
     random bf16 weights from a seed: decode against the full forward pass,
     the card against the CPU at the smoke config, the continuous-batching
-    engine over 32 requests, and decode steps over a 32,768-position
+    engine over 16 requests, and decode steps over a 32,768-position
     cache.  It runs before any CUDA graph or profiler session of the
     process, which slow every later eager launch; its profiled steps are
     phase_lm_profile's, at the end."""
@@ -3384,7 +3405,7 @@ def _phase_lm(dev, t_phase, card, size):
     check_c = card_against_cpu(LM_ARCH, LM_SEED, rng, dev)
     split_s["check_c"] = time.perf_counter() - t0
 
-    # the engine arm: 32 seeded requests through 8 slots
+    # the engine arm: 16 seeded requests through 8 slots
     engine = engine_arm(api, params, cfg, size, rng, "lm", dev)
     cache_bytes = 2 * (cfg.n_layers * size["slots"] * size["max_len"]
                        * cfg.n_kv_heads * cfg.hd * 2)
@@ -4044,6 +4065,348 @@ def _phase_routed(dev, t_phase, card, label, arch, seed):
     return rec
 
 
+# ---------------------------------------------------------------- train ---
+TRAIN_ARCH, TRAIN_SEED = "olmo-1b", 26
+SSM_TRAIN_SEED = 27
+#: check (a): each family's smoke config, 2 steps on the card against the
+#: CPU from one state (V2 and V3: the MoE without and with its MTP head)
+TRAIN_SMOKE = (("olmo-1b", 30), ("paligemma-3b", 31),
+               ("seamless-m4t-large-v2", 32), ("mamba2-130m", 33),
+               ("deepseek-v2-236b", 34), ("deepseek-v3-671b", 35),
+               ("jamba-v0.1-52b", 36))
+TRAIN_SMOKE_B, TRAIN_SMOKE_S = 2, 16  # 32 tokens: the MoE's dropless path
+#: the published train shape (SHAPES["train_4k"]: 4,096 tokens, global
+#: batch 256), its batch cut to 8 as 2 microbatches of 4 to fit one card
+#: and the run's time; mamba2-130m at 4 x 4,096 in one; the CPU rehearsal
+#: runs the smoke configs at toy sizes
+TRAIN_SIZES = {
+    "card": dict(batch=8, seq=4096, microbatches=2, timed=4, repeat=2,
+                 remat_batch=1, ssm_batch=4, ssm_seq=4096),
+    "cpu": dict(batch=4, seq=64, microbatches=2, timed=2, repeat=2,
+                remat_batch=1, ssm_batch=2, ssm_seq=64),
+}
+TRAIN_LR = 1e-3                  # the smoke comparisons' constant rate
+TRAIN_PEAK_LR = 3e-4             # lr_schedule's peak: check (c)'s rate
+#: tests/test_torch_train_step.py's tolerances: the loss relative (the
+#: routed families' 4e-2), gnorm relative, the masters after one step where
+#: the gradient is clear (above 5e-2 of its leaf's max and 1e-4)
+TRAIN_LOSS_TOL = {"dense": 1e-3, "vlm": 1e-3, "encdec": 1e-3, "ssm": 1e-3,
+                  "moe": 4e-2, "hybrid": 4e-2}
+TRAIN_GNORM_TOL, TRAIN_CLEAR_TOL = 1e-2, 5e-2
+#: check (b): remat="block" against "none" on the card, the first moments
+#: (0.1 x the clipped grads) within this share of each leaf's max (the
+#: card's scatter-adds may sum in another order)
+TRAIN_REMAT_TOL = 1e-2
+TRAIN_CKPT_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 8, 2, 5
+
+
+def state_on(state, dev):
+    """A TrainState's tensors on ``dev``."""
+    import dataclasses
+    return dataclasses.replace(
+        state, params={k: v.to(dev) for k, v in state.params.items()},
+        opt={"m": {k: v.to(dev) for k, v in state.opt["m"].items()},
+             "v": {k: v.to(dev) for k, v in state.opt["v"].items()},
+             "step": state.opt["step"].to(dev)},
+        step=state.step.to(dev))
+
+
+def train_smoke_against_cpu(arch, seed, dev) -> dict:
+    """(a): ``arch``'s smoke config, 2 train steps (remat="block") on the
+    card and on the CPU from one state, on the pipeline's batches, the
+    CPU's routing imposed on the card (the recompute's calls included)
+    and the moves counted: the loss and gnorm of each step within the CPU
+    tests' tolerances; after step 1 the masters within 1e-6 where the CPU's
+    gradient is clear and within 2 lr + 1e-6 everywhere, after step 2
+    within 4 lr + 1e-6."""
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import RunShape
+    from repro_torch.data import make_batch_fn
+    from repro_torch.models import build_model
+    from repro_torch.testing.routing import routing
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    cfg = smoke_config(arch)
+    cpu_api = build_model(cfg, device="cpu")
+    state = init_state(cpu_api, torch.Generator().manual_seed(seed))
+    cpu_step = make_train_step(cpu_api, lr_fn=lambda s: TRAIN_LR)
+    card_step = make_train_step(build_model(cfg, device=dev),
+                                lr_fn=lambda s: TRAIN_LR)
+    batches = make_batch_fn(cfg, RunShape("smoke", TRAIN_SMOKE_S,
+                                          TRAIN_SMOKE_B, "train"), seed=seed)
+    want, got = state, state_on(state, dev)
+    tol = TRAIN_LOSS_TOL[cfg.family]
+    out, moved = {"loss": [], "gnorm": []}, 0
+    for step in range(2):
+        batch = batches(step)
+        with routing() as rec:
+            want, wm = cpu_step(want, batch)
+        with routing(rec["calls"]) as crec:
+            got, gm = card_step(got, batch)
+        moved += crec["moved"]
+        pair = {k: (float(wm[k]), float(gm[k])) for k in ("loss", "gnorm")}
+        out["loss"].append(pair["loss"])
+        out["gnorm"].append(pair["gnorm"])
+        check(abs(pair["loss"][1] - pair["loss"][0])
+              <= tol * abs(pair["loss"][0])
+              and abs(pair["gnorm"][1] - pair["gnorm"][0])
+              <= TRAIN_GNORM_TOL * pair["gnorm"][0],
+              f"train {arch}: step {step} on the card differs from the CPU "
+              f"{pair}")
+        clear_gap, gap = 0.0, 0.0
+        for name, w in want.params.items():
+            g = got.params[name]
+            check(g.device.type == dev.type and g.dtype == torch.float32,
+                  f"train {arch}: master {name} is not f32 on the card")
+            d = (g.cpu() - w).abs()
+            gap = max(gap, float(d.max()))
+            m = want.opt["m"][name].abs()
+            clear = (m > TRAIN_CLEAR_TOL * m.max()) & (m > 1e-5)
+            if step == 0 and bool(clear.any()):
+                clear_gap = max(clear_gap, float(d[clear].max()))
+        out[f"step{step + 1}_master_gap"] = gap
+        if step == 0:
+            out["step1_clear_master_gap"] = clear_gap
+        check(gap <= 2 * (step + 1) * TRAIN_LR + 1e-6 and clear_gap <= 1e-6,
+              f"train {arch}: the card's masters differ from the CPU's "
+              f"after step {step + 1} ({gap}, {clear_gap})")
+    return dict(out, routings_differing_from_the_cpu=moved,
+                loss_tol=tol)
+
+
+def train_flops(cfg, n_params, batch, seq) -> float:
+    """A step's flops by formula: 6 N a token for the weight GEMMs, and
+    attention's 12 L d S a token (QK^T and PV forward and backward over
+    the whole S x S score matrix, as the port computes it; causal
+    skipping would halve it).  Remat's recomputed forward is not
+    counted."""
+    tokens = batch * seq
+    return 6.0 * n_params * tokens + 12.0 * cfg.n_layers * cfg.d_model \
+        * seq * tokens
+
+
+def timed_train_steps(step_fn, state, batches, dev) -> tuple:
+    """Each step between CUDA events (the host clock on the CPU), its
+    loss read on the host after: (state, losses, step ms)."""
+    import torch
+    card = on_card(dev)
+    losses, ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        if card:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        state, metrics = step_fn(state, batch)
+        if card:
+            ev[1].record()
+        losses.append(float(metrics["loss"]))
+        ms.append(ev[0].elapsed_time(ev[1]) if card
+                  else (time.perf_counter() - t0) * 1e3)
+    return state, losses, ms
+
+
+def phase_train(dev):
+    """The training path (``repro_torch.train``) on the card: (a) every
+    family's smoke config, 2 steps against the CPU; (b) OLMo-1B at its
+    published widths and depth, remat="block" against "none" on one
+    microbatch of 1 x 4,096; (c) OLMo-1B at 8 x 4,096 as 2 microbatches
+    of 4 (train_4k cut from batch 256): 1 warm-up and 4 timed steps on the
+    pipeline's batches, then 2 more steps on the last of them, whose
+    loss must fall (step ms, tokens/s, peak bytes, flops and bound); (d)
+    mamba2-130m at full size, 2 steps at 4 x 4,096; (e) the CLI's
+    checkpoint/restart driver at the smoke config: a crash at step 5 and
+    a resume end bit for bit where an uninterrupted run does.  Eager:
+    it runs before any CUDA graph or profiler session of the process;
+    its profiled step is lm_profile's."""
+    t_phase = time.perf_counter()
+    card = on_card(dev)
+    with f32_accumulation():
+        return _phase_train(dev, t_phase, card,
+                            TRAIN_SIZES["card" if card else "cpu"])
+
+
+def _phase_train(dev, t_phase, card, size):
+    import numpy as np
+    import torch
+    from repro_torch.configs import SHAPES, get_arch, smoke_config
+    from repro_torch.configs.base import RunShape
+    from repro_torch.data import TokenPipeline, make_batch_fn
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    rec, split_s = {}, {}
+    t0 = time.perf_counter()
+    rec["check_card_vs_cpu"] = {
+        arch: train_smoke_against_cpu(arch, seed, dev)
+        for arch, seed in TRAIN_SMOKE}
+    split_s["check_a"] = time.perf_counter() - t0
+
+    cfg = get_arch(TRAIN_ARCH) if card else smoke_config(TRAIN_ARCH)
+    published = SHAPES["train_4k"]
+    t0 = time.perf_counter()
+    api = {r: build_model(cfg, remat=r, device=dev) for r in ("block",
+                                                              "none")}
+    state = init_state(api["block"],
+                       torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+    sync(dev)
+    split_s["init"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state.params.values())
+    rec.update(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+               n_params=n_params, master_bytes=n_params * 4,
+               state_bytes=n_params * 12)
+    check(all(p.device.type == dev.type and p.dtype == torch.float32
+              for p in state.params.values()),
+          "train: a master is not f32 on the card")
+
+    # (b) remat="block" against "none", one microbatch of 1 x seq
+    t0 = time.perf_counter()
+    batch = make_batch_fn(cfg, RunShape("remat", size["seq"],
+                                        size["remat_batch"], "train"),
+                          seed=TRAIN_SEED)(0)
+    moments, remat_rec = {}, {}
+    for r in ("block", "none"):
+        if card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        new, m = make_train_step(api[r], lr_fn=lambda s: TRAIN_PEAK_LR)(
+            state, batch)
+        sync(dev)
+        moments[r] = new.opt["m"]
+        remat_rec[r] = {"loss": float(m["loss"]), "gnorm": float(m["gnorm"]),
+                        "peak_device_bytes": (torch.cuda.max_memory_allocated(
+                            dev) if card else 0)}
+        del new, m
+    gap = max(float((moments["block"][k] - v).abs().max()
+                    / max(float(v.abs().max()), 1e-30))
+              for k, v in moments["none"].items())
+    remat_rec.update(batch=size["remat_batch"], seq=size["seq"],
+                     max_rel_moment_gap=gap, tol=TRAIN_REMAT_TOL)
+    rec["check_remat"] = remat_rec
+    check(remat_rec["block"]["loss"] == remat_rec["none"]["loss"]
+          and gap <= TRAIN_REMAT_TOL,
+          f"train: remat='block' differs from 'none' {remat_rec}")
+    del moments
+    free_card(dev)
+    split_s["check_b"] = time.perf_counter() - t0
+
+    # (c) the cut train_4k shape: warm-up, timed steps, a repeated batch
+    t0 = time.perf_counter()
+    if card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    step_fn = make_train_step(api["block"],
+                              microbatches=size["microbatches"],
+                              lr_fn=lambda s: TRAIN_PEAK_LR)
+    shape = RunShape("train_4k_cut", size["seq"], size["batch"], "train")
+    pipe = TokenPipeline(make_batch_fn(cfg, shape, seed=TRAIN_SEED))
+    batches = [b for _, b in pipe.iter(0, 1 + size["timed"])]
+    state, losses, ms = timed_train_steps(step_fn, state, batches, dev)
+    repeat = batches[-1]
+    state, rep_losses, rep_ms = timed_train_steps(
+        step_fn, state, [repeat] * size["repeat"], dev)
+    sync(dev)
+    tokens = size["batch"] * size["seq"]
+    step_ms = float(np.median(ms[1:]))
+    flops = train_flops(cfg, n_params, size["batch"], size["seq"])
+    rec["steps"] = {
+        "batch": size["batch"], "seq": size["seq"],
+        "microbatches": size["microbatches"],
+        "published_batch": published.global_batch,
+        "published_seq": published.seq_len,
+        "reduced": (f"global batch {published.global_batch} -> "
+                    f"{size['batch']} ({size['microbatches']} microbatches "
+                    f"of {size['batch'] // size['microbatches']}): one "
+                    "card's memory and the run's time"),
+        "warmup_step_ms": ms[0], "step_ms": ms[1:],
+        "step_ms_median": step_ms, "tokens_per_step": tokens,
+        "tokens_per_s": tokens / step_ms * 1e3,
+        "losses": losses, "repeated_batch_losses": rep_losses,
+        "repeated_step_ms": rep_ms,
+        "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if card else 0),
+        "step_flops": flops,
+        "step_bound_ms": flops / BF16_FLOP_PER_S * 1e3,
+    }
+    check(all(np.isfinite(losses + rep_losses)),
+          f"train: a loss is not finite {losses} {rep_losses}")
+    check(rep_losses[-1] < rep_losses[0],
+          f"train: the loss did not fall on a repeated batch {rep_losses}")
+    check(int(state.step) == 1 + size["timed"] + size["repeat"],
+          "train: the state's step count is off")
+    del state, step_fn, api, batches, repeat
+    free_card(dev)
+    split_s["check_c"] = time.perf_counter() - t0
+
+    # (d) mamba2-130m at full size, 2 steps
+    t0 = time.perf_counter()
+    scfg = get_arch(SSM_ARCH) if card else smoke_config(SSM_ARCH)
+    sapi = build_model(scfg, device=dev)
+    sstate = init_state(sapi, torch.Generator(device=dev).manual_seed(
+        SSM_TRAIN_SEED))
+    if card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    sbatches = make_batch_fn(scfg, RunShape("ssm", size["ssm_seq"],
+                                            size["ssm_batch"], "train"),
+                             seed=SSM_TRAIN_SEED)
+    sstate, slosses, sms = timed_train_steps(
+        make_train_step(sapi, lr_fn=lambda s: TRAIN_PEAK_LR), sstate,
+        [sbatches(0), sbatches(1)], dev)
+    rec["ssm"] = {"arch": scfg.name, "n_params": sum(
+        p.numel() for p in sstate.params.values()),
+        "batch": size["ssm_batch"], "seq": size["ssm_seq"],
+        "losses": slosses, "step_ms": sms,
+        "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if card else 0)}
+    check(all(np.isfinite(slosses)), f"train: mamba2 loss {slosses}")
+    del sstate, sapi
+    free_card(dev)
+    split_s["check_d"] = time.perf_counter() - t0
+
+    # (e) the CLI's checkpoint/restart driver: a crash, a resume
+    t0 = time.perf_counter()
+    argv = ["--arch", TRAIN_ARCH, "--smoke", "--device", str(dev),
+            "--steps", str(TRAIN_CKPT_STEPS), "--batch", "4", "--seq", "64",
+            "--microbatches", "2", "--ckpt-every", str(TRAIN_CKPT_EVERY)]
+    printed = io.StringIO()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp, \
+            contextlib.redirect_stdout(printed):
+        whole = train_cli.main(argv + ["--ckpt-dir", f"{tmp}/a"])
+        try:
+            train_cli.main(argv + ["--ckpt-dir", f"{tmp}/b", "--fail-at",
+                                   str(TRAIN_FAIL_AT)])
+            crashed = False
+        except RuntimeError:
+            crashed = True
+        saved = sorted(ckpt.latest_steps(f"{tmp}/b"))
+        resumed = train_cli.main(argv + ["--ckpt-dir", f"{tmp}/b"])
+    flat_w, flat_r = ckpt._flatten(whole), ckpt._flatten(resumed)
+    same = len(flat_w) == len(flat_r) and all(
+        a.device.type == dev.type and torch.equal(a, b)
+        for a, b in zip(flat_w, flat_r))
+    final = make_train_step(build_model(smoke_config(TRAIN_ARCH),
+                                        device=dev))
+    batch = make_batch_fn(smoke_config(TRAIN_ARCH),
+                          RunShape("cli", 64, 4, "train"))(TRAIN_CKPT_STEPS)
+    loss_w = final(whole, batch)[1]["loss"]
+    loss_r = final(resumed, batch)[1]["loss"]
+    rec["check_restart"] = {
+        "steps": TRAIN_CKPT_STEPS, "fail_at": TRAIN_FAIL_AT,
+        "crashed": crashed, "checkpoints_after_crash": saved,
+        "state_bitwise_equal": same,
+        "final_loss_bitwise_equal": bool(torch.equal(loss_w, loss_r)),
+        "final_loss": float(loss_r),
+        "cli_last_line": printed.getvalue().strip().splitlines()[-1]}
+    check(crashed and same and rec["check_restart"]
+          ["final_loss_bitwise_equal"],
+          f"train: the resumed run differs {rec['check_restart']}")
+    split_s["check_e"] = time.perf_counter() - t0
+    rec.update(split_s=split_s, phase_s=time.perf_counter() - t_phase)
+    log("train", **rec)
+    return rec
+
+
 def profiled_steps(api, params, cache, tok, lens, steps, dev) -> tuple:
     """``steps`` decode steps under torch.profiler, each followed by the
     logits' copy to the host, after one unprofiled warm-up step, with
@@ -4069,7 +4432,50 @@ def profiled_steps(api, params, cache, tok, lens, steps, dev) -> tuple:
     return device_profile(prof, steps), wall_ms
 
 
-def phase_lm_profile(dev, rec, encdec_rec, ssm_rec, moe_rec, hybrid_rec):
+def profiled_train_step(dev, train_rec) -> dict:
+    """The train phase's check (c) step (OLMo-1B, 2 microbatches of 4 x
+    4,096 on the card) under torch.profiler, after one unprofiled warm-up
+    step, from the same seeded masters: launches, device ms and the busy
+    share against (c)'s unprofiled median step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.configs.base import RunShape
+    from repro_torch.data import make_batch_fn
+    from repro_torch.models import build_model
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    card = on_card(dev)
+    size = TRAIN_SIZES["card" if card else "cpu"]
+    cfg = get_arch(TRAIN_ARCH) if card else smoke_config(TRAIN_ARCH)
+    api = build_model(cfg, device=dev)
+    state = init_state(api, torch.Generator(device=dev).manual_seed(
+        TRAIN_SEED))
+    step_fn = make_train_step(api, microbatches=size["microbatches"],
+                              lr_fn=lambda s: TRAIN_PEAK_LR)
+    batches = make_batch_fn(cfg, RunShape("train_4k_cut", size["seq"],
+                                          size["batch"], "train"),
+                            seed=TRAIN_SEED)
+    state, m = step_fn(state, batches(0))
+    float(m["loss"])
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if card else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches(1))
+        float(m["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    unprofiled = train_rec["steps"]["step_ms_median"]
+    got = device_profile(prof, 1)
+    del state, step_fn
+    free_card(dev)
+    return dict(got, steps=1, profiled_step_ms=wall_ms,
+                unprofiled_step_ms=unprofiled,
+                device_busy_share=got["device_ms_per_step"] / unprofiled)
+
+
+def phase_lm_profile(dev, rec, encdec_rec, ssm_rec, moe_rec, hybrid_rec,
+                     train_rec=None):
     """The lm, encdec, ssm, moe and hybrid phases' steps under
     torch.profiler, after every wall of the run, on the same seeded
     weights and depths: for each, three engine-shaped steps (8 slots,
@@ -4132,6 +4538,10 @@ def phase_lm_profile(dev, rec, encdec_rec, ssm_rec, moe_rec, hybrid_rec):
                 split_s[label] = time.perf_counter() - t0
             del params
             free_card(dev)
+        if train_rec is not None:
+            t0 = time.perf_counter()
+            out["train"] = profiled_train_step(dev, train_rec)
+            split_s["train"] = time.perf_counter() - t0
     log("lm_profile", **out, split_s=split_s,
         phase_s=time.perf_counter() - t_phase)
     return out
@@ -4180,6 +4590,9 @@ def main() -> int:
     ssm_rec = phase_ssm(dev)
     moe_rec = phase_moe(dev)
     hybrid_rec = phase_hybrid(dev)
+    torch.cuda.empty_cache()
+    # A9 (c): the training path, eager, before any graph or profiler too
+    train_rec = phase_train(dev)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -4389,7 +4802,8 @@ def main() -> int:
     kept.clear()
     torch.cuda.empty_cache()
     log("profile_done", seconds=time.perf_counter() - t0)
-    phase_lm_profile(dev, lm_rec, encdec_rec, ssm_rec, moe_rec, hybrid_rec)
+    phase_lm_profile(dev, lm_rec, encdec_rec, ssm_rec, moe_rec, hybrid_rec,
+                     train_rec)
 
     # launches on the IVF, adaptive, anytime and serving paths of each
     # kernel, beside the main path's

@@ -52,6 +52,58 @@ def index_from_reference(ref_index) -> IVFIndex:
     return idx
 
 
+_FAMILIES = {"dense": DenseLM, "vlm": DenseLM, "encdec": EncDecLM,
+             "ssm": SSMLM, "moe": MoELM, "hybrid": HybridLM}
+
+
+def _model(cfg, device):
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown model family {cfg.family!r}; the "
+                         f"families are {sorted(_FAMILIES)}")
+    return _FAMILIES[cfg.family](cfg, None, device=device)
+
+
+def reference_leaves(cfg, model, ref_params):
+    """Yield ``(name, parameter, array)`` for each of ``model``'s named
+    parameters: the f32 numpy array that ``ref_params`` (the reference's
+    tree for ``cfg``, read through ``np.asarray``) holds for it, by the
+    walk ``params_from_reference`` describes.  Refuses what that refuses."""
+    if ("lm_head" in ref_params) != hasattr(model, "lm_head"):
+        raise ValueError(f"lm_head in the reference tree does not fit the "
+                         f"{cfg.family!r} family at "
+                         f"tie_embeddings={cfg.tie_embeddings}")
+    extra = set(ref_params) - {name.split(".")[0]
+                               for name, _ in model.named_parameters()}
+    if extra:
+        raise ValueError(f"the reference tree holds {sorted(extra)}, which "
+                         f"the {cfg.family!r} model of this config does not")
+    stacked: dict = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        # the reference's key path, and the index on each stacked axis
+        path = tuple(q for q in parts if not q.isdigit())
+        idx = tuple(int(q) for q in parts if q.isdigit())
+        if path not in stacked:
+            leaf = ref_params
+            for key in path:
+                leaf = leaf[key]
+            stacked[path] = np.array(leaf, np.float32)
+            axes = [j for j, q in enumerate(parts) if q.isdigit()]
+            for axis, j in enumerate(axes):
+                n = len(model.get_submodule(".".join(parts[:j])))
+                got = stacked[path].shape[axis] \
+                    if stacked[path].ndim > axis else None
+                if got != n:
+                    raise ValueError(
+                        f"{name}: the reference stacks {got} "
+                        f"{parts[j - 1]}, the model holds {n}")
+        src = stacked[path][idx]
+        if tuple(src.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: the reference holds {src.shape}, "
+                             f"the model {tuple(p.shape)}")
+        yield name, p, np.ascontiguousarray(src)
+
+
 def params_from_reference(cfg, ref_params, device=None) -> torch.nn.Module:
     """The port's model of ``cfg``'s family on ``device`` (default: the
     CUDA card) holding ``ref_params``, the reference's parameter tree for
@@ -84,45 +136,49 @@ def params_from_reference(cfg, ref_params, device=None) -> torch.nn.Module:
     leaf of another shape, a stack of another depth, an ``lm_head`` the
     family does not hold (or lacks), or a part the model does not hold
     (V3's ``mtp`` for a config without it) is refused."""
-    families = {"dense": DenseLM, "vlm": DenseLM, "encdec": EncDecLM,
-                "ssm": SSMLM, "moe": MoELM, "hybrid": HybridLM}
-    if cfg.family not in families:
-        raise ValueError(f"unknown model family {cfg.family!r}; the "
-                         f"families are {sorted(families)}")
-    model = families[cfg.family](cfg, None, device=resolve_device(device))
-    if ("lm_head" in ref_params) != hasattr(model, "lm_head"):
-        raise ValueError(f"lm_head in the reference tree does not fit the "
-                         f"{cfg.family!r} family at "
-                         f"tie_embeddings={cfg.tie_embeddings}")
-    extra = set(ref_params) - {name.split(".")[0]
-                               for name, _ in model.named_parameters()}
-    if extra:
-        raise ValueError(f"the reference tree holds {sorted(extra)}, which "
-                         f"the {cfg.family!r} model of this config does not")
-    stacked: dict = {}
+    model = _model(cfg, resolve_device(device))
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            parts = name.split(".")
-            # the reference's key path, and the index on each stacked axis
-            path = tuple(q for q in parts if not q.isdigit())
-            idx = tuple(int(q) for q in parts if q.isdigit())
-            if path not in stacked:
-                leaf = ref_params
-                for key in path:
-                    leaf = leaf[key]
-                stacked[path] = np.array(leaf, np.float32)
-                axes = [j for j, q in enumerate(parts) if q.isdigit()]
-                for axis, j in enumerate(axes):
-                    n = len(model.get_submodule(".".join(parts[:j])))
-                    got = stacked[path].shape[axis] \
-                        if stacked[path].ndim > axis else None
-                    if got != n:
-                        raise ValueError(
-                            f"{name}: the reference stacks {got} "
-                            f"{parts[j - 1]}, the model holds {n}")
-            src = stacked[path][idx]
-            if tuple(src.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: the reference holds {src.shape}, "
-                                 f"the model {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.ascontiguousarray(src)))
+        for _, p, src in reference_leaves(cfg, model, ref_params):
+            p.copy_(torch.from_numpy(src))
     return model
+
+
+def train_state_from_reference(cfg, ref_state, device=None):
+    """The port's ``TrainState`` (``repro_torch.train``) on ``device``
+    (default: the CUDA card) from the reference's: its f32 parameter tree
+    (``ref_state.params``) as the masters, its AdamW moments
+    (``ref_state.opt["m"]``, ``["v"]``, in their dtype) and step counts,
+    each leaf read through ``np.asarray`` by ``params_from_reference``'s
+    walk, so both packages step from the same state."""
+    from repro_torch.train.train_step import TrainState
+
+    dev = resolve_device(device)
+    names = _model(cfg, "meta")
+
+    def tree(ref_tree, dtype=torch.float32):
+        return {name: torch.from_numpy(src).to(device=dev, dtype=dtype)
+                for name, _, src in reference_leaves(cfg, names, ref_tree)}
+
+    def dtype_of(ref_tree):
+        leaf = next(iter(_leaves(ref_tree)))
+        return torch.bfloat16 if "bfloat16" in str(leaf.dtype) \
+            else torch.float32
+
+    opt = ref_state.opt
+    step = torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32,
+                        device=dev)
+    return TrainState(
+        params=tree(ref_state.params),
+        opt={"m": tree(opt["m"], dtype_of(opt["m"])),
+             "v": tree(opt["v"], dtype_of(opt["v"])), "step": step},
+        step=torch.tensor(int(np.asarray(ref_state.step)), dtype=torch.int32,
+                          device=dev))
+
+
+def _leaves(tree):
+    """The leaves of a nested dict (None leaves skipped)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree

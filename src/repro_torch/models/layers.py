@@ -16,27 +16,71 @@ Conventions:
     is exact in f32); softmax in f32;
   * attention is blockwise (online softmax over KV chunks) so a long
     prefill never materializes an (S x S) score matrix;
-  * every init function takes an explicit ``torch.Generator``.
+  * every init function takes an explicit ``torch.Generator``; inside
+    ``master_init()`` the random draws stay f32 (the training path's
+    master weights), else they are rounded once to bf16;
+  * under autograd the f32-result GEMM gives each bf16 operand the
+    reference's cotangent (``bmm_out_f32``), and blockwise attention
+    recomputes each query chunk in the backward, as the reference's
+    ``jax.checkpoint`` does, so no (S x S) tile is kept (inside a layer
+    checkpointed whole, ``remat_region``, the layer's recompute is the
+    only one).
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 CDTYPE = torch.bfloat16    # compute dtype
+_WEIGHT_DTYPE = [CDTYPE]   # what a random draw is rounded to (master_init)
+_REMAT_DEPTH = [0]         # enclosing checkpointed regions (remat_region)
+
+
+@contextlib.contextmanager
+def master_init():
+    """Inside, every random matmul weight and embedding is kept as its f32
+    draw instead of being rounded to bf16: the same generator calls, so
+    rounding a master gives the serving init's weight bit for bit."""
+    _WEIGHT_DTYPE[0] = torch.float32
+    try:
+        yield
+    finally:
+        _WEIGHT_DTYPE[0] = CDTYPE
+
+
+@contextlib.contextmanager
+def remat_region():
+    """Marks code that its caller checkpoints whole (``models.lm``'s
+    ``remat="block"``): inside, blockwise attention does not checkpoint
+    its query chunks again, since the region's recompute keeps one
+    layer's tiles only until that layer's backward."""
+    _REMAT_DEPTH[0] += 1
+    try:
+        yield
+    finally:
+        _REMAT_DEPTH[0] -= 1
+
+
+def weight_dtype():
+    """The dtype a random weight is held in: bf16, f32 in ``master_init``."""
+    return _WEIGHT_DTYPE[0]
 
 
 def dense_init(gen, d_in, d_out, scale=None, *, device=None):
     """``N(0, 1) / sqrt(d_in)`` (or ``* scale``) drawn in f32 on ``gen``'s
-    device and rounded once to bf16; ``gen=None`` leaves the weight
-    uninitialised (it is about to be overwritten)."""
+    device and rounded once to bf16 (kept f32 in ``master_init``);
+    ``gen=None`` leaves the weight uninitialised (it is about to be
+    overwritten)."""
     if gen is None:
-        return torch.empty(d_in, d_out, dtype=CDTYPE, device=device)
+        return torch.empty(d_in, d_out, dtype=weight_dtype(), device=device)
     s = (1.0 / np.sqrt(d_in)) if scale is None else scale
     w = torch.randn(d_in, d_out, generator=gen, dtype=torch.float32,
                     device=device)
-    return (w * s).to(CDTYPE)
+    return (w * s).to(weight_dtype())
 
 
 def rms_norm(x, gamma=None, eps=1e-6):
@@ -114,13 +158,44 @@ def _einsum_f32(eq, a, b):
     return torch.einsum(eq, a.to(torch.float32), b.to(torch.float32))
 
 
+class _BmmOutF32(torch.autograd.Function):
+    """One bf16 ``bmm`` with an f32 result, differentiable: autograd has
+    no formula for ``aten::bmm.dtype``.  Each operand's cotangent is the
+    f32 cotangent times the other operand, formed in f32 and rounded to
+    the operand's dtype, which is what ``jax.grad`` of a
+    ``preferred_element_type=float32`` dot gives."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g, b.to(torch.float32).transpose(1, 2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a.to(torch.float32).transpose(1, 2), g).to(b.dtype)
+        return ga, gb
+
+
+def bmm_out_f32(a, b):
+    """``torch.bmm(a, b, out_dtype=torch.float32)`` of bf16 operands, with
+    a backward (``_BmmOutF32``) when autograd records it."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _BmmOutF32.apply(a, b)
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
 def bmm_f32(a, b):
     """``torch.bmm`` with an f32 result (the reference's
     ``preferred_element_type=float32``): of two bf16 CUDA operands one
     bf16 GEMM with an f32 output, read in place; otherwise both operands
     widened to f32 first (the CPU has no bf16 GEMM with an f32 output)."""
     if a.is_cuda and a.dtype == b.dtype == CDTYPE:
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return bmm_out_f32(a, b)
     return torch.bmm(a.to(torch.float32), b.to(torch.float32))
 
 
@@ -152,8 +227,7 @@ def grouped_scores_bmm(qg, k):
     of the cache is made."""
     B, Hkv, G, _ = qg.shape
     S = k.shape[1]
-    s = torch.bmm(_block_diagonal(qg), k.reshape(B, S, -1).transpose(1, 2),
-                  out_dtype=torch.float32)
+    s = bmm_out_f32(_block_diagonal(qg), k.reshape(B, S, -1).transpose(1, 2))
     return s.view(B, Hkv, G, S)
 
 
@@ -163,8 +237,7 @@ def grouped_mix_bmm(p, v):
     diagonal head blocks are kept."""
     B, Hkv, G, S = p.shape
     hd = v.shape[-1]
-    r = torch.bmm(p.reshape(B, Hkv * G, S), v.reshape(B, S, Hkv * hd),
-                  out_dtype=torch.float32)
+    r = bmm_out_f32(p.reshape(B, Hkv * G, S), v.reshape(B, S, Hkv * hd))
     return torch.diagonal(r.view(B, Hkv, G, Hkv, hd), dim1=1,
                           dim2=3).permute(0, 3, 1, 2)
 
@@ -201,10 +274,45 @@ def _pick(S, target):
     return S
 
 
+def _q_chunk(qc, kg, vg, q_pos, kind, prefix_len, scale):
+    """One query chunk's online softmax over every KV chunk: qc (B, bq,
+    Hkv, G, hd), kg/vg (B, nk, bk, Hkv, hd) -> (B, Hkv, G, bq, hd) f32."""
+    B, block_q, Hkv, G, hd = qc.shape
+    nk, block_kv = kg.shape[1], kg.shape[2]
+    dev = qc.device
+    m_run = torch.full((B, Hkv, G, block_q), -torch.inf, dtype=torch.float32,
+                       device=dev)
+    l_run = torch.zeros((B, Hkv, G, block_q), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hkv, G, block_q, hd), dtype=torch.float32,
+                      device=dev)
+    for ik in range(nk):
+        kc, vc = kg[:, ik], vg[:, ik]                    # (B, bk, Hkv, hd)
+        s = _einsum_f32("bqhgd,bkhd->bhgqk", qc, kc) * scale
+        kv_pos = ik * block_kv + torch.arange(block_kv, device=dev)
+        msk = _mask(q_pos, kv_pos, kind, prefix_len)
+        s = torch.where(msk, s, -torch.inf)
+        m_new = torch.maximum(m_run, s.amax(-1))
+        # guard fully-masked rows (m_new = -inf)
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(msk, p, 0.0)
+        corr = torch.where(torch.isfinite(m_run), torch.exp(m_run - m_safe),
+                           0.0)
+        l_run = l_run * corr + p.sum(-1)
+        acc = acc * corr[..., None] + _einsum_f32(
+            "bhgqk,bkhd->bhgqd", p.to(vc.dtype), vc)
+        m_run = m_new
+    return acc / torch.clamp(l_run[..., None], min=1e-20)
+
+
 def blockwise_attention(q, k, v, *, kind="causal", prefix_len=0, q_offset=0,
                         block_q=512, block_kv=1024, scale=None):
     """q (B, Sq, H, hd); k/v (B, Skv, Hkv, hd).  Online-softmax over KV
-    chunks; memory is O(block_q * block_kv) per (batch, head)."""
+    chunks; memory is O(block_q * block_kv) per (batch, head).  When
+    autograd records outside a ``remat_region``, each query chunk is
+    checkpointed, as the reference's ``jax.checkpoint`` of it: the
+    backward recomputes its KV walk instead of keeping every (bq x bk)
+    tile of the sequence."""
     B, Sq, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -212,39 +320,19 @@ def blockwise_attention(q, k, v, *, kind="causal", prefix_len=0, q_offset=0,
     block_q = _pick(Sq, block_q)
     block_kv = _pick(Skv, block_kv)
     nq, nk = Sq // block_q, Skv // block_kv
-    dev = q.device
+    recorded = torch.is_grad_enabled() and not _REMAT_DEPTH[0] and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
 
     qg = q.reshape(B, nq, block_q, Hkv, G, hd)
     kg = k.reshape(B, nk, block_kv, Hkv, hd)
     vg = v.reshape(B, nk, block_kv, Hkv, hd)
     outs = []
     for iq in range(nq):
-        qc = qg[:, iq]                                   # (B, bq, Hkv, G, hd)
-        q_pos = q_offset + iq * block_q + torch.arange(block_q, device=dev)
-        m_run = torch.full((B, Hkv, G, block_q), -torch.inf,
-                           dtype=torch.float32, device=dev)
-        l_run = torch.zeros((B, Hkv, G, block_q), dtype=torch.float32,
-                            device=dev)
-        acc = torch.zeros((B, Hkv, G, block_q, hd), dtype=torch.float32,
-                          device=dev)
-        for ik in range(nk):
-            kc, vc = kg[:, ik], vg[:, ik]                # (B, bk, Hkv, hd)
-            s = _einsum_f32("bqhgd,bkhd->bhgqk", qc, kc) * scale
-            kv_pos = ik * block_kv + torch.arange(block_kv, device=dev)
-            msk = _mask(q_pos, kv_pos, kind, prefix_len)
-            s = torch.where(msk, s, -torch.inf)
-            m_new = torch.maximum(m_run, s.amax(-1))
-            # guard fully-masked rows (m_new = -inf)
-            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-            p = torch.exp(s - m_safe[..., None])
-            p = torch.where(msk, p, 0.0)
-            corr = torch.where(torch.isfinite(m_run),
-                               torch.exp(m_run - m_safe), 0.0)
-            l_run = l_run * corr + p.sum(-1)
-            acc = acc * corr[..., None] + _einsum_f32(
-                "bhgqk,bkhd->bhgqd", p.to(vc.dtype), vc)
-            m_run = m_new
-        outs.append(acc / torch.clamp(l_run[..., None], min=1e-20))
+        q_pos = q_offset + iq * block_q + torch.arange(block_q,
+                                                       device=q.device)
+        args = (qg[:, iq], kg, vg, q_pos, kind, prefix_len, scale)
+        outs.append(checkpoint(_q_chunk, *args, use_reentrant=False)
+                    if recorded else _q_chunk(*args))
     out = torch.cat(outs, 3)                              # (B, Hkv, G, Sq, hd)
     return out.reshape(B, H, Sq, hd).transpose(1, 2).to(q.dtype)
 

@@ -6,10 +6,16 @@ Counterpart of the reference package's ``models/lm.py``:
   encdec — seamless-m4t (stubbed audio-frame encoder input)
   ssm    — mamba2-130m
   moe    — deepseek-v2/v3 (MLA attention + shared/routed experts; V3's
-           MTP head is held but runs only in the loss)
+           MTP head runs in the loss only, as the reference's)
   hybrid — jamba (1 attn : 7 mamba interleave, MoE every other layer)
-``ModelApi.loss`` raises ``NotImplementedError`` naming its ROADMAP item
-(training, A9 (c)).
+``ModelApi.loss(params, batch) -> (loss, metrics)`` is each family's
+training loss with the reference's metrics: next-token cross entropy
+over the padded vocabulary in sequence chunks (``chunked_ce``, whose
+backward recomputes each chunk's logits, so no (B, S, V) tensor is
+kept), plus the MoE load-balance aux and V3's MTP term.  With
+``remat="block"`` (the default, the reference's) each layer, or each
+hybrid group, is checkpointed (``torch.utils.checkpoint``): the backward
+recomputes it from its input.
 
 The parameters are an ``nn.Module`` tree (``DenseLM``, ``EncDecLM``,
 ``SSMLM``, ``MoELM``, ``HybridLM``: the embedding, ``ModuleList``s of
@@ -18,8 +24,10 @@ to the same call shapes as the reference's: ``decode_step(params, cache,
 token, cur_len)``.  Serving holds every matmul weight and the embedding
 once in bf16, the norm gains (and the Mamba-2 mixer's conv, decay and
 skip parameters, and the MoE router) in f32: the reference keeps f32
-weights and casts them to bf16 at each use, which gives the same numbers;
-the training slice will add f32 master weights beside them.  Layers run
+weights and casts them to bf16 at each use, which gives the same numbers.
+Training (``repro_torch.train``) holds f32 masters and runs the loss on a
+copy of the module whose every parameter is their bf16 cast, as the
+reference's train step casts every f32 leaf.  Layers run
 in a Python loop, eagerly; the KV cache is one preallocated (L, B, Smax,
 Hkv, hd) bf16 tensor pair (MLA: the latent ``c_kv`` and ``k_rope``), and
 the SSM state an (L, ...) pair, all written in place.
@@ -37,6 +45,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api.backends import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -71,23 +81,124 @@ def _on(x, device) -> torch.Tensor:
 
 
 def _embed_init(gen, cfg, *, device=None):
-    """``N(0, 1) * 0.02`` over ``vocab_padded`` rows, held in bf16."""
+    """``N(0, 1) * 0.02`` over ``vocab_padded`` rows, held in bf16 (f32 in
+    ``layers.master_init``)."""
     shape = (cfg.vocab_padded, cfg.d_model)
     if gen is None:
-        return torch.empty(shape, dtype=CDTYPE, device=device)
+        return torch.empty(shape, dtype=L.weight_dtype(), device=device)
     e = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (e * 0.02).to(CDTYPE)
+    return (e * 0.02).to(L.weight_dtype())
+
+
+def _head_weight(params, cfg):
+    return params.embed.T if cfg.tie_embeddings else params.lm_head
 
 
 def _head(params, cfg, h):
-    w = params.embed.T if cfg.tie_embeddings else params.lm_head
-    return (h.to(CDTYPE) @ w).to(torch.float32)
+    return (h.to(CDTYPE) @ _head_weight(params, cfg)).to(torch.float32)
 
 
-def _no_loss(params, batch):
-    raise NotImplementedError(
-        "training is not ported yet (ROADMAP A9 (c)): the loss needs "
-        "chunked_ce and f32 master weights")
+def _masked_logits(hs, w, vocab):
+    """The head's f32 logits of hs (B, c, D) (a bf16 product, as
+    ``_head``), the padded vocabulary's columns at -1e30."""
+    logits = (hs.to(CDTYPE) @ w).to(torch.float32)
+    pad = torch.arange(w.shape[1], device=hs.device) >= vocab
+    return logits.masked_fill_(pad, -1e30)
+
+
+class _ChunkedCE(torch.autograd.Function):
+    """Sum over chunks of c positions of (logsumexp - gold logit) * mask,
+    over the sum of the mask (at least 1).  The forward keeps each
+    position's logsumexp, not its logits; the backward recomputes a
+    chunk's logits, forms (softmax - one_hot) * mask * g / denominator,
+    rounds it to the head's dtype (the cotangent of the bf16 product's
+    cast to f32) and multiplies it into both operands, one chunk at a
+    time: the head's gradient is summed in f32 and rounded once."""
+
+    @staticmethod
+    def forward(ctx, h, w, targets, mask, vocab, chunk):
+        B, S, _ = h.shape
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        lses = []
+        for c0 in range(0, S, chunk):
+            logits = _masked_logits(h[:, c0:c0 + chunk], w, vocab)
+            lse = torch.logsumexp(logits, -1)
+            gold = logits.gather(-1, targets[:, c0:c0 + chunk, None])[..., 0]
+            tot = tot + ((lse - gold) * mask[:, c0:c0 + chunk]).sum()
+            lses.append(lse)
+        denom = torch.clamp(mask.sum(), min=1.0)
+        ctx.save_for_backward(h, w, targets, mask, torch.cat(lses, 1), denom)
+        ctx.vocab, ctx.chunk = vocab, chunk
+        return tot / denom
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, targets, mask, lse, denom = ctx.saved_tensors
+        S, chunk = h.shape[1], ctx.chunk
+        scale = g / denom
+        dh = [] if ctx.needs_input_grad[0] else None
+        dw = (torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+              if ctx.needs_input_grad[1] else None)
+        for c0 in range(0, S, chunk):
+            hs = h[:, c0:c0 + chunk]
+            p = _masked_logits(hs, w, ctx.vocab)
+            p.sub_(lse[:, c0:c0 + chunk, None]).exp_()
+            p.scatter_add_(-1, targets[:, c0:c0 + chunk, None],
+                           torch.full(p.shape[:2] + (1,), -1.0,
+                                      device=p.device))
+            p.mul_((mask[:, c0:c0 + chunk] * scale)[..., None])
+            dl = p.to(w.dtype)
+            if dh is not None:
+                dh.append((dl @ w.T).to(h.dtype))
+            if dw is not None:
+                dw += (hs.to(CDTYPE).reshape(-1, hs.shape[-1]).T
+                       @ dl.reshape(-1, dl.shape[-1])).to(torch.float32)
+        return (None if dh is None else torch.cat(dh, 1),
+                None if dw is None else dw.to(w.dtype),
+                None, None, None, None)
+
+
+def chunked_ce(params, cfg, h, targets, mask, *, chunk=512):
+    """Cross entropy over the padded vocabulary without materializing the
+    (B, S, Vp) logits, the reference's ``chunked_ce``: h (B, S, D),
+    targets (B, S) ints, mask (B, S) f32; the padded vocabulary's logits
+    at -1e30; the masked sum over ``max(mask.sum(), 1)``.  S must be a
+    multiple of ``min(chunk, S)``.  Neither pass keeps more than one
+    chunk's (B, chunk, Vp) logits (``_ChunkedCE``)."""
+    S = h.shape[1]
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"the sequence ({S}) is not a multiple of the CE "
+                         f"chunk ({chunk})")
+    return _ChunkedCE.apply(h, _head_weight(params, cfg), targets.long(),
+                            mask.to(torch.float32), cfg.vocab, chunk)
+
+
+def _shifted(tok, n):
+    """The targets n positions ahead, zero-padded at the end, and their
+    mask (ones, zeros over the padding): the reference's ``jnp.pad``."""
+    tgt = F.pad(tok[:, n:], (0, n))
+    mask = F.pad(torch.ones(tok[:, n:].shape, dtype=torch.float32,
+                            device=tok.device), (0, n))
+    return tgt, mask
+
+
+def _remat(fn, remat):
+    """``fn`` checkpointed when autograd records (``remat="block"``): its
+    backward recomputes it from its inputs, once (``L.remat_region``);
+    ``"none"`` keeps it as is."""
+    if remat == "none":
+        return fn
+
+    def region(*args):
+        with L.remat_region():
+            return fn(*args)
+
+    def run(*args):
+        if torch.is_grad_enabled():
+            return checkpoint(region, *args, use_reentrant=False)
+        return fn(*args)
+    return run
 
 
 def _step_lengths(cur_len, smax, past_cache, device):
@@ -174,11 +285,14 @@ class DenseLM(torch.nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def build_dense(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
-                device=None) -> ModelApi:
+def build_dense(cfg: ArchConfig, mesh=None, dp_axes=("data",),
+                remat: str = "block", *, device=None) -> ModelApi:
     prefix = cfg.prefix_len
+    kind = "prefix" if prefix else "causal"
     _c = make_constrainer(mesh, dp_axes)
     dev = resolve_device(device)
+    block = _remat(lambda lp, h: _c(_dense_block(lp, cfg, h, kind=kind,
+                                                 prefix_len=prefix)), remat)
 
     def init(generator):
         """Random parameters drawn on ``generator`` (a ``torch.Generator``
@@ -191,12 +305,24 @@ def build_dense(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
             h = torch.cat([_on(batch["patches"], dev).to(h.dtype), h], 1)
         return _c(h)
 
+    def loss(params, batch):
+        """Next-token CE over ``batch["tokens"]`` (the VLM's prefix
+        positions dropped first): ``(ce, {"ce": ce})``."""
+        h = _inputs_to_h(params, batch)
+        for lp in params.layers:
+            h = block(lp, h)
+        h = _final_norm(params, cfg, h)
+        tgt, mask = _shifted(_on(batch["tokens"], dev).long(), 1)
+        if prefix and "patches" in batch:
+            h = h[:, prefix:]
+        ce = chunked_ce(params, cfg, h, tgt, mask)
+        return ce, {"ce": ce}
+
     def prefill(params, batch):
         """The full forward pass over ``batch["tokens"]`` (B, S) (after
         ``batch["patches"]`` (B, prefix_len, d) for the VLM): the last
         position's logits and the cache of all S positions."""
         h = _inputs_to_h(params, batch)
-        kind = "prefix" if prefix else "causal"
         S = h.shape[1]
         _, apply_n = L.make_norm(cfg)
         ks, vs = [], []
@@ -236,7 +362,7 @@ def build_dense(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
         logits = _head(params, cfg, h)[:, 0]
         return logits, cache
 
-    return ModelApi(cfg, init, _no_loss, prefill, decode_step, init_cache)
+    return ModelApi(cfg, init, loss, prefill, decode_step, init_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -268,13 +394,25 @@ class SSMLM(torch.nn.Module):
                                              device=device))
 
 
-def build_ssm(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
-              device=None) -> ModelApi:
+def build_ssm(cfg: ArchConfig, mesh=None, dp_axes=("data",),
+              remat: str = "block", *, device=None) -> ModelApi:
     _c = make_constrainer(mesh, dp_axes)
     dev = resolve_device(device)
+    block = _remat(lambda lp, h: _c(h + M.mamba_forward(
+        lp.mixer, cfg, L.rms_norm(h, lp.n1))), remat)
 
     def init(generator):
         return SSMLM(cfg, generator, device=dev)
+
+    def loss(params, batch):
+        """Next-token CE over ``batch["tokens"]``: ``(ce, {"ce": ce})``."""
+        tok = _on(batch["tokens"], dev).long()
+        h = _c(params.embed[tok])
+        for lp in params.layers:
+            h = block(lp, h)
+        h = L.rms_norm(h, params.final_norm)
+        ce = chunked_ce(params, cfg, h, *_shifted(tok, 1))
+        return ce, {"ce": ce}
 
     def prefill(params, batch):
         """The full forward pass over ``batch["tokens"]`` (B, S): the last
@@ -315,7 +453,7 @@ def build_ssm(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
         h = L.rms_norm(h, params.final_norm)
         return _head(params, cfg, h)[:, 0], cache
 
-    return ModelApi(cfg, init, _no_loss, prefill, decode_step, init_cache)
+    return ModelApi(cfg, init, loss, prefill, decode_step, init_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -359,10 +497,21 @@ class EncDecLM(torch.nn.Module):
                                             cfg.vocab_padded, device=device))
 
 
-def build_encdec(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
-                 device=None) -> ModelApi:
+def build_encdec(cfg: ArchConfig, mesh=None, dp_axes=("data",),
+                 remat: str = "block", *, device=None) -> ModelApi:
     _c = make_constrainer(mesh, dp_axes)
     dev = resolve_device(device)
+    enc_block = _remat(lambda lp, h: _c(_dense_block(lp, cfg, h,
+                                                     kind="full")), remat)
+
+    def _dec_block(lp, h, mem):
+        h = h + A.attention_forward(lp.attn, cfg, L.rms_norm(h, lp.n1),
+                                    kind="causal")
+        h = h + A.attention_forward(lp.xattn, cfg, L.rms_norm(h, lp.nx),
+                                    memory=mem)
+        return _c(h + L.mlp(lp.mlp, cfg, L.rms_norm(h, lp.n2)))
+
+    dec_block = _remat(_dec_block, remat)
 
     def init(generator):
         return EncDecLM(cfg, generator, device=dev)
@@ -372,8 +521,20 @@ def build_encdec(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
         blocks, RoPE on q and k, then ``enc_norm``."""
         h = _on(src, dev).to(CDTYPE)
         for lp in params.enc:
-            h = _c(_dense_block(lp, cfg, h, kind="full"))
+            h = enc_block(lp, h)
         return L.rms_norm(h, params.enc_norm)
+
+    def loss(params, batch):
+        """Encode ``batch["src_embeds"]``, then next-token CE of the
+        decoder over ``batch["tokens"]``: ``(ce, {"ce": ce})``."""
+        mem = encode(params, batch["src_embeds"])
+        tok = _on(batch["tokens"], dev).long()
+        h = params.embed[tok]
+        for lp in params.dec:
+            h = dec_block(lp, h, mem)
+        h = L.rms_norm(h, params.final_norm)
+        ce = chunked_ce(params, cfg, h, *_shifted(tok, 1))
+        return ce, {"ce": ce}
 
     def prefill(params, batch):
         """Encode ``batch["src_embeds"]`` and run the decoder over
@@ -432,7 +593,7 @@ def build_encdec(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
         h = L.rms_norm(h, params.final_norm)
         return _head(params, cfg, h)[:, 0], cache
 
-    return ModelApi(cfg, init, _no_loss, prefill, decode_step, init_cache)
+    return ModelApi(cfg, init, loss, prefill, decode_step, init_cache)
 
 # ---------------------------------------------------------------------------
 # family: deepseek MoE (MLA + experts + optional MTP)
@@ -480,8 +641,8 @@ def _mla_block_decode(p, cfg, h, cache, cur_len, *, drop=False):
 
 class MTPHead(torch.nn.Module):
     """DeepSeek-V3's multi-token prediction head: ``proj`` (2 d, d) bf16,
-    a dense ``MLABlock`` and the gain ``norm``.  Serving never runs it
-    (the reference runs it in the loss only, ROADMAP A9 (c))."""
+    a dense ``MLABlock`` and the gain ``norm``.  Only the loss runs it,
+    as the reference's does."""
 
     def __init__(self, cfg, gen=None, *, device=None):
         super().__init__()
@@ -517,15 +678,41 @@ class MoELM(torch.nn.Module):
             self.mtp = MTPHead(cfg, gen, device=device)
 
 
-def build_moe(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
-              device=None) -> ModelApi:
+def build_moe(cfg: ArchConfig, mesh=None, dp_axes=("data",),
+              remat: str = "block", *, device=None) -> ModelApi:
     nd = cfg.moe.first_dense
     nm = cfg.n_layers - nd
     _c = make_constrainer(mesh, dp_axes)
     dev = resolve_device(device)
+    block = _remat(lambda lp, h: _mla_block(lp, cfg, h)[:2], remat)
 
     def init(generator):
         return MoELM(cfg, generator, device=dev)
+
+    def loss(params, batch):
+        """Next-token CE plus the layers' load-balance aux and, with
+        ``cfg.mtp``, 0.3 x the MTP head's CE of the token two ahead
+        (from [h_t ; emb_{t+1}]): ``(total, {"ce", "aux"[, "mtp_ce"]})``."""
+        tok = _on(batch["tokens"], dev).long()
+        h = _c(params.embed[tok])
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        for lp in [*params.dense_layers, *params.moe_layers]:
+            h, a = block(lp, h)
+            h, aux = _c(h), aux + a
+        ce = chunked_ce(params, cfg, L.rms_norm(h, params.final_norm),
+                        *_shifted(tok, 1))
+        metrics = {"ce": ce, "aux": aux}
+        total = ce + aux
+        if cfg.mtp:
+            mtp = params.mtp
+            emb_next = F.pad(params.embed[tok][:, 1:], (0, 0, 0, 1))
+            hm = torch.cat([h, emb_next], -1).to(CDTYPE) @ mtp.proj
+            hm, _, _ = _mla_block(mtp.block, cfg, hm)
+            mtp_ce = chunked_ce(params, cfg, L.rms_norm(hm, mtp.norm),
+                                *_shifted(tok, 2))
+            metrics["mtp_ce"] = mtp_ce
+            total = total + 0.3 * mtp_ce
+        return total, metrics
 
     def init_cache(batch, max_len):
         """Zero latent caches of both stacks: ``{"dense": {"c_kv",
@@ -572,7 +759,7 @@ def build_moe(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
         h = L.rms_norm(h, params.final_norm)
         return _head(params, cfg, h)[:, 0], cache
 
-    return ModelApi(cfg, init, _no_loss, prefill, decode_step, init_cache)
+    return ModelApi(cfg, init, loss, prefill, decode_step, init_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -646,41 +833,71 @@ def _mamba_index(cfg, i):
 
 
 def _hybrid_ffn(gp, cfg, h, i):
-    """Group position i's feed-forward on its norm of h: an MoE (its aux
-    loss belongs to the loss, not to serving) or a dense MLP."""
+    """Group position i's feed-forward on its norm of h: (out, aux), an
+    MoE with its load-balance aux (which only the loss reads) or a dense
+    MLP with 0."""
     moe_pos, _ = _hybrid_positions(cfg)
     hn = L.rms_norm(h, gp.ffn_norms[i])
     if i in moe_pos:
-        return MOE.moe_forward(gp.moe[moe_pos.index(i)], cfg, hn)[0]
-    return L.mlp(gp.mlp[i - sum(j < i for j in moe_pos)], cfg, hn)
+        return MOE.moe_forward(gp.moe[moe_pos.index(i)], cfg, hn)
+    return L.mlp(gp.mlp[i - sum(j < i for j in moe_pos)], cfg, hn), 0.0
+
+
+def _hybrid_mixer(gp, cfg, h, i, *, return_state):
+    """Group position i's attention or Mamba-2 mixer on its norm of h;
+    with ``return_state`` (out, its cache): the attention layer's (k, v)
+    or the Mamba-2 block's final (h, conv) state."""
+    if i == cfg.attn_offset:
+        return A.attention_forward(gp.attn.attn, cfg,
+                                   L.rms_norm(h, gp.attn.n1),
+                                   kind="causal", return_kv=return_state)
+    lp = gp.mamba[_mamba_index(cfg, i)]
+    return M.mamba_forward(lp.mixer, cfg, L.rms_norm(h, lp.n1),
+                           return_state=return_state)
 
 
 def _hybrid_layer(gp, cfg, h, i):
-    """Group position i over the whole sequence: (h, its cache), the
-    attention layer's (k, v) or the Mamba-2 block's final (h, conv)
-    state."""
-    if i == cfg.attn_offset:
-        a, st = A.attention_forward(gp.attn.attn, cfg,
-                                    L.rms_norm(h, gp.attn.n1),
-                                    kind="causal", return_kv=True)
-    else:
-        lp = gp.mamba[_mamba_index(cfg, i)]
-        a, st = M.mamba_forward(lp.mixer, cfg, L.rms_norm(h, lp.n1),
-                                return_state=True)
+    """Group position i over the whole sequence: (h, its cache)."""
+    a, st = _hybrid_mixer(gp, cfg, h, i, return_state=True)
     h = h + a
-    return h + _hybrid_ffn(gp, cfg, h, i), st
+    return h + _hybrid_ffn(gp, cfg, h, i)[0], st
 
 
-def build_hybrid(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
-                 device=None) -> ModelApi:
+def _hybrid_group_loss(gp, cfg, h):
+    """One group over the whole sequence, as the reference's loss runs
+    it: (h, the group's summed MoE aux)."""
+    aux = 0.0
+    for i in range(cfg.attn_every):
+        h = h + _hybrid_mixer(gp, cfg, h, i, return_state=False)
+        f, a = _hybrid_ffn(gp, cfg, h, i)
+        h, aux = h + f, aux + a
+    return h, aux
+
+
+def build_hybrid(cfg: ArchConfig, mesh=None, dp_axes=("data",),
+                 remat: str = "block", *, device=None) -> ModelApi:
     G = cfg.n_layers // cfg.attn_every          # groups
     per, off = cfg.attn_every, cfg.attn_offset
     n_mamba = per - 1
     _c = make_constrainer(mesh, dp_axes)
     dev = resolve_device(device)
+    group = _remat(lambda gp, h: _hybrid_group_loss(gp, cfg, h), remat)
 
     def init(generator):
         return HybridLM(cfg, generator, device=dev)
+
+    def loss(params, batch):
+        """Next-token CE plus the MoE layers' load-balance aux:
+        ``(ce + aux, {"ce", "aux"})``."""
+        tok = _on(batch["tokens"], dev).long()
+        h = _c(params.embed[tok])
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        for gp in params.groups:
+            h, a = group(gp, h)
+            h, aux = _c(h), aux + a
+        ce = chunked_ce(params, cfg, L.rms_norm(h, params.final_norm),
+                        *_shifted(tok, 1))
+        return ce + aux, {"ce": ce, "aux": aux}
 
     def prefill(params, batch):
         """The full forward pass over ``batch["tokens"]`` (B, S): the last
@@ -738,25 +955,30 @@ def build_hybrid(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
                     hs[g, mi].copy_(sh)
                     convs[g, mi].copy_(sc)
                 h = h + a
-                h = h + _hybrid_ffn(gp, cfg, h, i)
+                h = h + _hybrid_ffn(gp, cfg, h, i)[0]
             h = _c(h)
         h = L.rms_norm(h, params.final_norm)
         return _head(params, cfg, h)[:, 0], cache
 
-    return ModelApi(cfg, init, _no_loss, prefill, decode_step, init_cache)
+    return ModelApi(cfg, init, loss, prefill, decode_step, init_cache)
 
 
 # ---------------------------------------------------------------------------
 
 
-def build_model(cfg: ArchConfig, mesh=None, dp_axes=("data",), *,
-                device=None) -> ModelApi:
+def build_model(cfg: ArchConfig, mesh=None, dp_axes=("data",),
+                remat: str = "block", *, device=None) -> ModelApi:
     """The ``ModelApi`` of ``cfg``'s family on ``device`` (default: the
-    CUDA card; without one this raises ``RuntimeError``).  A family the
-    reference does not have raises ``ValueError``."""
+    CUDA card; without one this raises ``RuntimeError``).  ``remat`` is
+    the loss's activation checkpointing: ``"block"`` (each layer, or each
+    hybrid group) or ``"none"``.  A family the reference does not have,
+    or another ``remat``, raises ``ValueError``."""
     fam = {"dense": build_dense, "vlm": build_dense, "moe": build_moe,
            "ssm": build_ssm, "hybrid": build_hybrid, "encdec": build_encdec}
     if cfg.family not in fam:
         raise ValueError(f"unknown model family {cfg.family!r}; the "
                          f"families are {sorted(fam)}")
-    return fam[cfg.family](cfg, mesh=mesh, dp_axes=dp_axes, device=device)
+    if remat not in ("block", "none"):
+        raise ValueError(f"remat must be 'block' or 'none', not {remat!r}")
+    return fam[cfg.family](cfg, mesh=mesh, dp_axes=dp_axes, remat=remat,
+                           device=device)

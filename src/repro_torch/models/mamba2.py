@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import CDTYPE, _weight, dense_init, rms_norm
+from repro_torch.models.layers import CDTYPE, _weight, dense_init, rms_norm, silu
 
 
 def _dims(cfg):
@@ -61,8 +61,9 @@ class Mamba2Mixer(torch.nn.Module):
 def _causal_conv(xbc, conv_w, conv_state=None):
     """Depthwise causal conv over (B, S, C); optional carried state
     (B, d_conv - 1, C) for decode.  Returns (silu(out), new_state): the
-    taps summed in f32 in the order 0..k-1, the new state the last k - 1
-    inputs in ``xbc``'s dtype."""
+    taps summed in the order 0..k-1 in the product's dtype (f32 with the
+    f32 ``conv_w`` of serving, bf16 with the train step's cast), the new
+    state the last k - 1 inputs in ``xbc``'s dtype."""
     k = conv_w.shape[0]
     if conv_state is None:
         pad = xbc.new_zeros((xbc.shape[0], k - 1, xbc.shape[2]))
@@ -73,19 +74,31 @@ def _causal_conv(xbc, conv_w, conv_state=None):
     out = full[:, 0:S] * conv_w[0]
     for i in range(1, k):
         out = out + full[:, i:i + S] * conv_w[i]
-    return F.silu(out), full[:, -(k - 1):]
+    # bf16 taps (the train step's cast of conv_w): the reference's silu
+    # rounds at each of its ops, so run it op by op (layers.silu); in f32
+    # the fused form is the same to an ulp and keeps serving's peak
+    act = silu if out.dtype == CDTYPE else F.silu
+    return act(out), full[:, -(k - 1):]
+
+
+def _records(t) -> bool:
+    """Whether autograd records an op on ``t``: then no in-place op may
+    overwrite an output that a backward needs."""
+    return torch.is_grad_enabled() and t.requires_grad
 
 
 def _intra_decay(seg):
     """exp(seg_q - seg_k) for q >= k, else 0, as (B, nc, Q, Q, H) from the
     within-chunk cumsum ``seg`` (B, nc, Q, H).  The q < k entries are set
     to -1e9 BEFORE the exp: they are positive and would overflow to inf,
-    and a mask applied after it would meet inf (0 * inf = NaN)."""
+    and a mask applied after it would meet inf (0 * inf = NaN).  The exp
+    is in place unless autograd records it (its backward needs its
+    output)."""
     Q = seg.shape[2]
     gamma = seg[:, :, :, None, :] - seg[:, :, None, :, :]
     causal = torch.ones((Q, Q), dtype=torch.bool, device=seg.device).tril()
     gamma.masked_fill_(~causal[:, :, None], -1e9)
-    return gamma.exp_()
+    return gamma.exp() if _records(gamma) else gamma.exp_()
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, init_state=None):
@@ -111,7 +124,12 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, init_state=None):
 
     # ---- intra-chunk (quadratic) term ------------------------------------
     gamma = _intra_decay(seg)                                # (B,nc,Q,Q,H)
-    gamma.mul_(torch.einsum("bcqn,bckn->bcqk", Cc, Bc)[..., None])
+    cb = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)[..., None]
+    # in place for serving, whose peak is this tensor (the prefill_32k
+    # arm); cb dropped before the next product for the same reason
+    gamma = gamma * cb if _records(gamma) or _records(cb) \
+        else gamma.mul_(cb)
+    del cb
     y = torch.einsum("bcqkh,bckhp->bcqhp", gamma, xd)
     del gamma
 

@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.core.stream_engine import _smallest
 from repro_torch.models.layers import (CDTYPE, _weight, bmm_f32, dense_init,
-                                       make_constrainer, silu)
+                                       make_constrainer, silu, weight_dtype)
 
 DROPLESS_TOKENS = 32      # the reference's dropless path serves T <= 32
 
@@ -58,20 +58,21 @@ class SharedExperts(torch.nn.Module):
 
 class MoE(torch.nn.Module):
     """``router`` f32 ``N(0, 1) * 0.02``; ``wg``, ``wu`` ``N(0, 1) /
-    sqrt(d)`` and ``wd`` ``N(0, 1) / sqrt(F)`` in bf16; ``shared`` with
-    ``n_shared``."""
+    sqrt(d)`` and ``wd`` ``N(0, 1) / sqrt(F)`` in bf16 (f32 in
+    ``layers.master_init``); ``shared`` with ``n_shared``."""
 
     def __init__(self, cfg, gen=None, *, device=None):
         super().__init__()
         mc = cfg.moe
         d, E, f = cfg.d_model, mc.n_experts, mc.d_expert
+        wdt = weight_dtype()
         self.router = _weight(_normal(gen, (d, E), 0.02, torch.float32,
                                       device))
-        self.wg = _weight(_normal(gen, (E, d, f), 1.0 / np.sqrt(d), CDTYPE,
+        self.wg = _weight(_normal(gen, (E, d, f), 1.0 / np.sqrt(d), wdt,
                                   device))
-        self.wu = _weight(_normal(gen, (E, d, f), 1.0 / np.sqrt(d), CDTYPE,
+        self.wu = _weight(_normal(gen, (E, d, f), 1.0 / np.sqrt(d), wdt,
                                   device))
-        self.wd = _weight(_normal(gen, (E, f, d), 1.0 / np.sqrt(f), CDTYPE,
+        self.wd = _weight(_normal(gen, (E, f, d), 1.0 / np.sqrt(f), wdt,
                                   device))
         if mc.n_shared:
             self.shared = SharedExperts(cfg, gen, device=device)

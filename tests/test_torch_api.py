@@ -284,7 +284,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert ROOT / "src" / "repro_torch" / "serving" / "dco_attention.py" in files
     for mod in ("models/lm.py", "models/mamba2.py", "models/mla.py",
                 "models/moe.py", "configs/base.py",
-                "serving/engine.py", "launch/serve.py"):
+                "serving/engine.py", "launch/serve.py",
+                "train/optimizer.py", "train/train_step.py",
+                "train/checkpoint.py", "train/fault.py",
+                "data/pipeline.py", "launch/train.py"):
         assert ROOT / "src" / "repro_torch" / mod in files
     for f in files:
         hits = bad.findall(f.read_text())
@@ -295,7 +298,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.api, repro_torch.kernels.ops, "
             "repro_torch.serving, repro_torch.api.persistence, "
             "repro_torch.launch.ranks, repro_torch.models, "
-            "repro_torch.configs, repro_torch.launch.serve; "
+            "repro_torch.configs, repro_torch.launch.serve, "
+            "repro_torch.train.fault, repro_torch.data, "
+            "repro_torch.launch.train; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -4,8 +4,11 @@ probes, the IVF streaming scan, a delta session) against the CPU or a
 merged session, the block walk captured as a CUDA graph against the same
 walk run eagerly on the card, the top-k selection against a stable
 sort, the serving front, snapshots and shard tier on the card, and the
-LM decoders and their engine on the card against the CPU, and the MoE
-layer's two paths and MLA's two forms against each other on the card.
+LM decoders and their engine on the card against the CPU, the MoE
+layer's two paths and MLA's two forms against each other on the card,
+and the training path: the f32-result GEMMs' backward against the
+widened form, a routed train step on the card against the CPU, and
+remat against none.
 These tests need a CUDA card and skip without one; the module imports no
 jax, so it also runs where only PyTorch is installed:
 
@@ -1147,3 +1150,123 @@ def test_absorbed_mla_decode_equals_expanded_on_the_card(cuda_device):
     for w, g in ((c_kv, cache["c_kv"]), (k_rope, cache["k_rope"])):
         assert (g.float() - w.float()).abs().max() < \
             LM_TOL * w.float().abs().max()
+
+
+# ------------------------------------------------------------- training ---
+@pytest.mark.cuda
+@pytest.mark.parametrize("helper", ["bmm_f32", "grouped_scores",
+                                    "grouped_mix"])
+def test_f32_result_gemm_backward_equals_the_f32_upcast(cuda_device, helper):
+    """(F2) The backward of each f32-result bf16 GEMM helper on the card
+    (``layers.bmm_out_f32``) against autograd of the widened f32 form:
+    the bf16 cotangents of both operands within one bf16 rounding (1e-2
+    of their largest magnitude)."""
+    from repro_torch.models import layers as TL
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+
+    def leaf(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=gen).to(
+            torch.bfloat16).requires_grad_(True)
+
+    B, S, hkv, G, hd = 3, 40, 2, 4, 64
+    if helper == "bmm_f32":
+        a, b = leaf(6, 9, 32), leaf(6, 32, 17)
+        card, plain = TL.bmm_f32, lambda x, y: torch.bmm(x.float(), y.float())
+    elif helper == "grouped_scores":
+        a, b = leaf(B, hkv, G, hd), leaf(B, S, hkv, hd)
+        card, plain = TL.grouped_scores_bmm, TL.grouped_scores_upcast
+    else:
+        a, b = leaf(B, hkv, G, S), leaf(B, S, hkv, hd)
+        card, plain = TL.grouped_mix_bmm, TL.grouped_mix_upcast
+    cot = torch.randn(card(a, b).shape, device=cuda_device, generator=gen)
+    got = torch.autograd.grad((card(a, b) * cot).sum(), (a, b))
+    want = torch.autograd.grad((plain(a, b) * cot).sum(), (a, b))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert (g.float() - w.float()).abs().max() <= \
+            1e-2 * w.float().abs().max()
+
+
+def _train_pair(cuda_device, arch, remat="block"):
+    """``arch``'s smoke model on the CPU and the card from one state."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.train.train_step import init_state
+    cfg = smoke_config(arch)
+    cpu_api = build_model(cfg, remat=remat, device="cpu")
+    state = init_state(cpu_api, torch.Generator().manual_seed(3))
+    return cfg, cpu_api, state, build_model(cfg, remat=remat,
+                                            device=cuda_device)
+
+
+def _on(state, device):
+    import dataclasses
+    return dataclasses.replace(
+        state, params={k: v.to(device) for k, v in state.params.items()},
+        opt={"m": {k: v.to(device) for k, v in state.opt["m"].items()},
+             "v": {k: v.to(device) for k, v in state.opt["v"].items()},
+             "step": state.opt["step"].to(device)},
+        step=state.step.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "jamba-v0.1-52b"])
+def test_routed_train_step_on_the_card_matches_cpu(cuda_device, arch):
+    """One smoke train step (2 x 16 tokens: the dropless path, F2's GEMM
+    in the backward) on the card against the CPU from one state, the
+    CPU's routing imposed on the card (``repro_torch.testing.routing``,
+    the remat recompute's calls included): the loss within 4e-2 relative,
+    gnorm within 1e-2, the masters within 1e-6 where the CPU's gradient
+    is clear and within 2 lr elsewhere."""
+    from repro_torch.testing.routing import routing
+    from repro_torch.train.train_step import make_train_step
+    cfg, cpu_api, state, api = _train_pair(cuda_device, arch)
+    lr = 1e-3
+    batch = {"tokens": np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 16)).astype(np.int32)}
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        with routing() as rec:
+            want, wm = make_train_step(cpu_api, lr_fn=lambda s: lr)(state,
+                                                                    batch)
+        with routing(rec["calls"]):
+            got, gm = make_train_step(api, lr_fn=lambda s: lr)(
+                _on(state, cuda_device), batch)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = before
+    assert abs(float(gm["loss"]) - float(wm["loss"])) <= \
+        4e-2 * abs(float(wm["loss"]))
+    assert abs(float(gm["gnorm"]) - float(wm["gnorm"])) <= \
+        1e-2 * float(wm["gnorm"])
+    for name, w in want.params.items():
+        m = want.opt["m"][name]
+        clear = (m.abs() > 5e-2 * m.abs().max()) & (m.abs() > 1e-5)
+        gap = (got.params[name].cpu() - w).abs()
+        assert got.params[name].device.type == cuda_device.type
+        if bool(clear.any()):
+            assert float(gap[clear].max()) <= 1e-6, name
+        assert float(gap.max()) <= 2 * lr + 1e-6, name
+
+
+@pytest.mark.cuda
+def test_remat_block_equals_none_on_the_card(cuda_device):
+    """At the OLMo smoke config on the card, checkpointing each layer
+    recomputes the same forward: the loss equal, every grad within 1e-2
+    of its largest magnitude (the card's scatter-adds may sum in another
+    order)."""
+    from repro_torch.train.train_step import make_train_step
+    out = {}
+    batch = {"tokens": np.random.default_rng(5).integers(
+        0, 512, (2, 32)).astype(np.int32)}
+    for remat in ("block", "none"):
+        cfg, _, state, api = _train_pair(cuda_device, "olmo-1b", remat)
+        new, m = make_train_step(api, lr_fn=lambda s: 1e-3)(
+            _on(state, cuda_device), batch)
+        out[remat] = (m, new)
+    assert torch.equal(out["block"][0]["loss"], out["none"][0]["loss"])
+    for name, m in out["none"][1].opt["m"].items():
+        got = out["block"][1].opt["m"][name]
+        assert float((got - m).abs().max()) <= \
+            1e-2 * float(m.abs().max()) + 1e-12, name
