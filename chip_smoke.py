@@ -79,7 +79,26 @@ Phases, one JSON line each:
               resumed, bit for bit an uninterrupted run; eager, before any
               CUDA graph or profiler session, its profiled step in
               lm_profile;
- 10. graph    PDScanning+ fitted on the 1M corpus below: the engine's
+ 10. placement the mesh placements (A9 (d)) as rank processes on this
+              card, ``chip_smoke.py --placement-rank DIR BACKEND``: two
+              gloo ranks and one NCCL rank started together.  EP arm:
+              DeepSeek-V2 at its published widths cut to 2 layers (the
+              dense first layer and one MoE layer of 160 experts, 10.72 GB
+              of random bf16 weights from the moe phase's seed) on (data 1,
+              model 2), each rank holding 80 experts: a prefill of 2 x 64
+              tokens (the capacity path) against the same model on one
+              card and on the (1, 1) NCCL mesh (routing counted), then 2
+              decode steps against the (1, 1) mesh, and the bytes a rank
+              holds against those param_specs gives.  FSDP arm: OLMo-1B at
+              its published widths cut to 4 layers on (data 2, model 1), 2
+              train steps of 2 x 4,096 tokens (one row a rank) against the
+              (1, 1) mesh (loss, gnorm), masters and moments half a rank,
+              the state saved on (2, 1) and restored onto (1, 1) (the
+              masters bit-equal, shard for shard).  Meanwhile the host
+              draws the 1M corpus and the guardrails' drift scenario and
+              fits the main phase's DDCopq (A22); no number of the phase
+              is a mesh's throughput (one card);
+ 11. graph    PDScanning+ fitted on the 1M corpus below: the engine's
               block walk run eagerly on the card (its walls taken first,
               before any CUDA graph of the process) against the walk
               captured once as a CUDA graph a query chunk and replayed
@@ -88,7 +107,7 @@ Phases, one JSON line each:
               the session served by the same graph; an arm at
               query_chunk = 100; and the top-k selection against the
               stable sort it replaced, on the engine's real score rows;
- 11. main     the flat streaming search at GIST1M shape (1M x 960 f32,
+ 12. main     the flat streaming search at GIST1M shape (1M x 960 f32,
               100 queries, k = 10, the default SchedulePolicy) for
               PDScanning+ (dco_scan) and DDCopq (pq_lookup), with the
               kernels' launch counts over one batch, QPS, recall against a
@@ -96,10 +115,10 @@ Phases, one JSON line each:
               every stream session from here on: its timed batches replay
               the graph captured by its first batch, and no batch
               captures another;
- 12. pdx      the same PDScanning+ method, unrefitted, served from the PDX
+ 13. pdx      the same PDScanning+ method, unrefitted, served from the PDX
               layout (SchedulePolicy(dim_groups=4), dco_scan_grouped) with
               the same record, its ids held against the flat path's;
- 13. ivf      an IVF index over the 1M corpus (n_list = 4096, the 4 sqrt(N)
+ 14. ivf      an IVF index over the 1M corpus (n_list = 4096, the 4 sqrt(N)
               rule of Faiss's wiki for about 1M vectors; nprobe = 64) built
               on the host, served on the card by the same fitted
               PDScanning+ (flat: dco_scan; PDX: dco_scan_grouped) and
@@ -110,7 +129,7 @@ Phases, one JSON line each:
               ids held against the port's host IVF (IVFIndex.search through
               scan_topk) for every query, and 0 uncertified at the row
               block's budget;
- 14. delta    the LSM write path: PDScanning+ fitted on 1M - 4,096 rows
+ 15. delta    the LSM write path: PDScanning+ fitted on 1M - 4,096 rows
               with the graph phase's PCA (fitted on all 1M rows, the delta
               included, so its QPS is not that of a main-rows fit; the ids
               check does not depend on the fit), the last 4,096 added (the
@@ -118,10 +137,10 @@ Phases, one JSON line each:
               a freshly materialized session on the same method, the next
               add a "merge"; then an IVF delta at 100k rows (n_list = 64,
               nprobe = n_list) held against the host IVF;
- 15. two_stage the 1M PDScanning+ on engine="two_stage" (no kernel): QPS,
+ 16. two_stage the 1M PDScanning+ on engine="two_stage" (no kernel): QPS,
               recall, per-query survivors against its capacity, ids held
               against the streaming engine's where nothing was cut;
- 16. adaptive SchedulePolicy(adaptive=True) at 1M on the fitted
+ 17. adaptive SchedulePolicy(adaptive=True) at 1M on the fitted
               PDScanning+: the dataset's queries flat and PDX (ids held
               against the fixed session's, no dco_scan launch), 100 OOD
               queries (make_ood_queries, severity 1.0; ids held against an
@@ -129,22 +148,22 @@ Phases, one JSON line each:
               DDCopq (pq_lookup launches in the graph); each batch's six
               outputs and report held against the eager walk of the same
               chunks, fallback blocks, forced chunks, QPS;
- 17. anytime  the flat PDScanning+ at anytime_block_group = 8: the grouped
+ 18. anytime  the flat PDScanning+ at anytime_block_group = 8: the grouped
               walk eagerly and as a graph a group span, a 60 s deadline
               (outputs equal to the non-deadline batch, coverage 1.0,
               launches, syncs) and a 10 ms one (coverage in (0, 1), every
               query uncertified, within the full wall plus one group);
               one 60 s batch on the PDX layout;
- 18. host     backend="host" (the numpy scan) over the first 100k rows
+ 19. host     backend="host" (the numpy scan) over the first 100k rows
               with 10 queries, its ids held against the torch backend's;
               HNSW built on the first 2,000 rows with FDScanning and
               PDScanning+ (build seconds, DCOs and dims scanned), recall@10
               of its walk;
- 19. guardrails an 18-batch "recovering" drift scenario at 100k through a
+ 20. guardrails an 18-batch "recovering" drift scenario at 100k through a
               guarded PDScanning+ session: the breaker opens during the
               drift, every demoted batch gives an FDScanning session's
               ids, and it closes again after;
- 20. serving  the serving front (SearchService(slots=16, k=10)) over a
+ 21. serving  the serving front (SearchService(slots=16, k=10)) over a
               fixed PDScanning+ session on the first 994,880 rows, with the
               fitted PCA: its capacity calibrated on the session itself
               (steady step, one 1,024-row add and the stall of the step
@@ -156,31 +175,31 @@ Phases, one JSON line each:
               rows visible when it was served; latency percentiles,
               sustained QPS, graphs captured (one, and one a write),
               dco_scan launches a step, device bytes after the last write;
- 21. serving_overload the grown session at 2x its steady capacity,
+ 22. serving_overload the grown session at 2x its steady capacity,
               max_queue 64, shed_oldest, a deadline of 4 steady steps (the
               anytime spans captured first): every ticket done, shed or
               timed out, partial answers uncertified, full certified ones
               exact;
- 22. serving_ood the adaptive PDScanning+ session at 1M behind the service,
+ 23. serving_ood the adaptive PDScanning+ session at 1M behind the service,
               a 50/50 interleave of the dataset's and OOD queries at 0.7 of
               its own capacity: per class p50/p99, fallback blocks, every
               answer exact and certified, no dco_scan launch;
- 23. replica  shard mode over the 1M corpus in 3 sessions (healthy: the flat
+ 24. replica  shard mode over the 1M corpus in 3 sessions (healthy: the flat
               session's ids; shard 1 dead: coverage 2/3, uncertified, the
               live shards' top-10; revived: full answers again), then
               replicate mode over 3 sessions of the first 100k rows (a slow
               replica hedged; replica 0 killed after 5 dispatches,
               ejected, revived through half-open), virtual and real walls
               and the tier's counters;
- 24. persist  a card session at 95,904 rows saved, three 1,024-row adds in
+ 25. persist  a card session at 95,904 rows saved, three 1,024-row adds in
               the WAL, a fourth torn mid-frame, the session dropped and
               loaded back onto the card (the frames replayed "cold", no
               device work before the first search; the live ids, exact), a
               bit-flipped snapshot refused;
- 25. rules    all 8 methods at 100k x 960 with the same queries, and each
+ 26. rules    all 8 methods at 100k x 960 with the same queries, and each
               method that groups again at dim_groups = 4 (and PDScanning+
               on the inline R-cut path);
- 26. mesh     the sharded global top-k as rank processes on this card,
+ 27. mesh     the sharded global top-k as rank processes on this card,
               each rank ``chip_smoke.py --mesh-rank DIR BACKEND`` (file
               rendezvous, a deadline, killed past it): an NCCL group of
               two on one card refused before its initialisation; two gloo
@@ -195,7 +214,7 @@ Phases, one JSON line each:
               exchange on device tensors; every arm held against the same
               method on one card at the shard's row block, the exact rules
               against FDScanning's ids;
- 27. attention DCO-screened decode attention at Qwen3-4B's decode shapes
+ 28. attention DCO-screened decode attention at Qwen3-4B's decode shapes
               (B 8, 32 heads, 8 KV heads, head_dim 128, a 32,768-position
               bf16 cache, ragged cur_len): cap = S against exact
               attention, one sequence on the CPU against the card, CUDA-
@@ -204,7 +223,7 @@ Phases, one JSON line each:
               yardstick), the error, the softmax mass the top-C keeps, the
               bytes each reads by formula and the screened call's device
               operations under torch.profiler;
- 28. profile  for each 1M session (flat, PDX, DDCopq), the main phase's
+ 29. profile  for each 1M session (flat, PDX, DDCopq), the main phase's
               own, kept alive until here (about 32 GB of the card with
               the others below) rather than built again: one more batch
               under torch.profiler (device
@@ -229,7 +248,7 @@ Phases, one JSON line each:
               distribution, OOD beside the fixed screen, DDCopq), each
               kept from its phase, are profiled too, without a kernel
               timing;
- 29. lm_profile the lm, encdec, ssm, moe and hybrid phases' steps under
+ 30. lm_profile the lm, encdec, ssm, moe and hybrid phases' steps under
               torch.profiler on the same seeded weights and depths (and
               one train step of check (c) from the same masters), with
               past_cache="drop" as the
@@ -1098,21 +1117,26 @@ def blocks_hit(sess, Q, nprobe):
             "blocks_hit_per_query_mean": float(hit.sum(1).mean())}
 
 
-def phase_ivf(X, Q, gt, pdsp, opq, dev, kept):
+def phase_ivf(X, Q, gt, pdsp, opq, dev, kept, built=None):
     """The IVF probe path at 1M: one host-built index, four sessions on
     the fitted methods.  Returns the index and each session's record; the
     flat PDScanning+ sessions at both budgets stay in ``kept`` (as
-    ``"ivf"`` and ``"ivf_default_budget"``) for the profile phase."""
+    ``"ivf"`` and ``"ivf_default_budget"``) for the profile phase.
+    ``built``: the index and its build's seconds, built beforehand
+    (``draw_in_background``), or None to build it here."""
     import numpy as np
     import torch
     from repro_torch.api import SchedulePolicy
     from repro_torch.search.ivf import IVFIndex
 
-    t0 = time.perf_counter()
-    ivf = IVFIndex(n_list=N_LIST, seed=0).build(X)
+    if built is None:
+        t0 = time.perf_counter()
+        ivf = IVFIndex(n_list=N_LIST, seed=0).build(X)
+        built = (ivf, time.perf_counter() - t0)
+    ivf, build_s = built
     sizes = np.array([len(lst) for lst in ivf.lists])
     log("ivf_build", n=int(X.shape[0]), n_list=N_LIST,
-        seconds=time.perf_counter() - t0,
+        seconds=build_s,
         lloyd_s=ivf.build_seconds["lloyd"],
         assign_s=ivf.build_seconds["assign"],
         list_rows_min=int(sizes.min()), list_rows_max=int(sizes.max()),
@@ -1874,21 +1898,74 @@ def phase_anytime(X, Q, gt, pdsp, dev):
     return rec
 
 
-def phase_guardrails(Xr, dev):
+def draw_in_background(dev) -> dict:
+    """A thread that draws the main corpus (``load_dataset``, seeded, so
+    the same rows as drawn in line), then on three threads of its own the
+    guardrails phase's drift scenario on its first N_RULES rows, the main
+    phase's DDCopq fit (``open_index``'s, whose session is not searched)
+    and the ivf phase's index (``IVFIndex(n_list=N_LIST, seed=0)``).  It
+    returns at once with the thread in ``["thread"]``; each result lands
+    in the same dict with its seconds (``"<key>_s"``), or the first
+    failure in ``["error"]``.  numpy's draws and products release the
+    GIL, so this runs beside a phase whose parent only waits on rank
+    processes; its seconds are host seconds shared with that phase's
+    ranks and with each other."""
+    import threading
+
+    from repro_torch.api import open_index
+    from repro_torch.search.ivf import IVFIndex
+    from repro_torch.vecdata import load_dataset, make_drift_scenario
+    drawn: dict = {}
+
+    def timed(key, fn):
+        try:
+            t0 = time.perf_counter()
+            drawn[key] = fn()
+            drawn[key + "_s"] = time.perf_counter() - t0
+        except Exception as exc:        # re-raised by the caller
+            drawn.setdefault("error", exc)
+
+    def draw():
+        timed("ds", lambda: load_dataset("gist", scale=N_MAIN / 30_000))
+        if "error" in drawn:
+            return
+        X = drawn["ds"].X
+        jobs = [threading.Thread(target=timed, args=job) for job in (
+            ("drift", lambda: make_drift_scenario(
+                X[:N_RULES], 100, DRIFT_BATCHES, scenario="recovering",
+                severity=1.0)),
+            ("opq", lambda: open_index(X, method="DDCopq",
+                                       device=dev).method),
+            ("ivf", lambda: IVFIndex(n_list=N_LIST, seed=0).build(X)))]
+        for t in jobs:
+            t.start()
+        for t in jobs:
+            t.join()
+
+    drawn["thread"] = threading.Thread(target=draw, daemon=True)
+    drawn["thread"].start()
+    return drawn
+
+
+def phase_guardrails(Xr, dev, drift=None):
     """A5 on the card at 100k rows: a "recovering" drift scenario
     (make_drift_scenario, DRIFT_BATCHES batches of 100 queries) through a
     guarded PDScanning+ session; every batch the breaker served demoted is
     held against an FDScanning session; the breaker must trip during the
-    drift and re-promote after it."""
+    drift and re-promote after it.  ``drift``: the scenario and its draw's
+    seconds, drawn beforehand, or None to draw it here."""
     import numpy as np
     from repro_torch.api import GuardrailConfig, SchedulePolicy, open_index
     from repro_torch.vecdata import make_drift_scenario
 
     t_phase = time.perf_counter()
-    t0 = time.perf_counter()
-    stream = make_drift_scenario(Xr, 100, DRIFT_BATCHES,
-                                 scenario="recovering", severity=1.0)
-    gen_s = time.perf_counter() - t0
+    if drift is None:
+        t0 = time.perf_counter()
+        stream = make_drift_scenario(Xr, 100, DRIFT_BATCHES,
+                                     scenario="recovering", severity=1.0)
+        gen_s = time.perf_counter() - t0
+    else:                   # drawn beforehand (draw_in_background)
+        stream, gen_s = drift
     t0 = time.perf_counter()
     sess = open_index(Xr, method="PDScanning+", device=dev,
                       schedule=SchedulePolicy(
@@ -4407,6 +4484,364 @@ def _phase_train(dev, t_phase, card, size):
     return rec
 
 
+# ------------------------------------------------------------- placement ---
+#: the EP serving arm: DeepSeek-V2 at its published widths cut to 2 layers
+#: (the dense first layer and one MoE layer of 160 experts), the moe
+#: phase's seed, on (data 1, model 2): a prefill of 2 x 64 tokens (past 32,
+#: so the capacity path, which at (1, 2) is the mesh-free prefill's) and
+#: PLACE_DECODE decode steps
+PLACE_EP_LAYERS, PLACE_EP_B, PLACE_EP_S, PLACE_DECODE = 2, 2, 64, 2
+#: the FSDP train arm: OLMo-1B at its published widths cut to 4 layers, the
+#: train phase's seed, on (data 2, model 1): 2 steps of 2 x 4,096 tokens
+#: (one row a rank), remat="block", the smoke comparisons' constant rate
+PLACE_TRAIN_LAYERS, PLACE_TRAIN_B, PLACE_TRAIN_STEPS = 4, 2, 2
+PLACE_TRAIN_S = {"cuda": 4096, "cpu": 64}
+PLACE_TIMEOUT_S = 420            # a group's ranks are killed past it
+#: a rank's held bytes against those param_specs gives: the allocator's
+#: rounding and the model's own small buffers
+PLACE_BYTES_SLACK = 0.01
+
+
+def _spec_bytes(model, mesh, dp_axes) -> int:
+    """The bytes one rank holds of ``model``'s parameters under
+    ``param_specs`` on ``mesh`` (each tensor's numel over its shards)."""
+    import numpy as np
+    from repro_torch.configs.sharding import mesh_sizes, param_specs
+    sizes = mesh_sizes(mesh)
+    total = 0
+    for name, spec in param_specs(model, mesh, fsdp=dp_axes).items():
+        p = model.get_parameter(name)
+        split = int(np.prod([sizes[a] for e in spec if e is not None
+                             for a in ((e,) if isinstance(e, str) else e)]))
+        total += p.numel() // split * p.element_size()
+    return total
+
+
+def _local_bytes(tensors) -> int:
+    from repro_torch.models import placement as P
+    return sum(P.local(t).numel() * P.local(t).element_size()
+               for t in tensors)
+
+
+def _digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _shard_digests(params: dict, cfg, world: int) -> list:
+    """For each data rank of a (world, 1) mesh, the digest of the shards
+    of ``params`` (whole tensors) it holds under ``param_specs``: what
+    :func:`_digest` gives over that rank's local masters."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs.sharding import param_specs
+    mesh = SimpleNamespace(shape={"data": world, "model": 1})
+    specs = param_specs(params, mesh)
+    out = []
+    for r in range(world):
+        shards = []
+        for name, t in params.items():
+            for d, axes in enumerate(specs[name]):
+                if axes is not None and "data" in axes:
+                    t = t.chunk(world, d)[r]
+            shards.append(t)
+        out.append(_digest(shards))
+    return out
+
+
+def placement_rank(outdir: str, backend: str, device_type: str = "cuda"
+                   ) -> int:
+    """One rank of the ``placement`` phase, started by
+    :func:`phase_placement` (``chip_smoke.py --placement-rank OUTDIR
+    BACKEND``): two gloo ranks sharing the card run the EP arm on (data
+    1, model 2) and the FSDP arm on (data 2, model 1), whose state they
+    save; one rank (nccl on the card) runs the EP arm's model without a
+    mesh and on (1, 1), the FSDP arm on (1, 1), and restores the two
+    ranks' checkpoint onto (1, 1).  Each rank writes
+    OUTDIR/rank{r}.npz."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.ranks import join
+    from repro_torch.models import build_model
+    from repro_torch.models import placement as P
+    from repro_torch.testing.routing import routing
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_step import (init_state, make_train_step,
+                                              state_shardings)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = join(backend)
+    card = device_type == "cuda"
+    dev = torch.device("cuda", 0) if card else torch.device("cpu")
+    if card:
+        torch.cuda.set_device(dev)
+    out, rec = {}, {"rank": rank, "world": world, "backend": backend}
+
+    def held():
+        return torch.cuda.memory_allocated(dev) if card else 0
+
+    def logits_of(t):
+        return P.full(t).float().cpu().numpy()
+
+    # --- EP serving arm
+    cfg = (get_arch(MOE_ARCH) if card else smoke_config(MOE_ARCH)).scaled(
+        n_layers=PLACE_EP_LAYERS)
+    rng = np.random.default_rng(MOE_SEED)
+    tokens = rng.integers(0, cfg.vocab, (PLACE_EP_B, PLACE_EP_S))
+    steps = rng.integers(0, cfg.vocab, (PLACE_DECODE, PLACE_EP_B))
+    # world 2: the meshes under test; world 1: the one-card model and the
+    # (1, 1) mesh they are held against
+    meshes = [("ep", make_host_mesh(1, world, device_type=device_type))]
+    if world == 1:
+        meshes.insert(0, ("one_card", None))
+    t_arm = time.perf_counter()
+    for label, mesh in meshes:
+        api = build_model(cfg, mesh=mesh, device=dev)
+        before, t0 = held(), time.perf_counter()
+        params = api.init(torch.Generator(device=dev).manual_seed(MOE_SEED))
+        rec[f"{label}_init_s"] = time.perf_counter() - t0
+        rec[f"{label}_held_bytes"] = held() - before
+        rec[f"{label}_local_bytes"] = _local_bytes(params.parameters())
+        if mesh is not None:
+            meta = build_model(cfg, device="meta").init(None)
+            rec[f"{label}_spec_bytes"] = _spec_bytes(meta, mesh, ("data",))
+            rec[f"{label}_whole_bytes"] = sum(
+                p.numel() * p.element_size() for p in meta.parameters())
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            with routing() as calls:
+                logits, pc = api.prefill(params, {"tokens": tokens})
+            out[f"{label}/prefill"] = logits_of(logits)
+            rec[f"{label}_prefill_s"] = time.perf_counter() - t0
+            # the router's top-k of each MoE layer (the capacity path's
+            # expert choice follows it)
+            out[f"{label}/routing"] = torch.stack(
+                calls["calls"][::2]).cpu().numpy()
+            cache = api.init_cache(PLACE_EP_B, PLACE_EP_S + PLACE_DECODE)
+            for dst, src in ((P.local_tree(cache)[k][j],
+                              P.local_tree(pc)[k][j])
+                             for k in ("dense", "moe")
+                             for j in ("c_kv", "k_rope")):
+                dst[:, :, :PLACE_EP_S].copy_(src)
+            t0 = time.perf_counter()
+            for t in range(PLACE_DECODE):
+                logits, cache = api.decode_step(params, cache, steps[t],
+                                                PLACE_EP_S + 1 + t)
+                out[f"{label}/decode{t}"] = logits_of(logits)
+            rec[f"{label}_decode_s"] = time.perf_counter() - t0
+        del params, pc, cache, logits
+        if card:
+            torch.cuda.empty_cache()
+    rec["ep_s"] = time.perf_counter() - t_arm
+
+    # --- FSDP train arm
+    t_arm = time.perf_counter()
+    tcfg = (get_arch(TRAIN_ARCH) if card else smoke_config(TRAIN_ARCH)
+            ).scaled(n_layers=PLACE_TRAIN_LAYERS)
+    seq = PLACE_TRAIN_S[device_type]
+    mesh = make_host_mesh(world, 1, device_type=device_type)
+    api = build_model(tcfg, mesh=mesh, device=dev)
+    state = init_state(api, torch.Generator(device=dev).manual_seed(
+        TRAIN_SEED))
+    rec.update(
+        master_bytes=_local_bytes(state.params.values()),
+        moment_bytes=_local_bytes([*state.opt["m"].values(),
+                                   *state.opt["v"].values()]),
+        whole_master_bytes=sum(p.numel() * 4 for p in state.params.values()))
+    step = make_train_step(api, lr_fn=lambda s: TRAIN_LR)
+    trng = np.random.default_rng(TRAIN_SEED)
+    losses, gnorms, step_s = [], [], []
+    for _ in range(PLACE_TRAIN_STEPS):
+        batch = {"tokens": trng.integers(0, tcfg.vocab,
+                                         (PLACE_TRAIN_B, seq))}
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+        step_s.append(time.perf_counter() - t0)
+    rec.update(losses=losses, gnorms=gnorms, step_s=step_s,
+               peak_bytes=torch.cuda.max_memory_allocated(dev) if card
+               else 0)
+    ck = Path(outdir).parent / "ckpt"
+    if world > 1:
+        t0 = time.perf_counter()
+        ckpt.save(state, str(ck), PLACE_TRAIN_STEPS)
+        rec["save_s"] = time.perf_counter() - t0
+        rec["saved_digest"] = _digest(P.local(t)
+                                      for t in state.params.values())
+    else:
+        deadline = time.monotonic() + PLACE_TIMEOUT_S
+        while not ckpt.latest_steps(str(ck)):
+            if time.monotonic() > deadline:
+                raise TimeoutError("placement: no checkpoint from the gloo "
+                                   "ranks")
+            time.sleep(0.5)
+        t0 = time.perf_counter()
+        onto, at = ckpt.restore(state, str(ck),
+                                shardings=state_shardings(state))
+        rec["restore_s"] = time.perf_counter() - t0
+        rec.update(restored_step=at,
+                   restored_digests=_shard_digests(
+                       {n: P.full(t) for n, t in onto.params.items()},
+                       tcfg, 2),
+                   restored_placed=all(P.is_placed(t)
+                                       for t in onto.params.values()))
+    rec["train_s"] = time.perf_counter() - t_arm
+    rec["foreign"] = sorted(m for m in sys.modules if m == "jax" or
+                            m.startswith(("jax.", "repro.")))
+    out["rec"] = np.asarray(json.dumps(rec))
+    np.savez(Path(outdir) / f"rank{rank}.npz", **out)
+    return 0
+
+
+def _run_placement_group(outdir, world: int, backend: str,
+                         device_type: str) -> list:
+    import numpy as np
+    from repro_torch.launch.ranks import run_ranks
+
+    script = str(Path(__file__).resolve())
+    argv = ([sys.executable, script, "--placement-rank", str(outdir),
+             backend] if device_type == "cuda" else
+            [sys.executable, "-c",
+             "import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke;"
+             " sys.exit(chip_smoke.placement_rank(sys.argv[2], sys.argv[3], "
+             "'cpu'))", str(Path(script).parent), str(outdir), backend])
+    run_ranks(argv, world, workdir=outdir, timeout_s=PLACE_TIMEOUT_S)
+    outs = []
+    for r in range(world):
+        with np.load(Path(outdir) / f"rank{r}.npz") as z:
+            o = dict(z)
+        o["rec"] = json.loads(str(o["rec"]))
+        outs.append(o)
+    return outs
+
+
+def phase_placement(dev):
+    """A9 (d) on this card: the gloo group of two ranks and the NCCL group
+    of one started together (``chip_smoke.py --placement-rank``).  (a)
+    the EP prefill on (1, 2) against the one-card model of the same seed
+    (the routing of both counted, C11), and the (1, 1) NCCL mesh's
+    against it too; (b) the decode steps on (1, 2) against (1, 1), which
+    takes the mesh branch as well; (c) the bytes each rank holds against
+    those ``param_specs`` gives; (d) the FSDP steps' loss and gnorm on
+    (2, 1) against (1, 1) within the train phase's tolerances; (e) the
+    masters and moments a rank holds, half of the whole; (f) the state
+    saved on (2, 1) restored onto (1, 1), the masters bit-equal.  One card
+    holds one NCCL rank: no number here is a mesh's throughput."""
+    import threading
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    card = on_card(dev)
+    device_type = "cuda" if card else "cpu"
+    groups = {"gloo": 2, "nccl": 1} if card else {"gloo": 2, "gloo1": 1}
+    res, errs = {}, []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_place_") as tmp:
+        def run(name, world):
+            try:
+                res[name] = _run_placement_group(
+                    Path(tmp) / name, world, name.rstrip("1"), device_type)
+            except Exception as exc:        # re-raised below, not hidden
+                errs.append(exc)
+        threads = [threading.Thread(target=run, args=kv)
+                   for kv in groups.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errs:
+            raise errs[0]
+    gloo, one = res["gloo"], res["nccl" if card else "gloo1"]
+    g0, n0 = gloo[0], one[0]
+    rec = {"ep": {"arch": MOE_ARCH, "n_layers": PLACE_EP_LAYERS,
+                  "tokens": [PLACE_EP_B, PLACE_EP_S],
+                  "decode_steps": PLACE_DECODE},
+           "fsdp": {"arch": TRAIN_ARCH, "n_layers": PLACE_TRAIN_LAYERS,
+                    "tokens": [PLACE_TRAIN_B, PLACE_TRAIN_S[device_type]],
+                    "steps": PLACE_TRAIN_STEPS}}
+    # (a) prefill, routing counted
+    moved = int((np.sort(g0["ep/routing"], -1)
+                 != np.sort(n0["one_card/routing"], -1)).any(-1).sum())
+    rec["ep"].update(
+        prefill_vs_one_card=rel_gap_np(n0["one_card/prefill"],
+                                       g0["ep/prefill"]),
+        nccl_prefill_vs_one_card=rel_gap_np(n0["one_card/prefill"],
+                                            n0["ep/prefill"]),
+        routing_moved=moved,
+        decode_vs_nccl=[rel_gap_np(n0[f"ep/decode{t}"], g0[f"ep/decode{t}"])
+                        for t in range(PLACE_DECODE)],
+        ranks=[{k: g["rec"][k] for k in (
+            "ep_held_bytes", "ep_local_bytes", "ep_spec_bytes",
+            "ep_whole_bytes", "ep_init_s", "ep_prefill_s", "ep_decode_s",
+            "ep_s")} for g in gloo],
+        one_card_held_bytes=n0["rec"]["one_card_held_bytes"])
+    rec["fsdp"].update(
+        losses=g0["rec"]["losses"], gnorms=g0["rec"]["gnorms"],
+        nccl_losses=n0["rec"]["losses"], nccl_gnorms=n0["rec"]["gnorms"],
+        ranks=[{k: g["rec"][k] for k in ("master_bytes", "moment_bytes",
+                                         "whole_master_bytes", "step_s",
+                                         "peak_bytes", "train_s")}
+               for g in gloo],
+        nccl_step_s=n0["rec"]["step_s"], save_s=g0["rec"]["save_s"],
+        restore_s=n0["rec"]["restore_s"],
+        restored_step=n0["rec"]["restored_step"])
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log("placement", **rec)
+    ep = rec["ep"]
+    check(ep["prefill_vs_one_card"] < LM_TOL and
+          ep["nccl_prefill_vs_one_card"] < LM_TOL,
+          f"placement: the EP prefill differs from the one-card model's "
+          f"({ep['prefill_vs_one_card']}, {ep['nccl_prefill_vs_one_card']})")
+    check(max(ep["decode_vs_nccl"]) < LM_TOL,
+          f"placement: the (1, 2) decode differs from (1, 1)'s "
+          f"({ep['decode_vs_nccl']})")
+    for r in ep["ranks"]:
+        check(r["ep_local_bytes"] == r["ep_spec_bytes"],
+              "placement: a rank's shards are not param_specs' bytes")
+        if card:
+            check(r["ep_spec_bytes"] <= r["ep_held_bytes"]
+                  <= r["ep_spec_bytes"] * (1 + PLACE_BYTES_SLACK),
+                  f"placement: a rank holds {r['ep_held_bytes']} B against "
+                  f"param_specs' {r['ep_spec_bytes']}")
+    fs = rec["fsdp"]
+    for a, b in zip(fs["losses"], fs["nccl_losses"]):
+        check(abs(a - b) <= TRAIN_LOSS_TOL["dense"] * abs(b),
+              f"placement: loss {a} on (2, 1) against {b} on (1, 1)")
+    for a, b in zip(fs["gnorms"], fs["nccl_gnorms"]):
+        check(abs(a - b) <= TRAIN_GNORM_TOL * abs(b),
+              f"placement: gnorm {a} on (2, 1) against {b} on (1, 1)")
+    for r in fs["ranks"]:
+        half = r["whole_master_bytes"] / 2
+        check(abs(r["master_bytes"] - half) <= PLACE_BYTES_SLACK * half
+              and abs(r["moment_bytes"] - 2 * half)
+              <= PLACE_BYTES_SLACK * 2 * half,
+              "placement: a rank's masters or moments are not half")
+    check(fs["restored_step"] == PLACE_TRAIN_STEPS and n0["rec"][
+        "restored_placed"] and n0["rec"]["restored_digests"]
+          == [g["rec"]["saved_digest"] for g in gloo],
+          "placement: the masters restored onto (1, 1) are not, shard for "
+          "shard, those each rank of (2, 1) saved")
+    check(all(o["rec"]["foreign"] == [] for o in gloo + one),
+          "placement: a rank loaded jax or the reference")
+    return rec
+
+
+def rel_gap_np(ref, got) -> float:
+    """``rel_gap`` of two numpy arrays."""
+    import numpy as np
+    ref, got = np.asarray(ref, np.float32), np.asarray(got, np.float32)
+    top = np.abs(ref).max()
+    return float(np.abs(got - ref).max() / top if top else np.abs(got).max())
+
+
 def profiled_steps(api, params, cache, tok, lens, steps, dev) -> tuple:
     """``steps`` decode steps under torch.profiler, each followed by the
     logits' copy to the host, after one unprofiled warm-up step, with
@@ -4554,11 +4989,13 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--mesh-rank"]:        # one rank of phase_mesh
         return mesh_rank(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--placement-rank"]:   # one rank of phase_placement
+        return placement_rank(sys.argv[2], sys.argv[3])
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
     from repro_torch.api import SchedulePolicy
     from repro_torch.kernels import _build
-    from repro_torch.vecdata import load_dataset, recall_at_k
+    from repro_torch.vecdata import recall_at_k
 
     t_all = time.perf_counter()
     # stated precision: full fp32 products everywhere (no TF32)
@@ -4595,10 +5032,18 @@ def main() -> int:
     train_rec = phase_train(dev)
     torch.cuda.empty_cache()
 
+    # A9 (d): the placements, as rank processes; meanwhile the host draws
+    # the 1M corpus and the guardrails' drift scenario, fits DDCopq and
+    # builds the IVF index (A22)
+    drawn = draw_in_background(dev)
+    phase_placement(dev)
     t0 = time.perf_counter()
-    ds = load_dataset("gist", scale=N_MAIN / 30_000)
+    drawn["thread"].join()
+    drawn_wait_s = time.perf_counter() - t0
+    if "error" in drawn:
+        raise drawn["error"]
+    ds, gen_s = drawn["ds"], drawn["ds_s"]
     X, Q = ds.X, ds.Q
-    gen_s = time.perf_counter() - t0
     # the exact distances of the queries to every row give the ground
     # truth of any prefix (the first N_RULES rows, the rows visible to a
     # served request) or subset (the live shards of the replica tier)
@@ -4606,6 +5051,7 @@ def main() -> int:
     d2 = distances64(X, Q, dev)
     gt = nearest(d2)
     log("data", shape=list(X.shape), nq=int(Q.shape[0]), gen_s=gen_s,
+        drawn_during="placement", waited_after_placement_s=drawn_wait_s,
         ground_truth_s=time.perf_counter() - t0)
 
     pdsp = phase_graph(X, Q, gt, dev)
@@ -4653,7 +5099,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    sess, res, rec = run_method(X, Q, gt, "DDCopq", dev)
+    sess, res, rec = run_method(X, Q, gt, "DDCopq", dev, fitted=drawn["opq"])
+    rec.update(fit_s=drawn["opq_s"], fit_during="placement")
     log("main", **rec, phase_s=time.perf_counter() - t0)
     check(rec["launches_per_batch"]["pq_lookup"] > 0,
           "the main path launched no pq_lookup kernel")
@@ -4676,7 +5123,8 @@ def main() -> int:
     del sess, res, ds
     torch.cuda.empty_cache()
 
-    ivf, ivf_recs = phase_ivf(X, Q, gt, pdsp, opq, dev, kept)
+    ivf, ivf_recs = phase_ivf(X, Q, gt, pdsp, opq, dev, kept,
+                              built=(drawn["ivf"], drawn["ivf_s"]))
     Xr = np.ascontiguousarray(X[:N_RULES])
     gt_r = nearest(d2[:, :N_RULES])
     phase_delta(X, Q, gt, Xr, gt_r, pdsp, dev)
@@ -4686,7 +5134,7 @@ def main() -> int:
                                        kept)
     any_rec = phase_anytime(X, Q, gt, pdsp, dev)
     phase_host(Xr, Q, gt_r, dev)
-    phase_guardrails(Xr, dev)
+    phase_guardrails(Xr, dev, drift=(drawn["drift"], drawn["drift_s"]))
 
     # A6: the serving front, the replica tier and snapshots
     sess, serve_rec = phase_serving(X, Q, d2, pdsp, dev)

@@ -1,9 +1,9 @@
 """Config registry: ``--arch <id>`` resolves through ``get_arch``.
 
 A copy of the reference's registry and dataclasses (``base``), every
-architecture included, so the port imports nothing of the reference.
-The mesh placements (the reference's ``configs/sharding.py``) are not
-ported yet (ROADMAP A9 (d)).
+architecture included, so the port imports nothing of the reference;
+``sharding`` holds the mesh placements (the reference's
+``configs/sharding.py``).
 """
 from __future__ import annotations
 

@@ -104,7 +104,8 @@ def reference_leaves(cfg, model, ref_params):
         yield name, p, np.ascontiguousarray(src)
 
 
-def params_from_reference(cfg, ref_params, device=None) -> torch.nn.Module:
+def params_from_reference(cfg, ref_params, device=None, *, mesh=None,
+                          dp_axes=None) -> torch.nn.Module:
     """The port's model of ``cfg``'s family on ``device`` (default: the
     CUDA card) holding ``ref_params``, the reference's parameter tree for
     ``cfg``, read through ``np.asarray``:
@@ -135,29 +136,53 @@ def params_from_reference(cfg, ref_params, device=None) -> torch.nn.Module:
     MoE router stay f32: both packages compute on the same numbers.  A
     leaf of another shape, a stack of another depth, an ``lm_head`` the
     family does not hold (or lacks), or a part the model does not hold
-    (V3's ``mtp`` for a config without it) is refused."""
-    model = _model(cfg, resolve_device(device))
+    (V3's ``mtp`` for a config without it) is refused.
+
+    With ``mesh`` (a ``DeviceMesh``; every rank passes the same tree) each
+    parameter is then placed as ``build_model(cfg, mesh=mesh)`` places
+    it, by ``configs.sharding.param_specs`` with ``dp_axes`` (default:
+    the mesh's ``"pod"`` and ``"data"`` dims) as the FSDP dims."""
+    model = _model(cfg, resolve_device(device, mesh))
     with torch.no_grad():
         for _, p, src in reference_leaves(cfg, model, ref_params):
             p.copy_(torch.from_numpy(src))
-    return model
+    if mesh is None:
+        return model
+    from repro_torch.configs.sharding import param_specs
+    from repro_torch.launch.mesh import dp_axes as mesh_dp_axes
+    from repro_torch.models.placement import place_module
+    fsdp = tuple(dp_axes) if dp_axes is not None else mesh_dp_axes(mesh)
+    return place_module(model, mesh, param_specs(model, mesh, fsdp=fsdp))
 
 
-def train_state_from_reference(cfg, ref_state, device=None):
+def train_state_from_reference(cfg, ref_state, device=None, *, mesh=None,
+                               dp_axes=None):
     """The port's ``TrainState`` (``repro_torch.train``) on ``device``
     (default: the CUDA card) from the reference's: its f32 parameter tree
     (``ref_state.params``) as the masters, its AdamW moments
     (``ref_state.opt["m"]``, ``["v"]``, in their dtype) and step counts,
     each leaf read through ``np.asarray`` by ``params_from_reference``'s
-    walk, so both packages step from the same state."""
+    walk, so both packages step from the same state.  With ``mesh`` the
+    masters and moments are placed as ``params_from_reference`` places
+    the parameters."""
     from repro_torch.train.train_step import TrainState
 
-    dev = resolve_device(device)
+    dev = resolve_device(device, mesh)
     names = _model(cfg, "meta")
+    specs = None
+    if mesh is not None:
+        from repro_torch.configs.sharding import param_specs
+        from repro_torch.launch.mesh import dp_axes as mesh_dp_axes
+        from repro_torch.models.placement import place
+        fsdp = tuple(dp_axes) if dp_axes is not None else mesh_dp_axes(mesh)
+        specs = param_specs(names, mesh, fsdp=fsdp)
 
     def tree(ref_tree, dtype=torch.float32):
-        return {name: torch.from_numpy(src).to(device=dev, dtype=dtype)
-                for name, _, src in reference_leaves(cfg, names, ref_tree)}
+        out = {name: torch.from_numpy(src).to(device=dev, dtype=dtype)
+               for name, _, src in reference_leaves(cfg, names, ref_tree)}
+        if specs is None:
+            return out
+        return {n: place(t, mesh, specs[n]) for n, t in out.items()}
 
     def dtype_of(ref_tree):
         leaf = next(iter(_leaves(ref_tree)))

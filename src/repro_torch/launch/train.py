@@ -10,8 +10,10 @@ The model trains on the CUDA card unless ``--device cpu`` is given, from
 random masters drawn from seed 0.  ``--smoke`` swaps in the family's
 reduced config; without it the published config is built, which for
 OLMo-1B fits one card (f32 masters and moments, bf16 weights and grads:
-about 19 GB before activations) and for the larger ones does not (the
-mesh placements are ROADMAP A9 (d)).  ``--ckpt-dir`` runs the
+about 19 GB before activations) and for the larger ones does not: this
+launcher runs on one device, and a mesh's train step is
+``make_train_step`` on ``build_model(cfg, mesh=...)`` in each rank
+(``models.placement``).  ``--ckpt-dir`` runs the
 checkpoint/restart driver (``--fail-at`` injects a crash at a step; a
 second run with the same directory resumes from the newest checkpoint).
 """

@@ -100,12 +100,27 @@ def nonparam_layer_norm(x, eps=1e-6):
 
 
 def make_constrainer(mesh, dp_axes):
-    """Activation sharding constraint: the identity without a mesh (the
-    mesh placements are ROADMAP A9 (d))."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "models on a mesh are not ported yet (ROADMAP A9 (d))")
-    return lambda x: x
+    """Activation sharding constraint: batch rows over the DP axes.  The
+    identity without a mesh, on a plain tensor (on a mesh the port's
+    activations are already the rank's rows, ``models.placement.Rows``)
+    and when the leading dim does not divide over the DP ranks; a
+    ``DTensor`` is redistributed to ``Shard(0)`` over the DP dims,
+    replicated over the others."""
+    if mesh is None:
+        return lambda x: x
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.models.placement import dp_size, mesh_names
+    dp = dp_size(mesh, dp_axes)
+    placements = [Shard(0) if name in dp_axes else Replicate()
+                  for name in mesh_names(mesh)]
+
+    def constrain(x):
+        if not isinstance(x, DTensor) or x.ndim == 0 or x.shape[0] % dp:
+            return x
+        return x.redistribute(mesh, placements)
+
+    return constrain
 
 
 def make_norm(cfg):

@@ -32,6 +32,18 @@ in a Python loop, eagerly; the KV cache is one preallocated (L, B, Smax,
 Hkv, hd) bf16 tensor pair (MLA: the latent ``c_kv`` and ``k_rope``), and
 the SSM state an (L, ...) pair, all written in place.
 
+On a ``DeviceMesh`` (``build_model(cfg, mesh=mesh)``, one process a
+rank) every parameter is a ``DTensor`` in its ``configs.sharding``
+placement and each block computes on its weights gathered just before
+use (``models.placement``).  A call takes the global batch on every
+rank; a rank computes its DP share of the rows (all of them when the DP
+ranks do not divide the batch), ranks along ``"model"`` the same rows.
+``loss`` is the global batch's (the local sums and the mask counts
+summed over the DP ranks); ``prefill`` and ``decode_step`` return the
+logits and the caches as ``DTensor``s of the global batch, the batch
+over DP (a cache that would be sharded on its sequence axis is ROADMAP
+A9 (e)); MoE layers take ``models.moe``'s expert-parallel branch.
+
 ``decode_step`` refuses a ``cur_len`` outside [1, Smax] by default.  The
 serving engine feeds a prompt of Smax tokens or more through it, as the
 reference's does, and passes ``past_cache="drop"``: the step then
@@ -40,6 +52,7 @@ the K/V write dropped, attention over all Smax positions).
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable
 
@@ -50,11 +63,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api.backends import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.sharding import param_specs
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import placement as P
 from repro_torch.models.layers import CDTYPE, _weight, make_constrainer
 
 
@@ -67,6 +82,8 @@ class ModelApi:
     decode_step: Callable             # (params, cache, token, cur_len, *,
                                       #  past_cache) -> (logits, cache)
     init_cache: Callable              # (batch, max_len) -> cache
+    mesh: object = None               # the DeviceMesh the model is placed on
+    dp_axes: tuple = ("data",)        # its data-parallel dims
 
 
 # ---------------------------------------------------------------------------
@@ -116,7 +133,7 @@ class _ChunkedCE(torch.autograd.Function):
     time: the head's gradient is summed in f32 and rounded once."""
 
     @staticmethod
-    def forward(ctx, h, w, targets, mask, vocab, chunk):
+    def forward(ctx, h, w, targets, mask, vocab, chunk, count):
         B, S, _ = h.shape
         tot = torch.zeros((), dtype=torch.float32, device=h.device)
         lses = []
@@ -126,7 +143,7 @@ class _ChunkedCE(torch.autograd.Function):
             gold = logits.gather(-1, targets[:, c0:c0 + chunk, None])[..., 0]
             tot = tot + ((lse - gold) * mask[:, c0:c0 + chunk]).sum()
             lses.append(lse)
-        denom = torch.clamp(mask.sum(), min=1.0)
+        denom = torch.clamp(mask.sum() if count is None else count, min=1.0)
         ctx.save_for_backward(h, w, targets, mask, torch.cat(lses, 1), denom)
         ctx.vocab, ctx.chunk = vocab, chunk
         return tot / denom
@@ -155,23 +172,24 @@ class _ChunkedCE(torch.autograd.Function):
                        @ dl.reshape(-1, dl.shape[-1])).to(torch.float32)
         return (None if dh is None else torch.cat(dh, 1),
                 None if dw is None else dw.to(w.dtype),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
-def chunked_ce(params, cfg, h, targets, mask, *, chunk=512):
+def chunked_ce(params, cfg, h, targets, mask, *, chunk=512, count=None):
     """Cross entropy over the padded vocabulary without materializing the
     (B, S, Vp) logits, the reference's ``chunked_ce``: h (B, S, D),
     targets (B, S) ints, mask (B, S) f32; the padded vocabulary's logits
     at -1e30; the masked sum over ``max(mask.sum(), 1)``.  S must be a
     multiple of ``min(chunk, S)``.  Neither pass keeps more than one
-    chunk's (B, chunk, Vp) logits (``_ChunkedCE``)."""
+    chunk's (B, chunk, Vp) logits (``_ChunkedCE``).  ``count``, if given,
+    replaces the mask's sum (a mesh's count over every rank's rows)."""
     S = h.shape[1]
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"the sequence ({S}) is not a multiple of the CE "
                          f"chunk ({chunk})")
     return _ChunkedCE.apply(h, _head_weight(params, cfg), targets.long(),
-                            mask.to(torch.float32), cfg.vocab, chunk)
+                            mask.to(torch.float32), cfg.vocab, chunk, count)
 
 
 def _shifted(tok, n):
@@ -225,6 +243,81 @@ def _step_lengths(cur_len, smax, past_cache, device):
 def _final_norm(params, cfg, h):
     return (L.rms_norm(h, params.final_norm) if not cfg.nonparam_ln
             else L.nonparam_layer_norm(h))
+
+
+# ---------------------------------------------------------------------------
+# a mesh: placed parameters, a call's rows
+# ---------------------------------------------------------------------------
+
+
+def _gatherer(mesh):
+    """``placement.gathered`` on a mesh; a context that does nothing
+    without one."""
+    if mesh is None:
+        return lambda module, recurse=True: contextlib.nullcontext(module)
+    return P.gathered
+
+
+def _placed(model, mesh, dp_axes):
+    """``model`` with every parameter placed by ``param_specs`` on
+    ``mesh`` (the DP dims as FSDP's), or as it is without a mesh."""
+    if mesh is None:
+        return model
+    return P.place_module(model, mesh, param_specs(model, mesh,
+                                                   fsdp=tuple(dp_axes)))
+
+
+def _rows(mesh, dp_axes, batch):
+    """A call's ``placement.Rows`` over ``batch`` rows (a count, or an
+    array of the rows), None without a mesh."""
+    if mesh is None:
+        return None
+    return P.Rows(mesh, dp_axes, batch if isinstance(batch, int)
+                  else len(batch))
+
+
+def _take(rows, x, device):
+    """This rank's rows of ``x`` (the global batch's) on ``device``."""
+    x = _on(x, device)
+    return x if rows is None else rows.take(x)
+
+
+def _lens(rows, cur_len):
+    """This rank's entries of a decode step's ``cur_len`` (a scalar, or
+    one a row), left on the host if it is there."""
+    return cur_len if rows is None else rows.take(cur_len)
+
+
+def _local_batch(rows, batch: int) -> int:
+    return batch if rows is None or not rows.split else batch // rows.dp
+
+
+def _out(rows, x):
+    return x if rows is None else rows.out(x)
+
+
+def _place_cache(rows, cache, **kw):
+    return cache if rows is None else rows.cache(cache, **kw)
+
+
+def _local(mesh, cache):
+    return cache if mesh is None else P.local_tree(cache)
+
+
+def _moe_kw(rows) -> dict:
+    if rows is None:
+        return {}
+    return dict(mesh=rows.mesh, dp_axes=rows.dp_axes, global_batch=rows.batch)
+
+
+def _ce(params, cfg, h, targets, mask, rows):
+    """``chunked_ce`` of this rank's rows as its term of the global
+    batch's mean: the masked sum over the mask counted on every rank,
+    summed over the DP ranks."""
+    if rows is None:
+        return chunked_ce(params, cfg, h, targets, mask)
+    count = rows.count(mask.sum())
+    return rows.total(chunked_ce(params, cfg, h, targets, mask, count=count))
 
 
 # ---------------------------------------------------------------------------
@@ -290,59 +383,75 @@ def build_dense(cfg: ArchConfig, mesh=None, dp_axes=("data",),
     prefix = cfg.prefix_len
     kind = "prefix" if prefix else "causal"
     _c = make_constrainer(mesh, dp_axes)
-    dev = resolve_device(device)
-    block = _remat(lambda lp, h: _c(_dense_block(lp, cfg, h, kind=kind,
-                                                 prefix_len=prefix)), remat)
+    G = _gatherer(mesh)
+    dev = resolve_device(device, mesh)
+
+    def _block(lp, h):
+        with G(lp):
+            return _c(_dense_block(lp, cfg, h, kind=kind, prefix_len=prefix))
+
+    block = _remat(_block, remat)
 
     def init(generator):
         """Random parameters drawn on ``generator`` (a ``torch.Generator``
         on the model's device), one tensor at a time."""
-        return DenseLM(cfg, generator, device=dev)
+        return _placed(DenseLM(cfg, generator, device=dev), mesh, dp_axes)
 
-    def _inputs_to_h(params, batch):
-        h = params.embed[_on(batch["tokens"], dev).long()]
+    def _inputs_to_h(params, batch, rows):
+        h = params.embed[_take(rows, batch["tokens"], dev).long()]
         if prefix and "patches" in batch:
-            h = torch.cat([_on(batch["patches"], dev).to(h.dtype), h], 1)
+            h = torch.cat([_take(rows, batch["patches"], dev).to(h.dtype),
+                           h], 1)
         return _c(h)
 
     def loss(params, batch):
         """Next-token CE over ``batch["tokens"]`` (the VLM's prefix
         positions dropped first): ``(ce, {"ce": ce})``."""
-        h = _inputs_to_h(params, batch)
-        for lp in params.layers:
-            h = block(lp, h)
-        h = _final_norm(params, cfg, h)
-        tgt, mask = _shifted(_on(batch["tokens"], dev).long(), 1)
-        if prefix and "patches" in batch:
-            h = h[:, prefix:]
-        ce = chunked_ce(params, cfg, h, tgt, mask)
+        rows = _rows(mesh, dp_axes, batch["tokens"])
+        with G(params, recurse=False):
+            h = _inputs_to_h(params, batch, rows)
+            for lp in params.layers:
+                h = block(lp, h)
+            h = _final_norm(params, cfg, h)
+            tgt, mask = _shifted(_take(rows, batch["tokens"], dev).long(), 1)
+            if prefix and "patches" in batch:
+                h = h[:, prefix:]
+            ce = _ce(params, cfg, h, tgt, mask, rows)
         return ce, {"ce": ce}
 
     def prefill(params, batch):
         """The full forward pass over ``batch["tokens"]`` (B, S) (after
         ``batch["patches"]`` (B, prefix_len, d) for the VLM): the last
         position's logits and the cache of all S positions."""
-        h = _inputs_to_h(params, batch)
-        S = h.shape[1]
+        rows = _rows(mesh, dp_axes, batch["tokens"])
         _, apply_n = L.make_norm(cfg)
         ks, vs = [], []
-        for lp in params.layers:
-            a, (k, v) = A.attention_forward(
-                lp.attn, cfg, apply_n(lp.n1, h),
-                kind=kind, prefix_len=prefix, return_kv=True)
-            h = h + a
-            h = _c(h + L.mlp(lp.mlp, cfg, apply_n(lp.n2, h)))
-            ks.append(k)
-            vs.append(v)
-        h = _final_norm(params, cfg, h)
-        logits = _head(params, cfg, h[:, -1:])[:, 0]
-        return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
-                        "len": S}
+        with G(params, recurse=False):
+            h = _inputs_to_h(params, batch, rows)
+            S = h.shape[1]
+            if rows is not None:
+                rows.check_seq(S)
+            for lp in params.layers:
+                with G(lp):
+                    a, (k, v) = A.attention_forward(
+                        lp.attn, cfg, apply_n(lp.n1, h),
+                        kind=kind, prefix_len=prefix, return_kv=True)
+                    h = h + a
+                    h = _c(h + L.mlp(lp.mlp, cfg, apply_n(lp.n2, h)))
+                ks.append(k)
+                vs.append(v)
+            h = _final_norm(params, cfg, h)
+            logits = _head(params, cfg, h[:, -1:])[:, 0]
+        return _out(rows, logits), _place_cache(
+            rows, {"k": torch.stack(ks), "v": torch.stack(vs), "len": S})
 
     def init_cache(batch, max_len):
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-        return {"k": torch.zeros(shape, dtype=CDTYPE, device=dev),
-                "v": torch.zeros(shape, dtype=CDTYPE, device=dev)}
+        rows = _rows(mesh, dp_axes, batch)
+        shape = (cfg.n_layers, _local_batch(rows, batch), max_len,
+                 cfg.n_kv_heads, cfg.hd)
+        return _place_cache(rows, {
+            "k": torch.zeros(shape, dtype=CDTYPE, device=dev),
+            "v": torch.zeros(shape, dtype=CDTYPE, device=dev)})
 
     def decode_step(params, cache, token, cur_len, *, past_cache="refuse"):
         """One token a slot: ``token`` (B,), ``cur_len`` a scalar or (B,)
@@ -350,19 +459,24 @@ def build_dense(cfg: ArchConfig, mesh=None, dp_axes=("data",),
         Writes ``cache`` in place and returns it with the (B, Vp) f32
         logits.  ``past_cache="drop"`` serves a length past the cache as
         the reference does (module docstring)."""
-        cl, drop = _step_lengths(cur_len, cache["k"].shape[2], past_cache,
-                                 dev)
-        h = params.embed[_on(token, dev).long()][:, None, :]
-        for i, lp in enumerate(params.layers):
-            h, _ = _dense_block_decode(
-                lp, cfg, h, {"k": cache["k"][i], "v": cache["v"][i]}, cl,
-                drop=drop)
-            h = _c(h)
-        h = _final_norm(params, cfg, h)
-        logits = _head(params, cfg, h)[:, 0]
-        return logits, cache
+        rows = _rows(mesh, dp_axes, token)
+        c = _local(mesh, cache)
+        cl, drop = _step_lengths(_lens(rows, cur_len), c["k"].shape[2],
+                                 past_cache, dev)
+        with G(params, recurse=False):
+            h = params.embed[_take(rows, token, dev).long()][:, None, :]
+            for i, lp in enumerate(params.layers):
+                with G(lp):
+                    h, _ = _dense_block_decode(
+                        lp, cfg, h, {"k": c["k"][i], "v": c["v"][i]}, cl,
+                        drop=drop)
+                h = _c(h)
+            h = _final_norm(params, cfg, h)
+            logits = _head(params, cfg, h)[:, 0]
+        return _out(rows, logits), cache
 
-    return ModelApi(cfg, init, loss, prefill, decode_step, init_cache)
+    return ModelApi(cfg, init, loss, prefill, decode_step, init_cache, mesh,
+                    tuple(dp_axes))
 
 
 # ---------------------------------------------------------------------------
@@ -397,63 +511,84 @@ class SSMLM(torch.nn.Module):
 def build_ssm(cfg: ArchConfig, mesh=None, dp_axes=("data",),
               remat: str = "block", *, device=None) -> ModelApi:
     _c = make_constrainer(mesh, dp_axes)
-    dev = resolve_device(device)
-    block = _remat(lambda lp, h: _c(h + M.mamba_forward(
-        lp.mixer, cfg, L.rms_norm(h, lp.n1))), remat)
+    G = _gatherer(mesh)
+    dev = resolve_device(device, mesh)
+
+    def _block(lp, h):
+        with G(lp):
+            return _c(h + M.mamba_forward(lp.mixer, cfg, L.rms_norm(h, lp.n1)))
+
+    block = _remat(_block, remat)
 
     def init(generator):
-        return SSMLM(cfg, generator, device=dev)
+        return _placed(SSMLM(cfg, generator, device=dev), mesh, dp_axes)
 
     def loss(params, batch):
         """Next-token CE over ``batch["tokens"]``: ``(ce, {"ce": ce})``."""
-        tok = _on(batch["tokens"], dev).long()
-        h = _c(params.embed[tok])
-        for lp in params.layers:
-            h = block(lp, h)
-        h = L.rms_norm(h, params.final_norm)
-        ce = chunked_ce(params, cfg, h, *_shifted(tok, 1))
+        rows = _rows(mesh, dp_axes, batch["tokens"])
+        tok = _take(rows, batch["tokens"], dev).long()
+        with G(params, recurse=False):
+            h = _c(params.embed[tok])
+            for lp in params.layers:
+                h = block(lp, h)
+            h = L.rms_norm(h, params.final_norm)
+            ce = _ce(params, cfg, h, *_shifted(tok, 1), rows)
         return ce, {"ce": ce}
 
     def prefill(params, batch):
         """The full forward pass over ``batch["tokens"]`` (B, S): the last
         position's logits and each layer's final (h, conv) state, stacked
         over the layers ((L, B, H, P, N) f32, (L, B, d_conv - 1, C) bf16)."""
-        h = _c(params.embed[_on(batch["tokens"], dev).long()])
+        rows = _rows(mesh, dp_axes, batch["tokens"])
         hs, convs = [], []
-        for lp in params.layers:
-            y, (st_h, st_c) = M.mamba_forward(
-                lp.mixer, cfg, L.rms_norm(h, lp.n1), return_state=True)
-            h = _c(h + y)
-            hs.append(st_h)
-            convs.append(st_c)
-        h = L.rms_norm(h, params.final_norm)
-        logits = _head(params, cfg, h[:, -1:])[:, 0]
-        return logits, (torch.stack(hs), torch.stack(convs))
+        with G(params, recurse=False):
+            h = _c(params.embed[_take(rows, batch["tokens"], dev).long()])
+            for lp in params.layers:
+                with G(lp):
+                    y, (st_h, st_c) = M.mamba_forward(
+                        lp.mixer, cfg, L.rms_norm(h, lp.n1),
+                        return_state=True)
+                h = _c(h + y)
+                hs.append(st_h)
+                convs.append(st_c)
+            h = L.rms_norm(h, params.final_norm)
+            logits = _head(params, cfg, h[:, -1:])[:, 0]
+        return _out(rows, logits), _place_cache(
+            rows, (torch.stack(hs), torch.stack(convs)), seq_axis=None)
 
     def init_cache(batch, max_len):
         """Zero states: h f32 and conv bf16, over the layers; ``max_len``
         does not size them (a state holds no positions)."""
-        h0, c0 = M.init_mamba_state(cfg, batch, CDTYPE, device=dev)
-        return (h0.expand((cfg.n_layers,) + h0.shape).clone(),
-                c0.expand((cfg.n_layers,) + c0.shape).clone())
+        rows = _rows(mesh, dp_axes, batch)
+        h0, c0 = M.init_mamba_state(cfg, _local_batch(rows, batch), CDTYPE,
+                                    device=dev)
+        return _place_cache(rows, (
+            h0.expand((cfg.n_layers,) + h0.shape).clone(),
+            c0.expand((cfg.n_layers,) + c0.shape).clone()), seq_axis=None)
 
     def decode_step(params, cache, token, cur_len, *, past_cache="refuse"):
         """One token a slot: updates the (h, conv) state in place and
         returns it with the (B, Vp) f32 logits.  ``cur_len`` and
         ``past_cache`` are ignored, as the reference ignores ``cur_len``:
         a slot's state runs on from whatever it held (ROADMAP C10)."""
-        hs, convs = cache
-        h = params.embed[_on(token, dev).long()][:, None, :]
-        for i, lp in enumerate(params.layers):
-            y, (st_h, st_c) = M.mamba_decode(
-                lp.mixer, cfg, L.rms_norm(h, lp.n1), (hs[i], convs[i]))
-            h = _c(h + y)
-            hs[i].copy_(st_h)
-            convs[i].copy_(st_c)
-        h = L.rms_norm(h, params.final_norm)
-        return _head(params, cfg, h)[:, 0], cache
+        rows = _rows(mesh, dp_axes, token)
+        hs, convs = _local(mesh, cache)
+        with G(params, recurse=False):
+            h = params.embed[_take(rows, token, dev).long()][:, None, :]
+            for i, lp in enumerate(params.layers):
+                with G(lp):
+                    y, (st_h, st_c) = M.mamba_decode(
+                        lp.mixer, cfg, L.rms_norm(h, lp.n1),
+                        (hs[i], convs[i]))
+                h = _c(h + y)
+                hs[i].copy_(st_h)
+                convs[i].copy_(st_c)
+            h = L.rms_norm(h, params.final_norm)
+            logits = _head(params, cfg, h)[:, 0]
+        return _out(rows, logits), cache
 
-    return ModelApi(cfg, init, loss, prefill, decode_step, init_cache)
+    return ModelApi(cfg, init, loss, prefill, decode_step, init_cache, mesh,
+                    tuple(dp_axes))
 
 
 # ---------------------------------------------------------------------------
@@ -500,26 +635,32 @@ class EncDecLM(torch.nn.Module):
 def build_encdec(cfg: ArchConfig, mesh=None, dp_axes=("data",),
                  remat: str = "block", *, device=None) -> ModelApi:
     _c = make_constrainer(mesh, dp_axes)
-    dev = resolve_device(device)
-    enc_block = _remat(lambda lp, h: _c(_dense_block(lp, cfg, h,
-                                                     kind="full")), remat)
+    G = _gatherer(mesh)
+    dev = resolve_device(device, mesh)
+
+    def _enc_block(lp, h):
+        with G(lp):
+            return _c(_dense_block(lp, cfg, h, kind="full"))
 
     def _dec_block(lp, h, mem):
-        h = h + A.attention_forward(lp.attn, cfg, L.rms_norm(h, lp.n1),
-                                    kind="causal")
-        h = h + A.attention_forward(lp.xattn, cfg, L.rms_norm(h, lp.nx),
-                                    memory=mem)
-        return _c(h + L.mlp(lp.mlp, cfg, L.rms_norm(h, lp.n2)))
+        with G(lp):
+            h = h + A.attention_forward(lp.attn, cfg, L.rms_norm(h, lp.n1),
+                                        kind="causal")
+            h = h + A.attention_forward(lp.xattn, cfg, L.rms_norm(h, lp.nx),
+                                        memory=mem)
+            return _c(h + L.mlp(lp.mlp, cfg, L.rms_norm(h, lp.n2)))
 
+    enc_block = _remat(_enc_block, remat)
     dec_block = _remat(_dec_block, remat)
 
     def init(generator):
-        return EncDecLM(cfg, generator, device=dev)
+        return _placed(EncDecLM(cfg, generator, device=dev), mesh, dp_axes)
 
-    def encode(params, src):
+    def encode(params, src, rows=None):
         """The encoder over ``src`` (B, S_enc, d): bidirectional dense
-        blocks, RoPE on q and k, then ``enc_norm``."""
-        h = _on(src, dev).to(CDTYPE)
+        blocks, RoPE on q and k, then ``enc_norm`` (its gain gathered by
+        the caller on a mesh)."""
+        h = _take(rows, src, dev).to(CDTYPE)
         for lp in params.enc:
             h = enc_block(lp, h)
         return L.rms_norm(h, params.enc_norm)
@@ -527,13 +668,15 @@ def build_encdec(cfg: ArchConfig, mesh=None, dp_axes=("data",),
     def loss(params, batch):
         """Encode ``batch["src_embeds"]``, then next-token CE of the
         decoder over ``batch["tokens"]``: ``(ce, {"ce": ce})``."""
-        mem = encode(params, batch["src_embeds"])
-        tok = _on(batch["tokens"], dev).long()
-        h = params.embed[tok]
-        for lp in params.dec:
-            h = dec_block(lp, h, mem)
-        h = L.rms_norm(h, params.final_norm)
-        ce = chunked_ce(params, cfg, h, *_shifted(tok, 1))
+        rows = _rows(mesh, dp_axes, batch["tokens"])
+        tok = _take(rows, batch["tokens"], dev).long()
+        with G(params, recurse=False):
+            mem = encode(params, batch["src_embeds"], rows)
+            h = params.embed[tok]
+            for lp in params.dec:
+                h = dec_block(lp, h, mem)
+            h = L.rms_norm(h, params.final_norm)
+            ce = _ce(params, cfg, h, *_shifted(tok, 1), rows)
         return ce, {"ce": ce}
 
     def prefill(params, batch):
@@ -541,59 +684,77 @@ def build_encdec(cfg: ArchConfig, mesh=None, dp_axes=("data",),
         ``batch["tokens"]``: the last position's logits and the cache,
         ``{"self": {"k", "v"}, "cross": {"k", "v"}}``, each (L, B, S, Hkv,
         hd) bf16; the cross K/V are ``xattn``'s over the encoder memory."""
-        mem = encode(params, batch["src_embeds"])
-        h = params.embed[_on(batch["tokens"], dev).long()]
+        rows = _rows(mesh, dp_axes, batch["tokens"])
         sk, sv, ck, cv = [], [], [], []
-        for lp in params.dec:
-            a, (k, v) = A.attention_forward(
-                lp.attn, cfg, L.rms_norm(h, lp.n1), kind="causal",
-                return_kv=True)
-            h = h + a
-            x, (xk, xv) = A.attention_forward(
-                lp.xattn, cfg, L.rms_norm(h, lp.nx), memory=mem,
-                return_kv=True)
-            h = h + x
-            h = h + L.mlp(lp.mlp, cfg, L.rms_norm(h, lp.n2))
-            for acc, t in ((sk, k), (sv, v), (ck, xk), (cv, xv)):
-                acc.append(t)
-        h = L.rms_norm(h, params.final_norm)
-        logits = _head(params, cfg, h[:, -1:])[:, 0]
-        return logits, {"self": {"k": torch.stack(sk), "v": torch.stack(sv)},
-                        "cross": {"k": torch.stack(ck),
-                                  "v": torch.stack(cv)}}
+        with G(params, recurse=False):
+            mem = encode(params, batch["src_embeds"], rows)
+            h = params.embed[_take(rows, batch["tokens"], dev).long()]
+            if rows is not None:
+                rows.check_seq(h.shape[1])
+                rows.check_seq(mem.shape[1])
+            for lp in params.dec:
+                with G(lp):
+                    a, (k, v) = A.attention_forward(
+                        lp.attn, cfg, L.rms_norm(h, lp.n1), kind="causal",
+                        return_kv=True)
+                    h = h + a
+                    x, (xk, xv) = A.attention_forward(
+                        lp.xattn, cfg, L.rms_norm(h, lp.nx), memory=mem,
+                        return_kv=True)
+                    h = h + x
+                    h = h + L.mlp(lp.mlp, cfg, L.rms_norm(h, lp.n2))
+                for acc, t in ((sk, k), (sv, v), (ck, xk), (cv, xv)):
+                    acc.append(t)
+            h = L.rms_norm(h, params.final_norm)
+            logits = _head(params, cfg, h[:, -1:])[:, 0]
+        return _out(rows, logits), _place_cache(rows, {
+            "self": {"k": torch.stack(sk), "v": torch.stack(sv)},
+            "cross": {"k": torch.stack(ck), "v": torch.stack(cv)}})
 
     def init_cache(batch, max_len, enc_len=1024):
         """Zero self K/V over ``max_len`` positions and zero cross K/V
         over ``enc_len``: the engine never runs the encoder, so its
         decode reads ``enc_len`` zero cross positions, as the
         reference's does."""
+        rows = _rows(mesh, dp_axes, batch)
+
         def zeros(n):
-            return torch.zeros((cfg.n_layers, batch, n, cfg.n_kv_heads,
-                                cfg.hd), dtype=CDTYPE, device=dev)
-        return {"self": {"k": zeros(max_len), "v": zeros(max_len)},
-                "cross": {"k": zeros(enc_len), "v": zeros(enc_len)}}
+            return torch.zeros((cfg.n_layers, _local_batch(rows, batch), n,
+                                cfg.n_kv_heads, cfg.hd), dtype=CDTYPE,
+                               device=dev)
+        return _place_cache(rows, {"self": {"k": zeros(max_len),
+                                            "v": zeros(max_len)},
+                                   "cross": {"k": zeros(enc_len),
+                                             "v": zeros(enc_len)}})
 
     def decode_step(params, cache, token, cur_len, *, past_cache="refuse"):
         """One token a slot, as the dense ``decode_step``: the self cache
         written in place, the cross cache read whole."""
-        sc, xc = cache["self"], cache["cross"]
-        cl, drop = _step_lengths(cur_len, sc["k"].shape[2], past_cache, dev)
-        h = params.embed[_on(token, dev).long()][:, None, :]
-        for i, lp in enumerate(params.dec):
-            a, _ = A.attention_decode(
-                lp.attn, cfg, L.rms_norm(h, lp.n1),
-                {"k": sc["k"][i], "v": sc["v"][i]}, cl,
-                drop=drop)
-            h = h + a
-            x, _ = A.attention_decode(
-                lp.xattn, cfg, L.rms_norm(h, lp.nx),
-                {"k": xc["k"][i], "v": xc["v"][i]}, cl, cross=True)
-            h = h + x
-            h = h + L.mlp(lp.mlp, cfg, L.rms_norm(h, lp.n2))
-        h = L.rms_norm(h, params.final_norm)
-        return _head(params, cfg, h)[:, 0], cache
+        rows = _rows(mesh, dp_axes, token)
+        c = _local(mesh, cache)
+        sc, xc = c["self"], c["cross"]
+        cl, drop = _step_lengths(_lens(rows, cur_len), sc["k"].shape[2],
+                                 past_cache, dev)
+        with G(params, recurse=False):
+            h = params.embed[_take(rows, token, dev).long()][:, None, :]
+            for i, lp in enumerate(params.dec):
+                with G(lp):
+                    a, _ = A.attention_decode(
+                        lp.attn, cfg, L.rms_norm(h, lp.n1),
+                        {"k": sc["k"][i], "v": sc["v"][i]}, cl,
+                        drop=drop)
+                    h = h + a
+                    x, _ = A.attention_decode(
+                        lp.xattn, cfg, L.rms_norm(h, lp.nx),
+                        {"k": xc["k"][i], "v": xc["v"][i]}, cl, cross=True)
+                    h = h + x
+                    h = h + L.mlp(lp.mlp, cfg, L.rms_norm(h, lp.n2))
+            h = L.rms_norm(h, params.final_norm)
+            logits = _head(params, cfg, h)[:, 0]
+        return _out(rows, logits), cache
 
-    return ModelApi(cfg, init, loss, prefill, decode_step, init_cache)
+    return ModelApi(cfg, init, loss, prefill, decode_step, init_cache, mesh,
+                    tuple(dp_axes))
 
 # ---------------------------------------------------------------------------
 # family: deepseek MoE (MLA + experts + optional MTP)
@@ -616,26 +777,26 @@ class MLABlock(torch.nn.Module):
             self.mlp = L.MLP(cfg, gen, device=device)
 
 
-def _mla_ffn(p, cfg, h):
+def _mla_ffn(p, cfg, h, rows=None):
     """The block's feed-forward on ``n2``'s norm of h: (out, aux)."""
     hn = L.rms_norm(h, p.n2)
     if hasattr(p, "moe"):
-        return MOE.moe_forward(p.moe, cfg, hn)
+        return MOE.moe_forward(p.moe, cfg, hn, **_moe_kw(rows))
     return L.mlp(p.mlp, cfg, hn), 0.0
 
 
-def _mla_block(p, cfg, h):
+def _mla_block(p, cfg, h, rows=None):
     a, kv = MLA.mla_forward(p.attn, cfg, L.rms_norm(h, p.n1))
     h = h + a
-    f, aux = _mla_ffn(p, cfg, h)
+    f, aux = _mla_ffn(p, cfg, h, rows)
     return h + f, aux, kv
 
 
-def _mla_block_decode(p, cfg, h, cache, cur_len, *, drop=False):
+def _mla_block_decode(p, cfg, h, cache, cur_len, *, drop=False, rows=None):
     a, _ = MLA.mla_decode(p.attn, cfg, L.rms_norm(h, p.n1), cache, cur_len,
                           drop=drop)
     h = h + a
-    f, _ = _mla_ffn(p, cfg, h)
+    f, _ = _mla_ffn(p, cfg, h, rows)
     return h + f
 
 
@@ -683,40 +844,46 @@ def build_moe(cfg: ArchConfig, mesh=None, dp_axes=("data",),
     nd = cfg.moe.first_dense
     nm = cfg.n_layers - nd
     _c = make_constrainer(mesh, dp_axes)
-    dev = resolve_device(device)
-    block = _remat(lambda lp, h: _mla_block(lp, cfg, h)[:2], remat)
+    G = _gatherer(mesh)
+    dev = resolve_device(device, mesh)
+
+    def _block(lp, h, rows):
+        with G(lp):
+            return _mla_block(lp, cfg, h, rows)[:2]
+
+    block = _remat(_block, remat)
 
     def init(generator):
-        return MoELM(cfg, generator, device=dev)
+        return _placed(MoELM(cfg, generator, device=dev), mesh, dp_axes)
 
     def loss(params, batch):
         """Next-token CE plus the layers' load-balance aux and, with
         ``cfg.mtp``, 0.3 x the MTP head's CE of the token two ahead
         (from [h_t ; emb_{t+1}]): ``(total, {"ce", "aux"[, "mtp_ce"]})``."""
-        tok = _on(batch["tokens"], dev).long()
-        h = _c(params.embed[tok])
-        aux = torch.zeros((), dtype=torch.float32, device=dev)
-        for lp in [*params.dense_layers, *params.moe_layers]:
-            h, a = block(lp, h)
-            h, aux = _c(h), aux + a
-        ce = chunked_ce(params, cfg, L.rms_norm(h, params.final_norm),
-                        *_shifted(tok, 1))
-        metrics = {"ce": ce, "aux": aux}
-        total = ce + aux
-        if cfg.mtp:
-            mtp = params.mtp
-            emb_next = F.pad(params.embed[tok][:, 1:], (0, 0, 0, 1))
-            hm = torch.cat([h, emb_next], -1).to(CDTYPE) @ mtp.proj
-            hm, _, _ = _mla_block(mtp.block, cfg, hm)
-            mtp_ce = chunked_ce(params, cfg, L.rms_norm(hm, mtp.norm),
-                                *_shifted(tok, 2))
-            metrics["mtp_ce"] = mtp_ce
-            total = total + 0.3 * mtp_ce
+        rows = _rows(mesh, dp_axes, batch["tokens"])
+        tok = _take(rows, batch["tokens"], dev).long()
+        with G(params, recurse=False):
+            h = _c(params.embed[tok])
+            aux = torch.zeros((), dtype=torch.float32, device=dev)
+            for lp in [*params.dense_layers, *params.moe_layers]:
+                h, a = block(lp, h, rows)
+                h, aux = _c(h), aux + a
+            ce = _ce(params, cfg, L.rms_norm(h, params.final_norm),
+                     *_shifted(tok, 1), rows)
+            metrics = {"ce": ce, "aux": aux}
+            total = ce + aux
+            if cfg.mtp:
+                with G(params.mtp) as mtp:
+                    emb_next = F.pad(params.embed[tok][:, 1:], (0, 0, 0, 1))
+                    hm = torch.cat([h, emb_next], -1).to(CDTYPE) @ mtp.proj
+                    hm, _, _ = _mla_block(mtp.block, cfg, hm, rows)
+                    mtp_ce = _ce(params, cfg, L.rms_norm(hm, mtp.norm),
+                                 *_shifted(tok, 2), rows)
+                metrics["mtp_ce"] = mtp_ce
+                total = total + 0.3 * mtp_ce
         return total, metrics
 
-    def init_cache(batch, max_len):
-        """Zero latent caches of both stacks: ``{"dense": {"c_kv",
-        "k_rope"}, "moe": {...}}``, each (n, B, max_len, ·) bf16."""
+    def _zeros(batch, max_len):
         m = cfg.mla
 
         def mk(n):
@@ -726,40 +893,59 @@ def build_moe(cfg: ArchConfig, mesh=None, dp_axes=("data",),
                                           dtype=CDTYPE, device=dev)}
         return {"dense": mk(nd), "moe": mk(nm)}
 
+    def init_cache(batch, max_len):
+        """Zero latent caches of both stacks: ``{"dense": {"c_kv",
+        "k_rope"}, "moe": {...}}``, each (n, B, max_len, ·) bf16."""
+        rows = _rows(mesh, dp_axes, batch)
+        return _place_cache(rows, _zeros(_local_batch(rows, batch), max_len))
+
     def prefill(params, batch):
         """The full forward pass over ``batch["tokens"]`` (B, S): the last
         position's logits and the latent caches of all S positions.  Its
         MoE layers take the dropless path at B x S <= 32 tokens and the
         capacity path above, as the reference's do."""
-        h = params.embed[_on(batch["tokens"], dev).long()]
-        cache = init_cache(h.shape[0], h.shape[1])
-        for name, layers in (("dense", params.dense_layers),
-                             ("moe", params.moe_layers)):
-            for i, lp in enumerate(layers):
-                h, _, (c_kv, k_rope) = _mla_block(lp, cfg, h)
-                h = _c(h)
-                cache[name]["c_kv"][i].copy_(c_kv)
-                cache[name]["k_rope"][i].copy_(k_rope)
-        h = L.rms_norm(h, params.final_norm)
-        return _head(params, cfg, h[:, -1:])[:, 0], cache
+        rows = _rows(mesh, dp_axes, batch["tokens"])
+        with G(params, recurse=False):
+            h = params.embed[_take(rows, batch["tokens"], dev).long()]
+            if rows is not None:
+                rows.check_seq(h.shape[1])
+            cache = _zeros(h.shape[0], h.shape[1])
+            for name, layers in (("dense", params.dense_layers),
+                                 ("moe", params.moe_layers)):
+                for i, lp in enumerate(layers):
+                    with G(lp):
+                        h, _, (c_kv, k_rope) = _mla_block(lp, cfg, h, rows)
+                    h = _c(h)
+                    cache[name]["c_kv"][i].copy_(c_kv)
+                    cache[name]["k_rope"][i].copy_(k_rope)
+            h = L.rms_norm(h, params.final_norm)
+            logits = _head(params, cfg, h[:, -1:])[:, 0]
+        return _out(rows, logits), _place_cache(rows, cache)
 
     def decode_step(params, cache, token, cur_len, *, past_cache="refuse"):
         """One token a slot, as the dense ``decode_step``: the absorbed
         MLA decode writes each layer's latent cache in place."""
-        cl, drop = _step_lengths(cur_len, cache["moe"]["c_kv"].shape[2],
-                                 past_cache, dev)
-        h = params.embed[_on(token, dev).long()][:, None, :]
-        for name, layers in (("dense", params.dense_layers),
-                             ("moe", params.moe_layers)):
-            c = cache[name]
-            for i, lp in enumerate(layers):
-                h = _c(_mla_block_decode(
-                    lp, cfg, h, {"c_kv": c["c_kv"][i],
-                                 "k_rope": c["k_rope"][i]}, cl, drop=drop))
-        h = L.rms_norm(h, params.final_norm)
-        return _head(params, cfg, h)[:, 0], cache
+        rows = _rows(mesh, dp_axes, token)
+        lc = _local(mesh, cache)
+        cl, drop = _step_lengths(_lens(rows, cur_len),
+                                 lc["moe"]["c_kv"].shape[2], past_cache, dev)
+        with G(params, recurse=False):
+            h = params.embed[_take(rows, token, dev).long()][:, None, :]
+            for name, layers in (("dense", params.dense_layers),
+                                 ("moe", params.moe_layers)):
+                c = lc[name]
+                for i, lp in enumerate(layers):
+                    with G(lp):
+                        h = _c(_mla_block_decode(
+                            lp, cfg, h, {"c_kv": c["c_kv"][i],
+                                         "k_rope": c["k_rope"][i]}, cl,
+                            drop=drop, rows=rows))
+            h = L.rms_norm(h, params.final_norm)
+            logits = _head(params, cfg, h)[:, 0]
+        return _out(rows, logits), cache
 
-    return ModelApi(cfg, init, loss, prefill, decode_step, init_cache)
+    return ModelApi(cfg, init, loss, prefill, decode_step, init_cache, mesh,
+                    tuple(dp_axes))
 
 
 # ---------------------------------------------------------------------------
@@ -832,14 +1018,15 @@ def _mamba_index(cfg, i):
     return i if i < cfg.attn_offset else i - 1
 
 
-def _hybrid_ffn(gp, cfg, h, i):
+def _hybrid_ffn(gp, cfg, h, i, rows=None):
     """Group position i's feed-forward on its norm of h: (out, aux), an
     MoE with its load-balance aux (which only the loss reads) or a dense
     MLP with 0."""
     moe_pos, _ = _hybrid_positions(cfg)
     hn = L.rms_norm(h, gp.ffn_norms[i])
     if i in moe_pos:
-        return MOE.moe_forward(gp.moe[moe_pos.index(i)], cfg, hn)
+        return MOE.moe_forward(gp.moe[moe_pos.index(i)], cfg, hn,
+                               **_moe_kw(rows))
     return L.mlp(gp.mlp[i - sum(j < i for j in moe_pos)], cfg, hn), 0.0
 
 
@@ -856,20 +1043,20 @@ def _hybrid_mixer(gp, cfg, h, i, *, return_state):
                            return_state=return_state)
 
 
-def _hybrid_layer(gp, cfg, h, i):
+def _hybrid_layer(gp, cfg, h, i, rows=None):
     """Group position i over the whole sequence: (h, its cache)."""
     a, st = _hybrid_mixer(gp, cfg, h, i, return_state=True)
     h = h + a
-    return h + _hybrid_ffn(gp, cfg, h, i)[0], st
+    return h + _hybrid_ffn(gp, cfg, h, i, rows)[0], st
 
 
-def _hybrid_group_loss(gp, cfg, h):
+def _hybrid_group_loss(gp, cfg, h, rows=None):
     """One group over the whole sequence, as the reference's loss runs
     it: (h, the group's summed MoE aux)."""
     aux = 0.0
     for i in range(cfg.attn_every):
         h = h + _hybrid_mixer(gp, cfg, h, i, return_state=False)
-        f, a = _hybrid_ffn(gp, cfg, h, i)
+        f, a = _hybrid_ffn(gp, cfg, h, i, rows)
         h, aux = h + f, aux + a
     return h, aux
 
@@ -880,55 +1067,75 @@ def build_hybrid(cfg: ArchConfig, mesh=None, dp_axes=("data",),
     per, off = cfg.attn_every, cfg.attn_offset
     n_mamba = per - 1
     _c = make_constrainer(mesh, dp_axes)
-    dev = resolve_device(device)
-    group = _remat(lambda gp, h: _hybrid_group_loss(gp, cfg, h), remat)
+    gather = _gatherer(mesh)
+    dev = resolve_device(device, mesh)
+
+    def _group(gp, h, rows):
+        with gather(gp):
+            return _hybrid_group_loss(gp, cfg, h, rows)
+
+    group = _remat(_group, remat)
 
     def init(generator):
-        return HybridLM(cfg, generator, device=dev)
+        return _placed(HybridLM(cfg, generator, device=dev), mesh, dp_axes)
 
     def loss(params, batch):
         """Next-token CE plus the MoE layers' load-balance aux:
         ``(ce + aux, {"ce", "aux"})``."""
-        tok = _on(batch["tokens"], dev).long()
-        h = _c(params.embed[tok])
-        aux = torch.zeros((), dtype=torch.float32, device=dev)
-        for gp in params.groups:
-            h, a = group(gp, h)
-            h, aux = _c(h), aux + a
-        ce = chunked_ce(params, cfg, L.rms_norm(h, params.final_norm),
-                        *_shifted(tok, 1))
+        rows = _rows(mesh, dp_axes, batch["tokens"])
+        tok = _take(rows, batch["tokens"], dev).long()
+        with gather(params, recurse=False):
+            h = _c(params.embed[tok])
+            aux = torch.zeros((), dtype=torch.float32, device=dev)
+            for gp in params.groups:
+                h, a = group(gp, h, rows)
+                h, aux = _c(h), aux + a
+            ce = _ce(params, cfg, L.rms_norm(h, params.final_norm),
+                     *_shifted(tok, 1), rows)
         return ce + aux, {"ce": ce, "aux": aux}
+
+    def _place(rows, kv, ssm):
+        return {"kv": _place_cache(rows, kv),
+                "ssm": _place_cache(rows, ssm, batch_axis=2, seq_axis=None)}
 
     def prefill(params, batch):
         """The full forward pass over ``batch["tokens"]`` (B, S): the last
         position's logits and ``{"kv": {"k", "v"}, "ssm": (h, conv)}``,
         the attention layers' K/V (G, B, S, Hkv, hd) bf16 and the Mamba-2
         layers' final states (G, n_mamba, B, ...), h f32 and conv bf16."""
-        h = params.embed[_on(batch["tokens"], dev).long()]
+        rows = _rows(mesh, dp_axes, batch["tokens"])
         kvs, hs, convs = [], [], []
-        for gp in params.groups:
-            states = []
-            for i in range(per):
-                h, st = _hybrid_layer(gp, cfg, h, i)
-                h = _c(h)
-                (kvs if i == off else states).append(st)
-            hs.append(torch.stack([st[0] for st in states]))
-            convs.append(torch.stack([st[1] for st in states]))
-        h = L.rms_norm(h, params.final_norm)
-        logits = _head(params, cfg, h[:, -1:])[:, 0]
-        return logits, {"kv": {"k": torch.stack([kv[0] for kv in kvs]),
-                               "v": torch.stack([kv[1] for kv in kvs])},
-                        "ssm": (torch.stack(hs), torch.stack(convs))}
+        with gather(params, recurse=False):
+            h = params.embed[_take(rows, batch["tokens"], dev).long()]
+            if rows is not None:
+                rows.check_seq(h.shape[1])
+            for gp in params.groups:
+                states = []
+                with gather(gp):
+                    for i in range(per):
+                        h, st = _hybrid_layer(gp, cfg, h, i, rows)
+                        h = _c(h)
+                        (kvs if i == off else states).append(st)
+                hs.append(torch.stack([st[0] for st in states]))
+                convs.append(torch.stack([st[1] for st in states]))
+            h = L.rms_norm(h, params.final_norm)
+            logits = _head(params, cfg, h[:, -1:])[:, 0]
+        return _out(rows, logits), _place(
+            rows, {"k": torch.stack([kv[0] for kv in kvs]),
+                   "v": torch.stack([kv[1] for kv in kvs])},
+            (torch.stack(hs), torch.stack(convs)))
 
     def init_cache(batch, max_len):
         """Zero K/V (G, B, max_len, Hkv, hd) bf16 and zero states (G,
         n_mamba, B, ...), h f32 and conv bf16."""
-        kv = (G, batch, max_len, cfg.n_kv_heads, cfg.hd)
-        h0, c0 = M.init_mamba_state(cfg, batch, CDTYPE, device=dev)
-        return {"kv": {"k": torch.zeros(kv, dtype=CDTYPE, device=dev),
-                       "v": torch.zeros(kv, dtype=CDTYPE, device=dev)},
-                "ssm": (h0.expand((G, n_mamba) + h0.shape).clone(),
-                        c0.expand((G, n_mamba) + c0.shape).clone())}
+        rows = _rows(mesh, dp_axes, batch)
+        b = _local_batch(rows, batch)
+        kv = (G, b, max_len, cfg.n_kv_heads, cfg.hd)
+        h0, c0 = M.init_mamba_state(cfg, b, CDTYPE, device=dev)
+        return _place(rows, {"k": torch.zeros(kv, dtype=CDTYPE, device=dev),
+                             "v": torch.zeros(kv, dtype=CDTYPE, device=dev)},
+                      (h0.expand((G, n_mamba) + h0.shape).clone(),
+                       c0.expand((G, n_mamba) + c0.shape).clone()))
 
     def decode_step(params, cache, token, cur_len, *, past_cache="refuse"):
         """One token a slot: the attention layers write their K/V in place
@@ -936,31 +1143,38 @@ def build_hybrid(cfg: ArchConfig, mesh=None, dp_axes=("data",),
         the Mamba-2 layers update their states in place and ignore
         ``cur_len``, as the reference's: a slot's state runs on from
         whatever it held (ROADMAP C10)."""
-        kc, vc = cache["kv"]["k"], cache["kv"]["v"]
-        hs, convs = cache["ssm"]
-        cl, drop = _step_lengths(cur_len, kc.shape[2], past_cache, dev)
-        h = params.embed[_on(token, dev).long()][:, None, :]
-        for g, gp in enumerate(params.groups):
-            for i in range(per):
-                if i == off:
-                    a, _ = A.attention_decode(
-                        gp.attn.attn, cfg, L.rms_norm(h, gp.attn.n1),
-                        {"k": kc[g], "v": vc[g]}, cl, drop=drop)
-                else:
-                    mi = _mamba_index(cfg, i)
-                    lp = gp.mamba[mi]
-                    a, (sh, sc) = M.mamba_decode(
-                        lp.mixer, cfg, L.rms_norm(h, lp.n1),
-                        (hs[g, mi], convs[g, mi]))
-                    hs[g, mi].copy_(sh)
-                    convs[g, mi].copy_(sc)
-                h = h + a
-                h = h + _hybrid_ffn(gp, cfg, h, i)[0]
-            h = _c(h)
-        h = L.rms_norm(h, params.final_norm)
-        return _head(params, cfg, h)[:, 0], cache
+        rows = _rows(mesh, dp_axes, token)
+        lc = _local(mesh, cache)
+        kc, vc = lc["kv"]["k"], lc["kv"]["v"]
+        hs, convs = lc["ssm"]
+        cl, drop = _step_lengths(_lens(rows, cur_len), kc.shape[2],
+                                 past_cache, dev)
+        with gather(params, recurse=False):
+            h = params.embed[_take(rows, token, dev).long()][:, None, :]
+            for g, gp in enumerate(params.groups):
+                with gather(gp):
+                    for i in range(per):
+                        if i == off:
+                            a, _ = A.attention_decode(
+                                gp.attn.attn, cfg, L.rms_norm(h, gp.attn.n1),
+                                {"k": kc[g], "v": vc[g]}, cl, drop=drop)
+                        else:
+                            mi = _mamba_index(cfg, i)
+                            lp = gp.mamba[mi]
+                            a, (sh, sc) = M.mamba_decode(
+                                lp.mixer, cfg, L.rms_norm(h, lp.n1),
+                                (hs[g, mi], convs[g, mi]))
+                            hs[g, mi].copy_(sh)
+                            convs[g, mi].copy_(sc)
+                        h = h + a
+                        h = h + _hybrid_ffn(gp, cfg, h, i, rows)[0]
+                h = _c(h)
+            h = L.rms_norm(h, params.final_norm)
+            logits = _head(params, cfg, h)[:, 0]
+        return _out(rows, logits), cache
 
-    return ModelApi(cfg, init, loss, prefill, decode_step, init_cache)
+    return ModelApi(cfg, init, loss, prefill, decode_step, init_cache, mesh,
+                    tuple(dp_axes))
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,10 @@
 """Mixture-of-Experts feed-forward: routed top-k experts and always-on
 shared experts.
 
-Counterpart of the mesh-free branch of the reference package's
-``models/moe.py`` (plain array code there too: no Pallas).  A mesh (expert
-parallelism) raises naming ROADMAP A9 (d).  Two paths, chosen by the
-token count T = B x S exactly as in the reference:
+Counterpart of the reference package's ``models/moe.py`` (plain array
+code there too: no Pallas).  Without a mesh (or on one that cannot shard
+the call) two paths, chosen by the token count T = B x S exactly as in
+the reference:
 
 * T <= 32, dropless: each token runs its own top-k experts, whose
   weights are gathered a (token, expert) pair at a time;
@@ -19,6 +19,16 @@ Every top-k keeps the lower index first among equal values, as
 ``lax.top_k`` does: two identical tokens at the capacity cut-off keep the
 earlier one (``stream_engine._smallest`` on the negated scores).
 
+On a mesh whose DP ranks split the batch and whose ``"model"`` ranks
+split the experts, the expert-parallel branch (the reference's
+``shard_map``): each rank gathers its E / tp experts over the DP dims,
+routes its DP share of the tokens among them on the capacity path, with
+the capacity of its local token count (a decode step too), and the
+partial outputs are summed over ``"model"`` (in bf16 with
+``psum_dtype=torch.bfloat16`` or ``REPRO_MOE_PSUM_BF16`` set); the aux
+loss is the mean over the DP ranks of each rank's.  Its backward is the
+gradient of the global function (``models.placement``).
+
 ``MoE`` holds ``router`` (d, E) in f32, as the reference routes in f32
 (a bf16 router flips near-tied expert choices), ``wg`` and ``wu`` (E, d,
 F) and ``wd`` (E, F, d) in bf16, and optionally ``shared`` (``wg``,
@@ -26,12 +36,17 @@ F) and ``wd`` (E, F, d) in bf16, and optionally ``shared`` (``wg``,
 """
 from __future__ import annotations
 
+import os
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
+from repro_torch.configs.sharding import mesh_sizes
 from repro_torch.core.stream_engine import _smallest
+from repro_torch.models import placement as P
 from repro_torch.models.layers import (CDTYPE, _weight, bmm_f32, dense_init,
-                                       make_constrainer, silu, weight_dtype)
+                                       silu, weight_dtype)
 
 DROPLESS_TOKENS = 32      # the reference's dropless path serves T <= 32
 
@@ -60,6 +75,9 @@ class MoE(torch.nn.Module):
     """``router`` f32 ``N(0, 1) * 0.02``; ``wg``, ``wu`` ``N(0, 1) /
     sqrt(d)`` and ``wd`` ``N(0, 1) / sqrt(F)`` in bf16 (f32 in
     ``layers.master_init``); ``shared`` with ``n_shared``."""
+
+    #: placed stacks that ``placement.gathered`` leaves to ``moe_forward``
+    expert_stacks = ("wg", "wu", "wd")
 
     def __init__(self, cfg, gen=None, *, device=None):
         super().__init__()
@@ -117,22 +135,25 @@ def _dropless(params, mc, x_flat, probs):
     return out
 
 
-def _capacity(params, mc, x_flat, probs, capacity: int):
-    """Expert choice over the normalised top-k gates: each expert's
-    ``min(capacity, T)`` highest-gated tokens, the rest dropped: (T, D)
-    f32."""
+def _capacity(params, mc, x_flat, probs, capacity: int, *, e_offset=0,
+              n_local=None):
+    """Expert choice over the normalised top-k gates: each of the experts
+    ``e_offset .. e_offset + n_local`` (``params`` holds their stacks)
+    takes its ``min(capacity, T)`` highest-gated tokens, the rest
+    dropped: (T, D) f32, the sum of those experts' outputs."""
     T, D = x_flat.shape
     E = probs.shape[1]
+    n_local = E if n_local is None else n_local
     gate_vals, gate_idx = _top_k(probs, mc.top_k)
     gmat = torch.zeros((T, E), dtype=torch.float32, device=x_flat.device)
     gmat.scatter_(1, gate_idx, _gates(gate_vals))
-    loc = gmat.T                                               # (E, T)
+    loc = gmat[:, e_offset:e_offset + n_local].T               # (El, T)
     score = torch.where(loc > 0, loc, -torch.inf)
     top_val, tok_idx = _top_k(score.contiguous(), min(capacity, T))
     gates = torch.where(torch.isfinite(top_val), top_val, 0.0)
     flat_idx = tok_idx.reshape(-1)
-    xg = x_flat[flat_idx].reshape(E, -1, D).to(CDTYPE)
-    y = _expert_compute(xg, params.wg, params.wu, params.wd)  # (E, C, D)
+    xg = x_flat[flat_idx].reshape(n_local, -1, D).to(CDTYPE)
+    y = _expert_compute(xg, params.wg, params.wu, params.wd)  # (El, C, D)
     y = y * gates[..., None]
     out = torch.zeros((T, D), dtype=torch.float32, device=x_flat.device)
     return out.index_add_(0, flat_idx, y.reshape(-1, D))
@@ -144,25 +165,77 @@ def _aux_loss(probs):
     return probs.shape[1] * torch.sum(me * me)
 
 
-def moe_forward(params, cfg, x, *, mesh=None, dp_axes=("data",)):
-    """x (B, S, D) -> (out (B, S, D) in x's dtype, aux_loss * weight)."""
-    make_constrainer(mesh, dp_axes)
+def _local_experts(w, mesh, dp_axes, m: int, n_local: int):
+    """Model rank m's experts, whole over the DP dims: a placed stack
+    gathered over them, or the rows m * n_local ... of a whole one (the
+    train step's working copy)."""
+    if P.is_placed(w):
+        return P.full(w, names=dp_axes)
+    return w[m * n_local:(m + 1) * n_local]
+
+
+def moe_forward(params, cfg, x, *, mesh=None, dp_axes=("data",),
+                psum_dtype=None, global_batch=None):
+    """x (B, S, D) -> (out (B, S, D) in x's dtype, aux_loss * weight).
+
+    On a mesh, x holds this rank's rows of a call over ``global_batch``
+    rows (default: x is the rank's DP share, ``B * dp``); when the DP
+    ranks cannot split that batch, or the ``"model"`` ranks the experts,
+    every rank holds all rows and runs the mesh-free code on the whole
+    experts, as the reference falls back.  The expert stacks may be
+    placed (``DTensor``) or whole."""
+    if psum_dtype is None and os.environ.get("REPRO_MOE_PSUM_BF16"):
+        psum_dtype = torch.bfloat16
     mc = cfg.moe
     B, S, D = x.shape
+    E = mc.n_experts
+    tp_axis = "model"
+    sizes = mesh_sizes(mesh) if mesh is not None else {}
+    dp = P.dp_size(mesh, dp_axes) if tp_axis in sizes else 1
+    batch = B * dp if global_batch is None else global_batch
+    unshardable = (tp_axis not in sizes or batch % dp != 0
+                   or E % sizes[tp_axis] != 0)
     x_flat = x.reshape(-1, D)
-    T = x_flat.shape[0]
-    probs = router_probs(params, x_flat)                       # (T, E)
-    if T <= DROPLESS_TOKENS:
-        # a decode step's routing must not depend on the other requests
-        # of its batch, so tiny token counts do not compete for capacity
-        out = _dropless(params, mc, x_flat, probs)
+    if unshardable:
+        if mesh is not None and batch != B:
+            raise ValueError(f"a batch of {batch} rows that the mesh cannot "
+                             f"shard must be held whole, not as {B} rows")
+        w = SimpleNamespace(**{k: P.full(getattr(params, k))
+                               for k in ("router", "wg", "wu", "wd")})
+        T = x_flat.shape[0]
+        probs = router_probs(w, x_flat)                        # (T, E)
+        if T <= DROPLESS_TOKENS:
+            # a decode step's routing must not depend on the other
+            # requests of its batch, so tiny token counts do not compete
+            # for capacity
+            out = _dropless(w, mc, x_flat, probs)
+        else:
+            cap = max(1, int(T * mc.top_k / E * mc.capacity_factor))
+            out = _capacity(w, mc, x_flat, probs, cap)
+        aux = _aux_loss(probs)
     else:
-        cap = max(1, int(T * mc.top_k / mc.n_experts * mc.capacity_factor))
-        out = _capacity(params, mc, x_flat, probs, cap)
+        tp = sizes[tp_axis]
+        n_local, m = E // tp, mesh.get_local_rank(tp_axis)
+        w = SimpleNamespace(**{k: _local_experts(getattr(params, k), mesh,
+                                                 dp_axes, m, n_local)
+                               for k in ("wg", "wu", "wd")})
+        cap = max(1, int(x_flat.shape[0] * mc.top_k / E * mc.capacity_factor))
+        probs = router_probs(SimpleNamespace(router=P.full(params.router)),
+                             x_flat)
+        aux = P.sum_out(_aux_loss(probs), mesh, dp_axes) / dp
+        # the "model" ranks hold the same tokens and route them alike;
+        # each computes its experts' share, and the tokens' and the
+        # probabilities' cotangents are summed over those shares
+        out = _capacity(w, mc, P.sum_grad(x_flat, mesh, [tp_axis]),
+                        P.sum_grad(probs, mesh, [tp_axis]), cap,
+                        e_offset=m * n_local, n_local=n_local)
+        if psum_dtype is not None:
+            out = out.to(psum_dtype)
+        out = P.sum_out(out, mesh, [tp_axis])
     out = out.reshape(B, S, D).to(x.dtype)
     if mc.n_shared:
         sp = params.shared
         xc = x.to(CDTYPE)
-        h = silu(xc @ sp.wg) * (xc @ sp.wu)
-        out = out + (h @ sp.wd).to(x.dtype)
-    return out, _aux_loss(probs) * mc.aux_loss_weight
+        h = silu(xc @ P.full(sp.wg)) * (xc @ P.full(sp.wu))
+        out = out + (h @ P.full(sp.wd)).to(x.dtype)
+    return out, aux * mc.aux_loss_weight

@@ -1,6 +1,7 @@
 """Checkpointing: async, atomic, restorable onto another device.
 
-Counterpart of the reference package's ``train/checkpoint.py``.
+Counterpart of the reference package's ``train/checkpoint.py``.  Arrays
+are saved unsharded, so a checkpoint restores onto any mesh.
 
 Layout: <dir>/step_<n>/{manifest.json, <idx>.npy ...}; a checkpoint is
 valid iff its ``manifest.json`` exists (written LAST, after every tensor,
@@ -13,9 +14,13 @@ that makes interrupted saves harmless.
 * ``save_async`` copies to host memory synchronously (the device-to-host
   copy waits for the device) and writes on a daemon thread: the train
   loop blocks only for the copy.
+* On a mesh every rank calls ``save``: each placed leaf (``DTensor``) is
+  gathered whole, rank 0 alone writes, and the others wait for it (a
+  barrier), so no rank ever writes a partial leaf.
 * ``restore`` loads the newest valid step into the template's structure,
-  dtypes and devices, or onto one target device (``shardings``); a mesh
-  placement is ROADMAP A9 (d).
+  dtypes and devices, onto one target device, or onto a mesh: each leaf
+  into its ``configs.sharding.Placed`` placement (``shardings``, a tree
+  of the template's structure, None leaves as the template's).
 * GC: ``keep_last`` bounds disk usage.
 """
 from __future__ import annotations
@@ -28,6 +33,10 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.configs.sharding import Placed
+from repro_torch.models import placement as P
 
 
 def _flatten(tree) -> list:
@@ -58,23 +67,42 @@ def _unflatten(template, leaves):
 
 def _to_host(x) -> np.ndarray:
     if torch.is_tensor(x):
-        x = x.detach()
+        x = P.full(x.detach(), device="cpu")
         if x.dtype == torch.bfloat16:
             x = x.view(torch.int16)
         return x.cpu().numpy()
     return np.asarray(x)
 
 
+def _placed_tree(leaves) -> bool:
+    """Whether a tree's leaves live on a mesh (every rank saves it)."""
+    return any(P.is_placed(x) for x in leaves)
+
+
 def save(tree, directory: str, step: int, *, keep_last: int = 3):
-    _write([_to_host(x) for x in _flatten(tree)], directory, step, keep_last)
+    """Write ``tree`` as step ``step``; on a mesh every rank calls it, rank
+    0 writes and the others wait until it has."""
+    leaves = _flatten(tree)
+    host = [_to_host(x) for x in leaves]
+    if not _placed_tree(leaves):
+        _write(host, directory, step, keep_last)
+        return
+    if dist.get_rank() == 0:
+        _write(host, directory, step, keep_last)
+    dist.barrier()
 
 
 _PENDING: list = []
 
 
 def save_async(tree, directory: str, step: int, *, keep_last: int = 3):
-    """Device-to-host copy synchronously, disk write on a thread."""
-    host = [_to_host(x) for x in _flatten(tree)]
+    """Device-to-host copy synchronously, disk write on a thread; a tree on
+    a mesh is saved synchronously (``save``) and None returned."""
+    leaves = _flatten(tree)
+    if _placed_tree(leaves):
+        save(tree, directory, step, keep_last=keep_last)
+        return None
+    host = [_to_host(x) for x in leaves]
     t = threading.Thread(target=_write, args=(host, directory, step,
                                               keep_last), daemon=True)
     t.start()
@@ -117,15 +145,21 @@ def latest_steps(directory):
     return out
 
 
-def _like(arr: np.ndarray, leaf, device):
-    """``arr`` as ``leaf`` is held: a tensor of its dtype on ``device``
-    (its own device by default), or a numpy array of its dtype."""
+def _like(arr: np.ndarray, leaf, target):
+    """``arr`` as ``leaf`` is held: a tensor of its dtype on ``target`` (a
+    device; its own device by default), or placed by ``target`` (a
+    ``Placed``), or a numpy array of its dtype."""
     if not torch.is_tensor(leaf):
         return arr.astype(leaf.dtype) if hasattr(leaf, "dtype") else arr
     t = torch.from_numpy(arr)
     if leaf.dtype == torch.bfloat16 and t.dtype == torch.int16:
         t = t.view(torch.bfloat16)
-    return t.to(device=leaf.device if device is None else device,
+    if target is None and P.is_placed(leaf):
+        target = Placed(leaf.device_mesh, P.spec_of(leaf))
+    if isinstance(target, Placed):
+        return P.place(t.to(device=P.mesh_device(target.mesh),
+                            dtype=leaf.dtype), target.mesh, target.spec)
+    return t.to(device=P.local(leaf).device if target is None else target,
                 dtype=leaf.dtype)
 
 
@@ -133,21 +167,26 @@ def restore(template, directory: str, *, shardings=None,
             step: int | None = None):
     """Restore the newest (or the given) step into ``template``'s
     structure: (tree, step), or (None, -1) without a valid checkpoint.
-    ``shardings``: None (each leaf on its template leaf's device) or a
-    target device for every leaf; a mesh placement is not ported yet
-    (ROADMAP A9 (d))."""
-    if shardings is not None and not isinstance(shardings,
-                                                (str, torch.device)):
-        raise NotImplementedError(
-            "restoring onto a mesh is not ported yet (ROADMAP A9 (d)): "
-            "pass a device")
-    device = None if shardings is None else torch.device(shardings)
+    ``shardings``: None (each leaf on its template leaf's device), a
+    target device for every leaf, or a tree of the template's structure
+    whose leaves are ``Placed`` (the leaf restored into that placement on
+    its mesh, as ``train_step.state_shardings`` gives) or None (as the
+    template's leaf): the elastic path, onto any mesh."""
+    leaves = _flatten(template)
+    if shardings is None or isinstance(shardings, (str, torch.device)):
+        targets = [None if shardings is None else torch.device(shardings)
+                   ] * len(leaves)
+    else:
+        targets = _flatten(shardings)
+        if len(targets) != len(leaves):
+            raise ValueError(f"shardings has {len(targets)} leaves, the "
+                             f"template {len(leaves)}")
     steps = latest_steps(directory)
     if not steps:
         return None, -1
     step = max(steps) if step is None else step
     d = os.path.join(directory, f"step_{step:010d}")
-    leaves = _flatten(template)
     host = [np.load(os.path.join(d, f"{i}.npy")) for i in range(len(leaves))]
     return _unflatten(template, iter(
-        _like(h, leaf, device) for h, leaf in zip(host, leaves))), step
+        _like(h, leaf, target)
+        for h, leaf, target in zip(host, leaves, targets))), step

@@ -287,7 +287,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "serving/engine.py", "launch/serve.py",
                 "train/optimizer.py", "train/train_step.py",
                 "train/checkpoint.py", "train/fault.py",
-                "data/pipeline.py", "launch/train.py"):
+                "data/pipeline.py", "launch/train.py",
+                "configs/sharding.py", "models/placement.py"):
         assert ROOT / "src" / "repro_torch" / mod in files
     for f in files:
         hits = bad.findall(f.read_text())
@@ -300,7 +301,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.ranks, repro_torch.models, "
             "repro_torch.configs, repro_torch.launch.serve, "
             "repro_torch.train.fault, repro_torch.data, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.configs.sharding, "
+            "repro_torch.models.placement; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

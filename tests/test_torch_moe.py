@@ -248,12 +248,20 @@ def test_gates_not_renormalised_fail_the_output(shape, monkeypatch):
     assert _rel(want, _np(got)) > 4 * TOL
 
 
-def test_a_mesh_names_its_item():
-    cfg, _ = _cfgs()
-    port = TMOE.MoE(cfg)
-    with pytest.raises(NotImplementedError, match=r"A9 \(d\)"):
-        TMOE.moe_forward(port, cfg, torch.zeros(1, 2, cfg.d_model),
-                         mesh=object())
+@pytest.mark.parametrize("shape", [(2, 8), (2, 24)])
+def test_a_mesh_without_a_model_dim_runs_the_mesh_free_code(shape):
+    """A mesh the expert-parallel branch cannot use (no ``"model"`` dim)
+    falls back to the mesh-free paths, as the reference's does: the
+    output and the aux equal those of no mesh, dropless and capacity
+    (the mesh's placements: ``tests/test_torch_placement.py``)."""
+    from types import SimpleNamespace
+    cfg, rcfg = _cfgs()
+    _, port = _layer(cfg, rcfg)
+    _, xt = _bf16(np.random.default_rng(9), *shape, cfg.d_model)
+    mesh = SimpleNamespace(shape={"data": 1}, axis_names=("data",))
+    want, want_aux = TMOE.moe_forward(port, cfg, xt)
+    got, aux = TMOE.moe_forward(port, cfg, xt, mesh=mesh)
+    assert torch.equal(got, want) and torch.equal(aux, want_aux)
 
 
 def test_routing_hook_records_and_imposes_the_experts():

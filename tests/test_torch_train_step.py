@@ -18,6 +18,7 @@ Measured on the CPU: losses within 3.3e-4 relative (seamless), gnorm
 within 3.3e-3, the first moments within 3.5e-2 of their max, the masters
 within 1.2e-7 where the gradient is clear.
 """
+import dataclasses
 import functools
 
 import jax
@@ -289,8 +290,16 @@ def test_checkpoint_roundtrip(tmp_path):
     assert list(restored.params) == list(state.params)
     onto, _ = ckpt.restore(state, str(tmp_path), shardings="cpu")
     assert _leaves_equal(state, onto)
-    with pytest.raises(NotImplementedError, match=r"A9 \(d\)"):
-        ckpt.restore(state, str(tmp_path), shardings=object())
+    # a placement tree of the template's structure (None: as the template
+    # leaf) restores as the template; one of another structure is refused
+    nones = dataclasses.replace(
+        state, params=dict.fromkeys(state.params),
+        opt={"m": dict.fromkeys(state.opt["m"]),
+             "v": dict.fromkeys(state.opt["v"]), "step": None}, step=None)
+    same, _ = ckpt.restore(state, str(tmp_path), shardings=nones)
+    assert _leaves_equal(state, same)
+    with pytest.raises(ValueError, match="shardings has"):
+        ckpt.restore(state, str(tmp_path), shardings={"a": None})
     assert ckpt.restore(state, str(tmp_path / "none")) == (None, -1)
 
 
