@@ -3489,6 +3489,7 @@ def _phase_lm(dev, t_phase, card, size):
     n_params = sum(p.numel() for p in params.parameters())
     engine.update(step_bounds(weight_bytes, cache_bytes, n_params,
                               size["slots"]))
+    roofline = roofline_step(api, params, cfg, size, engine)
 
     # the long-cache arm: decode steps over a 32,768-position cache at
     # batch 8 holding seeded contents, lengths in [30,000, 32,768]
@@ -3542,9 +3543,60 @@ def _phase_lm(dev, t_phase, card, size):
            "bf16_reduced_precision_reduction": reduced,
            "init_s": init_s, "check_decode_vs_prefill": check_a,
            "check_card_vs_cpu": check_c,
-           "engine": engine, "long_cache": long,
+           "engine": engine, "roofline": roofline, "long_cache": long,
            "split_s": split_s, "phase_s": time.perf_counter() - t_phase}
     log("lm", **rec)
+    return rec
+
+
+def roofline_step(api, params, cfg, size, engine) -> dict:
+    """A10 on the card: one engine-shaped decode step (``slots`` slots,
+    ``max_len`` positions, per-slot lengths) counted op by op by
+    ``launch.hlo_cost``.  The products with a weight operand count 2
+    flops a weight they read a slot (``active_params``, less the
+    embedding when the head is untied: a gather is not a product); the
+    attention products apart, against 4 L H hd Smax B, whose factor is
+    the code's own (on the card ``grouped_scores_bmm`` and
+    ``grouped_mix_bmm`` compute every KV head's block); the counted bytes
+    beside the step's bytes bound.  Its own seed, so the phase's later
+    draws are those of earlier runs."""
+    import numpy as np
+    from repro_torch.launch import hlo_cost as HC
+    from repro_torch.launch import roofline as RL
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(LM_SEED + 3)
+    B, S = size["slots"], size["max_len"]
+    cache = api.init_cache(B, S)
+    tok = rng.integers(0, cfg.vocab, B).astype(np.int32)
+    cur = rng.integers(1, S + 1, B).astype(np.int32)
+    with HC.CostCounter(weights=list(params.parameters())) as c:
+        api.decode_step(params, cache, tok, cur, past_cache="drop")
+    tot = c.totals()
+    read = RL.active_params(cfg) - (0 if cfg.tie_embeddings
+                                    else cfg.vocab_padded * cfg.d_model)
+    weight_formula = 2.0 * B * read
+    attention = tot["matmul_flops"] - tot["weight_matmul_flops"]
+    attention_formula = 4.0 * cfg.n_layers * cfg.n_heads * cfg.hd * S * B
+    rec = {"slots": B, "max_len": S, "flops": tot["flops"],
+           "matmul_flops": tot["matmul_flops"],
+           "weight_matmul_flops": tot["weight_matmul_flops"],
+           "weight_formula": weight_formula,
+           "weight_gap": abs(tot["weight_matmul_flops"] - weight_formula)
+           / weight_formula,
+           "attention_flops": attention,
+           "attention_formula": attention_formula,
+           "attention_factor": attention / attention_formula,
+           "bytes": tot["bytes"], "bytes_upper": tot["bytes_upper"],
+           "terms_s": RL.terms(tot),
+           "step_bytes_by_formula": engine["step_bytes"],
+           "step_bound_ms": engine["step_bound_ms"],
+           "counted_bytes_ms": tot["bytes"] / HBM_BYTES_PER_S * 1e3,
+           "ops": sum(o["n"] for o in c.table()["ops"].values()),
+           "count_s": time.perf_counter() - t0}
+    log("roofline", **rec)
+    check(rec["weight_gap"] <= 0.01,
+          f"roofline: the weight GEMMs count {tot['weight_matmul_flops']} "
+          f"flops against 2 x {B} x {read} parameters ({weight_formula})")
     return rec
 
 
@@ -4500,6 +4552,53 @@ PLACE_TIMEOUT_S = 420            # a group's ranks are killed past it
 #: a rank's held bytes against those param_specs gives: the allocator's
 #: rounding and the model's own small buffers
 PLACE_BYTES_SLACK = 0.01
+#: the long-context arm (A9 (e)): OLMo-1B at its published widths cut to
+#: 4 layers, the FSDP arm's, at batch 1 over long_500k's 524,288 positions
+#: (configs/base.py SHAPES) on (data 2, model 1), the cache split on its
+#: sequence axis (262,144 positions a rank) and filled with seeded draws
+#: in chunks of PLACE_LC_CHUNK positions, each on its own seed, so (1, 1)
+#: holds the same values; two decode steps: one whose every valid
+#: position and write fall on rank 0, one that writes on rank 1 and
+#: attends over both ranks' full ranges
+LC_ARCH, LC_SEED, PLACE_LC_LAYERS = "olmo-1b", 28, 4
+PLACE_LC_S = {"cuda": 524_288, "cpu": 64}
+PLACE_LC_STEPS = {"cuda": (200_000, 524_288), "cpu": (24, 64)}
+PLACE_LC_CHUNK = {"cuda": 4096, "cpu": 8}
+#: (2, 1) against (1, 1) is held to LM_TOL of max |logits| and reported
+#: against PLACE_LC_TARGET.  The logits are a bf16 product (one ulp is
+#: ~4e-3 of the largest), so only bit-equal steps meet the target: a
+#: split of the positions sums the attention's f32 terms in another
+#: order than one card does, and at random weights (the residual ~0.02
+#: before the first MLP) one bf16 rounding of the attention output that
+#: lands the other way moves later roundings.  (1, 1)'s own spread is
+#: reported beside the gap: step 1 again over a view of its first half,
+#: which holds every valid position, as rank 0 does
+PLACE_LC_TARGET = 1e-3
+#: the quantity the merge decides: each layer's f32 attention output (the
+#: merged one on (2, 1), before its bf16 cast and ``wo``) against (1,
+#: 1)'s, as a share of its max.  The first layer's input is the same on
+#: both meshes, so it is held to PLACE_LC_ATTN_TOL; a later layer's
+#: input carries the earlier layers' bf16 roundings (~1e-2 of the
+#: logits), so it is held to LM_TOL.  A planted control, the last step
+#: again with rank 1's softmax mass and weighted values zeroed in the
+#: merge (``testing.long_context.attention_outputs``), must exceed each
+#: layer's limit
+PLACE_LC_ATTN_TOL = 1e-3
+PLACE_LC_REDUCES = 50     # all-reduces timed for one's latency
+#: every KV family's smoke config at batch 1 on (2, 1) against (1, 1) and
+#: against the mesh-free model in the same rank: a prefill of 16
+#: positions, its cache grown to 24 (12 encoder positions), 2 decode
+#: steps.  At batch 1 on (2, 1) a MoE layer takes the mesh-free dropless
+#: path, so the mesh-free model's routing is imposed there (C11); on
+#: (1, 1) the batch splits and the expert-parallel branch routes by its
+#: capacity path, as the reference's does, whose prefill drops tokens:
+#: a routed family's (1, 1) prefill is reported, and its decode steps,
+#: from the mesh-free prefill's cache under the mesh-free routing, held
+PLACE_SMOKE_ARCHS = ("qwen3-4b", "paligemma-3b", "seamless-m4t-large-v2",
+                     "deepseek-v2-236b", "jamba-v0.1-52b")
+ROUTED_SMOKE = ("deepseek-v2-236b", "jamba-v0.1-52b")
+PLACE_SMOKE_SEED, PLACE_SMOKE_S, PLACE_SMOKE_SMAX = 29, 16, 24
+PLACE_SMOKE_ENC, PLACE_SMOKE_STEPS = 12, 2
 
 
 def _spec_bytes(model, mesh, dp_axes) -> int:
@@ -4551,6 +4650,218 @@ def _shard_digests(params: dict, cfg, world: int) -> list:
             shards.append(t)
         out.append(_digest(shards))
     return out
+
+
+def _fill_seq_cache(cache, chunk: int, seed: int) -> None:
+    """Seeded N(0, 1) bf16 draws in every K/V position this rank holds,
+    chunk by chunk: chunk c of layer l of leaf j on seed (seed, j, l, c)
+    with c the chunk's global index, so a rank holding any range of the
+    positions holds the values the whole cache holds there."""
+    import torch
+    from repro_torch.models import placement as P
+    for j, key in enumerate(("k", "v")):
+        sh = P.seq_shard(cache[key])
+        t = P.local(cache[key])
+        first = (sh.start if sh else 0) // chunk
+        gen = torch.Generator(device=t.device)
+        for layer in range(t.shape[0]):
+            for c in range(t.shape[2] // chunk):
+                gen.manual_seed(seed + ((j * t.shape[0] + layer) << 24)
+                                + first + c)
+                t[layer, :, c * chunk:(c + 1) * chunk].normal_(generator=gen)
+
+
+def long_context_rank(world: int, dev, device_type: str, out: dict) -> dict:
+    """The placement phase's long-context arm in one rank: OLMo-1B cut to
+    PLACE_LC_LAYERS at batch 1 over PLACE_LC_S positions on (world, 1),
+    its cache filled with seeded draws (no prefill), two decode steps;
+    the logits go to ``out``, the bytes held and exchanged to the
+    returned record."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.launch.hlo_cost import CostCounter
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models import placement as P
+    from repro_torch.testing.long_context import attention_outputs
+
+    card = device_type == "cuda"
+    t_arm = time.perf_counter()
+    cfg = (get_arch(LC_ARCH) if card else smoke_config(LC_ARCH)).scaled(
+        n_layers=PLACE_LC_LAYERS)
+    smax = PLACE_LC_S[device_type]
+    api = build_model(cfg, mesh=make_host_mesh(world, 1,
+                                               device_type=device_type),
+                      device=dev)
+    params = api.init(torch.Generator(device=dev).manual_seed(LC_SEED))
+    before = torch.cuda.memory_allocated(dev) if card else 0
+    cache = api.init_cache(1, smax)
+    held = (torch.cuda.memory_allocated(dev) if card else 0) - before
+    t0 = time.perf_counter()
+    _fill_seq_cache(cache, PLACE_LC_CHUNK[device_type], LC_SEED)
+    if card:
+        torch.cuda.synchronize(dev)
+    fill_s = time.perf_counter() - t0
+    toks = np.random.default_rng(LC_SEED).integers(0, cfg.vocab, (2, 1))
+    step_s, attention, exchange = [], [], []
+    with torch.no_grad():
+        for t, n in enumerate(PLACE_LC_STEPS[device_type]):
+            t0 = time.perf_counter()
+            with CostCounter() as c, attention_outputs() as attn:
+                logits, cache = api.decode_step(params, cache, toks[t], n)
+            out[f"lc/decode{t}"] = P.full(logits).float().cpu().numpy()
+            out[f"lc/attn{t}"] = torch.stack(attn).numpy()
+            step_s.append(time.perf_counter() - t0)
+            # at batch 1 the attention's are the step's only all-reduces
+            exchange.append(c.totals()["collectives"])
+            attention.append(exchange[-1].get("all-reduce", 0.0))
+            if world == 1 and t == 0:
+                # the same step over a view of the first half of the
+                # positions (every valid one): one card's own spread
+                view = P.Rows(api.mesh, api.dp_axes, 1).cache(
+                    {k: P.local(cache[k])[:, :, :smax // 2]
+                     for k in ("k", "v")})
+                logits, _ = api.decode_step(params, view, toks[t], n)
+                out["lc/decode0_view"] = P.full(logits).float().cpu().numpy()
+        if world > 1:
+            # the control: the last step again (its writes are the
+            # step's own at layer 0, and nothing reads the cache after)
+            # with rank 1's terms of the merge lost
+            with attention_outputs(
+                    zero_terms=torch.distributed.get_rank() == 1) as attn:
+                api.decode_step(params, cache, toks[-1], n)
+            out["lc/attn_control"] = torch.stack(attn).numpy()
+    sh = P.seq_shard(cache["k"])
+    # the latency of one of the merge's small all-reduces (B x H f32)
+    # here, through gloo's host staging: what merge_softmax's third one
+    # costs a layer and step on this card
+    small = torch.zeros(1, cfg.n_heads, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(PLACE_LC_REDUCES):
+        P.all_reduce(small, api.mesh, api.dp_axes)
+    small_reduce_s = (time.perf_counter() - t0) / PLACE_LC_REDUCES
+    H, hd = cfg.n_heads, cfg.hd
+    rec = {"lc_held_bytes": held,
+           "lc_local_bytes": _local_bytes(cache.values()),
+           "lc_whole_bytes": 2 * cfg.n_layers * smax * cfg.n_kv_heads * hd * 2,
+           "lc_seq_range": [sh.start, sh.size] if sh else [0, smax],
+           # per layer: the max and the sum (B x H f32 each) and the
+           # weighted values (B x H x hd f32), whatever the length
+           "lc_attention_formula": (cfg.n_layers * H * (hd + 2) * 4
+                                    if sh else 0),
+           "lc_attention_bytes": attention, "lc_exchange": exchange,
+           "lc_fill_s": fill_s, "lc_step_s": step_s,
+           "lc_small_all_reduce_s": small_reduce_s,
+           "lc_peak_bytes": (torch.cuda.max_memory_allocated(dev) if card
+                             else 0)}
+    del cache, params, logits
+    if card:
+        torch.cuda.empty_cache()
+    rec["lc_s"] = time.perf_counter() - t_arm
+    return rec
+
+
+def _smoke_prefill(api, params, batch) -> tuple:
+    """A prefill of ``batch``: (its global logits on the host, its
+    cache)."""
+    from repro_torch.models import placement as P
+    logits, pc = api.prefill(params, batch)
+    return P.full(logits).float().cpu().numpy(), pc
+
+
+def _smoke_decode(api, params, cfg, pc, toks) -> list:
+    """A prefill's cache ``pc`` grown to PLACE_SMOKE_SMAX positions
+    (``testing.long_context.copy_prefix``: on a mesh the two lengths
+    split their positions differently), and a decode step a row of
+    ``toks``: each step's global logits on the host."""
+    from repro_torch.models import placement as P
+    from repro_torch.testing.long_context import copy_prefix
+    kw = {"enc_len": PLACE_SMOKE_ENC} if cfg.family == "encdec" else {}
+    cache = api.init_cache(1, PLACE_SMOKE_SMAX, **kw)
+    for group in cache:
+        if group == "ssm":
+            for dst, src in zip(cache["ssm"], pc["ssm"]):
+                P.local(dst).copy_(P.local(src))
+        elif isinstance(cache[group], dict):
+            for key in cache[group]:
+                copy_prefix(cache[group][key], pc[group][key])
+        else:
+            copy_prefix(cache[group], pc[group])
+    got = []
+    for t, tok in enumerate(toks):
+        logits, cache = api.decode_step(params, cache, tok,
+                                        PLACE_SMOKE_S + 1 + t)
+        got.append(P.full(logits).float().cpu().numpy())
+    return got
+
+
+def smoke_seq_rank(world: int, dev, device_type: str, out: dict) -> dict:
+    """Every KV family's smoke config at batch 1, mesh-free and on
+    (world, 1) (its cache split on the sequence axis at world 2): both
+    runs' logits go to ``out``, the routing moves to the returned
+    record.  The mesh-free model's routing is imposed (C11) on (2, 1),
+    whose MoE layers take the mesh-free dropless path at batch 1.  On
+    (1, 1) they take the expert-parallel branch, whose capacity path
+    drops tokens in a 16-token prefill by the reference's design, so no
+    routing can make that prefill the dropless one: (1, 1) runs its own
+    prefill (its logits reported), then decodes from the mesh-free
+    prefill's cache with the mesh-free decode steps' routing imposed on
+    its router (at one token the capacity path keeps every choice)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.testing.routing import routing
+
+    t_arm = time.perf_counter()
+    mesh = make_host_mesh(world, 1, device_type=device_type)
+    moved = {}
+    with torch.no_grad():
+        for i, arch in enumerate(PLACE_SMOKE_ARCHS):
+            cfg = smoke_config(arch)
+            rng = np.random.default_rng(PLACE_SMOKE_SEED + i)
+            batch = {"tokens": rng.integers(
+                0, cfg.vocab, (1, PLACE_SMOKE_S - cfg.prefix_len))}
+            if cfg.prefix_len:
+                batch["patches"] = rng.standard_normal(
+                    (1, cfg.prefix_len, cfg.d_model)).astype(np.float32)
+            if cfg.family == "encdec":
+                batch["src_embeds"] = rng.standard_normal(
+                    (1, PLACE_SMOKE_ENC, cfg.d_model)).astype(np.float32)
+            toks = rng.integers(0, cfg.vocab, (PLACE_SMOKE_STEPS, 1))
+            got = {}
+            for label, m in (("one", None), ("mesh", mesh)):
+                api = build_model(cfg, mesh=m, device=dev)
+                params = api.init(torch.Generator(device=dev).manual_seed(
+                    PLACE_SMOKE_SEED + i))
+                if m is None:
+                    with routing() as r:
+                        first, pc = _smoke_prefill(api, params, batch)
+                        got[label] = [first] + _smoke_decode(
+                            api, params, cfg, pc, toks)
+                    calls, one_pc = r["calls"], pc
+                elif world > 1 or arch not in ROUTED_SMOKE:
+                    with routing(calls if world > 1 else None) as r:
+                        first, pc = _smoke_prefill(api, params, batch)
+                        got[label] = [first] + _smoke_decode(
+                            api, params, cfg, pc, toks)
+                else:
+                    first, _ = _smoke_prefill(api, params, batch)
+                    # one router call a MoE layer a pass on the dropless
+                    # path; the capacity path's token choice left alone
+                    n = len(calls) // (1 + PLACE_SMOKE_STEPS)
+                    with routing([c for call in calls[n:]
+                                  for c in (call, None)]) as r:
+                        got[label] = [first] + _smoke_decode(
+                            api, params, cfg, one_pc, toks)
+            for label, steps in got.items():
+                for t, logits in enumerate(steps):
+                    out[f"smoke/{arch}/{label}{t}"] = logits
+            moved[arch] = r["moved"]
+            del one_pc, pc
+    return {"smoke_moved": moved, "smoke_s": time.perf_counter() - t_arm}
 
 
 def placement_rank(outdir: str, backend: str, device_type: str = "cuda"
@@ -4693,7 +5004,15 @@ def placement_rank(outdir: str, backend: str, device_type: str = "cuda"
                        tcfg, 2),
                    restored_placed=all(P.is_placed(t)
                                        for t in onto.params.values()))
+        del onto
     rec["train_s"] = time.perf_counter() - t_arm
+    del state, step, api
+    if card:
+        torch.cuda.empty_cache()
+
+    # --- long-context arm (A9 (e)) and the KV families' smoke configs
+    rec.update(long_context_rank(world, dev, device_type, out))
+    rec.update(smoke_seq_rank(world, dev, device_type, out))
     rec["foreign"] = sorted(m for m in sys.modules if m == "jax" or
                             m.startswith(("jax.", "repro.")))
     out["rec"] = np.asarray(json.dumps(rec))
@@ -4793,6 +5112,51 @@ def phase_placement(dev):
         nccl_step_s=n0["rec"]["step_s"], save_s=g0["rec"]["save_s"],
         restore_s=n0["rec"]["restore_s"],
         restored_step=n0["rec"]["restored_step"])
+    # (g) long context: each rank's half of the cache, the logits against
+    # (1, 1)'s, the attention's exchange against its formula
+    steps = PLACE_LC_STEPS[device_type]
+    rec["long_context"] = {
+        "arch": LC_ARCH, "n_layers": PLACE_LC_LAYERS, "batch": 1,
+        "positions": PLACE_LC_S[device_type], "cur_len": list(steps),
+        "vs_nccl": [rel_gap_np(n0[f"lc/decode{t}"], g0[f"lc/decode{t}"])
+                    for t in range(len(steps))],
+        "vs_nccl_same_positions": rel_gap_np(n0["lc/decode0_view"],
+                                             g0["lc/decode0"]),
+        "nccl_self_spread": rel_gap_np(n0["lc/decode0"],
+                                       n0["lc/decode0_view"]),
+        # each layer's f32 attention output against (1, 1)'s, a list a
+        # step a rank, and the control's (rank 1's terms lost)
+        "attn_vs_nccl": [[[rel_gap_np(n0[f"lc/attn{t}"][i],
+                                      g[f"lc/attn{t}"][i])
+                           for i in range(PLACE_LC_LAYERS)]
+                          for t in range(len(steps))] for g in gloo],
+        "attn_control_vs_nccl": [[rel_gap_np(n0[f"lc/attn{len(steps) - 1}"][i],
+                                             g["lc/attn_control"][i])
+                                  for i in range(PLACE_LC_LAYERS)]
+                                 for g in gloo],
+        "attn_tol": [PLACE_LC_ATTN_TOL] + [LM_TOL] * (PLACE_LC_LAYERS - 1),
+        "ranks": [{k: g["rec"][k] for k in (
+            "lc_held_bytes", "lc_local_bytes", "lc_whole_bytes",
+            "lc_seq_range", "lc_attention_bytes", "lc_attention_formula",
+            "lc_exchange", "lc_fill_s", "lc_step_s", "lc_small_all_reduce_s",
+            "lc_peak_bytes", "lc_s")} for g in gloo],
+        "nccl": {k: n0["rec"][k] for k in (
+            "lc_held_bytes", "lc_local_bytes", "lc_attention_bytes",
+            "lc_step_s", "lc_peak_bytes", "lc_s")}}
+    # (h) every KV family's smoke config at batch 1 on (2, 1) against the
+    # mesh-free model and against (1, 1), a gap a step (the prefill first)
+    rec["smoke_seq"] = {
+        arch: {"vs_one_card": max(
+                   rel_gap_np(g0[f"smoke/{arch}/one{t}"],
+                              g0[f"smoke/{arch}/mesh{t}"])
+                   for t in range(PLACE_SMOKE_STEPS + 1)),
+               "vs_nccl": [rel_gap_np(n0[f"smoke/{arch}/mesh{t}"],
+                                      g0[f"smoke/{arch}/mesh{t}"])
+                           for t in range(PLACE_SMOKE_STEPS + 1)],
+               "moved": [g["rec"]["smoke_moved"][arch] for g in gloo],
+               "nccl_moved": n0["rec"]["smoke_moved"][arch]}
+        for arch in PLACE_SMOKE_ARCHS}
+    rec["smoke_seq_s"] = [g["rec"]["smoke_s"] for g in gloo]
     rec["phase_s"] = time.perf_counter() - t_phase
     log("placement", **rec)
     ep = rec["ep"]
@@ -4829,6 +5193,52 @@ def phase_placement(dev):
           == [g["rec"]["saved_digest"] for g in gloo],
           "placement: the masters restored onto (1, 1) are not, shard for "
           "shard, those each rank of (2, 1) saved")
+    lc = rec["long_context"]
+    lc["target"] = PLACE_LC_TARGET
+    lc["target_met"] = max(lc["vs_nccl"]) < PLACE_LC_TARGET
+    log("placement_long_context", **lc)
+    check(max(lc["vs_nccl"] + [lc["vs_nccl_same_positions"]]) < LM_TOL,
+          f"placement: long-context logits on (2, 1) differ from (1, 1)'s "
+          f"({lc['vs_nccl']})")
+    limits = lc["attn_tol"]
+    for r in lc["attn_vs_nccl"]:
+        check(len(r) == len(steps) and all(
+                  len(step) == len(limits)
+                  and all(x < tol for x, tol in zip(step, limits))
+                  for step in r),
+              f"placement: a layer's merged attention on (2, 1) differs "
+              f"from (1, 1)'s ({lc['attn_vs_nccl']} against {limits})")
+    for r in lc["attn_control_vs_nccl"]:
+        check(all(x > tol for x, tol in zip(r, limits)),
+              f"placement: the control (rank 1's softmax terms lost) "
+              f"passes the attention check ({lc['attn_control_vs_nccl']}):"
+              f" it cannot see the merge")
+    for r in lc["ranks"]:
+        half = r["lc_whole_bytes"] / 2
+        check(r["lc_local_bytes"] == half,
+              f"placement: a rank's long-context cache is "
+              f"{r['lc_local_bytes']} B, not half of {r['lc_whole_bytes']}")
+        if card:
+            check(abs(r["lc_held_bytes"] - half) <= PLACE_BYTES_SLACK * half,
+                  f"placement: a rank holds {r['lc_held_bytes']} B of "
+                  f"long-context cache against {half}")
+        check(all(b == r["lc_attention_formula"] > 0
+                  for b in r["lc_attention_bytes"]),
+              f"placement: the attention exchanged {r['lc_attention_bytes']}"
+              f" B a step, not {r['lc_attention_formula']} (O(B H hd))")
+        check(r["lc_exchange"][0] == r["lc_exchange"][1],
+              "placement: the two long-context steps exchanged different "
+              "bytes")
+    for arch, g in rec["smoke_seq"].items():
+        check(g["vs_one_card"] < LM_TOL,
+              f"placement: {arch} at batch 1 on (2, 1) differs from the "
+              f"mesh-free model ({g['vs_one_card']})")
+        # a routed family's (1, 1) prefill drops tokens (its capacity
+        # path): reported; its decode steps start from the same cache
+        held = g["vs_nccl"][1:] if arch in ROUTED_SMOKE else g["vs_nccl"]
+        check(max(held) < LM_TOL,
+              f"placement: {arch} at batch 1 on (2, 1) differs from (1, 1) "
+              f"({g['vs_nccl']})")
     check(all(o["rec"]["foreign"] == [] for o in gloo + one),
           "placement: a rank loaded jax or the reference")
     return rec

@@ -368,7 +368,7 @@ class DistributedTopK:
         if packed.is_cuda:
             torch.cuda.synchronize(packed.device)
         t1 = time.perf_counter()
-        if not on_device:
+        if packed.is_cuda and not on_device:
             packed = packed.cpu()
         parts = [torch.empty_like(packed)
                  for _ in range(dist.get_world_size())]

@@ -3,7 +3,10 @@
 Counterpart of the reference package's ``models/attention.py``.  The
 decode path writes the new token's K/V into the caller's preallocated
 cache in place (``index_put_`` at each slot's ``cur_len - 1``) and
-returns that same cache.
+returns that same cache.  On a cache split on its sequence axis over a
+mesh (``placement.SeqShard``) the rank whose range holds a slot's
+position writes it, each rank attends over its positions, and the
+ranks' softmax terms are merged.
 """
 from __future__ import annotations
 
@@ -11,7 +14,8 @@ import torch
 
 from repro_torch.models.layers import (CDTYPE, _weight, apply_rope,
                                        blockwise_attention, decode_attention,
-                                       dense_init, rms_norm, rope_table)
+                                       decode_attention_sharded, dense_init,
+                                       rms_norm, rope_table, write_index)
 
 
 class Attention(torch.nn.Module):
@@ -73,22 +77,24 @@ def attention_forward(params, cfg, x, *, kind="causal", prefix_len=0,
 
 
 def attention_decode(params, cfg, x, cache, cur_len, *, cross=False,
-                     drop=False):
+                     drop=False, seq=None):
     """One-token decode.  ``cache`` = {'k','v'} (B, Smax, Hkv, hd) for self-
     attention (written in place at cur_len-1) or static cross K/V
     (read-only).  ``cur_len`` is a scalar or a (B,) int tensor on x's
     device.  With ``drop``, a slot whose position cur_len-1 lies past
     Smax writes nothing and attends over all Smax positions, as the
-    reference's out-of-range scatter does."""
+    reference's out-of-range scatter does.  ``seq`` (a
+    ``placement.SeqShard``) says the cache holds this rank's range of
+    the positions only."""
     B = x.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     xc = x.to(CDTYPE)
     q = (xc @ params.wq).reshape(B, 1, H, hd)
     if cfg.qk_norm:
         q = rms_norm(q, params.q_gamma)
+    k_cache, v_cache = cache["k"], cache["v"]
     if cross:
-        k_cache, v_cache = cache["k"], cache["v"]
-        out = decode_attention(q, k_cache, v_cache, k_cache.shape[1])
+        n = k_cache.shape[1] if seq is None else seq.smax
     else:
         idx = torch.as_tensor(cur_len, device=x.device).long().expand(B) - 1
         pos = idx[:, None]
@@ -100,20 +106,21 @@ def attention_decode(params, cfg, x, cache, cur_len, *, cross=False,
         k = apply_rope(k, pos, cfg.rope_theta, params.freqs)
         # write at per-slot positions (cur_len may be scalar or (B,))
         rows = torch.arange(B, device=x.device)
-        k_cache, v_cache = cache["k"], cache["v"]
         k_new, v_new = k[:, 0].to(k_cache.dtype), v[:, 0].to(v_cache.dtype)
-        if drop:
-            # a slot past the cache writes back what its last position
+        idx, keep = write_index(idx, k_cache.shape[1], drop, seq)
+        if keep is not None:
+            # a slot that writes nothing here writes back what its row
             # holds, with no host read of the lengths (they may be a
             # device tensor)
-            smax = k_cache.shape[1]
-            inside = (idx < smax)[:, None, None]
-            idx = idx.clamp(max=smax - 1)
-            k_new = torch.where(inside, k_new, k_cache[rows, idx])
-            v_new = torch.where(inside, v_new, v_cache[rows, idx])
+            k_new = torch.where(keep[:, None, None], k_new, k_cache[rows, idx])
+            v_new = torch.where(keep[:, None, None], v_new, v_cache[rows, idx])
         k_cache.index_put_((rows, idx), k_new)
         v_cache.index_put_((rows, idx), v_new)
-        out = decode_attention(q, k_cache, v_cache, cur_len)
+        n = cur_len
+    if seq is None:
+        out = decode_attention(q, k_cache, v_cache, n)
+    else:
+        out = decode_attention_sharded(q, k_cache, v_cache, n, seq)
     out = (out.reshape(B, 1, -1).to(CDTYPE) @ params.wo).to(x.dtype)
     return out, cache
 

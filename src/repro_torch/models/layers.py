@@ -370,6 +370,41 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, scale=None):
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def decode_attention_sharded(q, k_cache, v_cache, cur_len, seq, *,
+                             scale=None):
+    """``decode_attention`` over a cache that holds a range of the
+    positions, global ``seq.start`` on (``seq`` a
+    ``placement.SeqShard``): this rank's scores, valid below ``cur_len``,
+    go through ``seq.softmax_mix``, which merges every rank's softmax and
+    weighted values."""
+    B, _, H, hd = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
+    scale = scale if scale is not None else 1.0 / np.sqrt(hd)
+    s = grouped_scores(q.reshape(B, Hkv, G, hd), k_cache) * scale
+    n = torch.as_tensor(cur_len, device=q.device).reshape(-1, 1).expand(B, 1)
+    valid = (seq.start + torch.arange(S, device=q.device))[None, :] < n
+    out = seq.softmax_mix(s, valid[:, None, None, :],
+                          lambda p: grouped_mix(p.to(v_cache.dtype), v_cache))
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def write_index(idx, rows_held: int, drop: bool, seq):
+    """(the local row each slot writes, and None or a (B,) mask of the
+    slots that really write there) for global positions ``idx``: past
+    the cache a slot writes nothing with ``drop``; on a sequence shard
+    only the rank whose range holds ``idx`` writes it."""
+    if seq is None:
+        if not drop:
+            return idx, None
+        return idx.clamp(max=rows_held - 1), idx < rows_held
+    local = idx - seq.start
+    keep = (local >= 0) & (local < rows_held)
+    if drop:
+        keep = keep & (idx < seq.smax)
+    return local.clamp(0, rows_held - 1), keep
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------

@@ -40,9 +40,13 @@ rank; a rank computes its DP share of the rows (all of them when the DP
 ranks do not divide the batch), ranks along ``"model"`` the same rows.
 ``loss`` is the global batch's (the local sums and the mask counts
 summed over the DP ranks); ``prefill`` and ``decode_step`` return the
-logits and the caches as ``DTensor``s of the global batch, the batch
-over DP (a cache that would be sharded on its sequence axis is ROADMAP
-A9 (e)); MoE layers take ``models.moe``'s expert-parallel branch.
+logits and the caches as ``DTensor``s of the global batch, placed by
+``cache_specs``: the batch over DP, or, for a batch the DP ranks do not
+divide, the sequence axis over DP (long-context decode: each rank holds
+a range of positions, writes a slot's K/V when its range holds the
+position, attends over its range, and the ranks' softmax terms are
+merged, ``placement.SeqShard``); MoE layers take
+``models.moe``'s expert-parallel branch.
 
 ``decode_step`` refuses a ``cur_len`` outside [1, Smax] by default.  The
 serving engine feeds a prompt of Smax tokens or more through it, as the
@@ -300,6 +304,14 @@ def _place_cache(rows, cache, **kw):
     return cache if rows is None else rows.cache(cache, **kw)
 
 
+def _zeros(rows, shape, device, **kw):
+    """A zero bf16 cache leaf of the global ``shape``: on a mesh this
+    rank's part, placed by ``cache_specs``."""
+    if rows is None:
+        return torch.zeros(shape, dtype=CDTYPE, device=device)
+    return rows.zeros(shape, CDTYPE, device, **kw)
+
+
 def _local(mesh, cache):
     return cache if mesh is None else P.local_tree(cache)
 
@@ -347,10 +359,10 @@ def _dense_block(p, cfg, h, *, kind="causal", prefix_len=0):
     return h
 
 
-def _dense_block_decode(p, cfg, h, cache, cur_len, *, drop=False):
+def _dense_block_decode(p, cfg, h, cache, cur_len, *, drop=False, seq=None):
     _, apply_n = L.make_norm(cfg)
     a, cache = A.attention_decode(p.attn, cfg, apply_n(p.n1, h),
-                                  cache, cur_len, drop=drop)
+                                  cache, cur_len, drop=drop, seq=seq)
     h = h + a
     h = h + L.mlp(p.mlp, cfg, apply_n(p.n2, h))
     return h, cache
@@ -429,8 +441,6 @@ def build_dense(cfg: ArchConfig, mesh=None, dp_axes=("data",),
         with G(params, recurse=False):
             h = _inputs_to_h(params, batch, rows)
             S = h.shape[1]
-            if rows is not None:
-                rows.check_seq(S)
             for lp in params.layers:
                 with G(lp):
                     a, (k, v) = A.attention_forward(
@@ -447,11 +457,8 @@ def build_dense(cfg: ArchConfig, mesh=None, dp_axes=("data",),
 
     def init_cache(batch, max_len):
         rows = _rows(mesh, dp_axes, batch)
-        shape = (cfg.n_layers, _local_batch(rows, batch), max_len,
-                 cfg.n_kv_heads, cfg.hd)
-        return _place_cache(rows, {
-            "k": torch.zeros(shape, dtype=CDTYPE, device=dev),
-            "v": torch.zeros(shape, dtype=CDTYPE, device=dev)})
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        return {"k": _zeros(rows, shape, dev), "v": _zeros(rows, shape, dev)}
 
     def decode_step(params, cache, token, cur_len, *, past_cache="refuse"):
         """One token a slot: ``token`` (B,), ``cur_len`` a scalar or (B,)
@@ -460,8 +467,8 @@ def build_dense(cfg: ArchConfig, mesh=None, dp_axes=("data",),
         logits.  ``past_cache="drop"`` serves a length past the cache as
         the reference does (module docstring)."""
         rows = _rows(mesh, dp_axes, token)
-        c = _local(mesh, cache)
-        cl, drop = _step_lengths(_lens(rows, cur_len), c["k"].shape[2],
+        c, seq = _local(mesh, cache), P.seq_shard(cache["k"])
+        cl, drop = _step_lengths(_lens(rows, cur_len), cache["k"].shape[2],
                                  past_cache, dev)
         with G(params, recurse=False):
             h = params.embed[_take(rows, token, dev).long()][:, None, :]
@@ -469,7 +476,7 @@ def build_dense(cfg: ArchConfig, mesh=None, dp_axes=("data",),
                 with G(lp):
                     h, _ = _dense_block_decode(
                         lp, cfg, h, {"k": c["k"][i], "v": c["v"][i]}, cl,
-                        drop=drop)
+                        drop=drop, seq=seq)
                 h = _c(h)
             h = _final_norm(params, cfg, h)
             logits = _head(params, cfg, h)[:, 0]
@@ -689,9 +696,6 @@ def build_encdec(cfg: ArchConfig, mesh=None, dp_axes=("data",),
         with G(params, recurse=False):
             mem = encode(params, batch["src_embeds"], rows)
             h = params.embed[_take(rows, batch["tokens"], dev).long()]
-            if rows is not None:
-                rows.check_seq(h.shape[1])
-                rows.check_seq(mem.shape[1])
             for lp in params.dec:
                 with G(lp):
                     a, (k, v) = A.attention_forward(
@@ -719,13 +723,10 @@ def build_encdec(cfg: ArchConfig, mesh=None, dp_axes=("data",),
         rows = _rows(mesh, dp_axes, batch)
 
         def zeros(n):
-            return torch.zeros((cfg.n_layers, _local_batch(rows, batch), n,
-                                cfg.n_kv_heads, cfg.hd), dtype=CDTYPE,
-                               device=dev)
-        return _place_cache(rows, {"self": {"k": zeros(max_len),
-                                            "v": zeros(max_len)},
-                                   "cross": {"k": zeros(enc_len),
-                                             "v": zeros(enc_len)}})
+            return _zeros(rows, (cfg.n_layers, batch, n, cfg.n_kv_heads,
+                                 cfg.hd), dev)
+        return {"self": {"k": zeros(max_len), "v": zeros(max_len)},
+                "cross": {"k": zeros(enc_len), "v": zeros(enc_len)}}
 
     def decode_step(params, cache, token, cur_len, *, past_cache="refuse"):
         """One token a slot, as the dense ``decode_step``: the self cache
@@ -733,8 +734,10 @@ def build_encdec(cfg: ArchConfig, mesh=None, dp_axes=("data",),
         rows = _rows(mesh, dp_axes, token)
         c = _local(mesh, cache)
         sc, xc = c["self"], c["cross"]
-        cl, drop = _step_lengths(_lens(rows, cur_len), sc["k"].shape[2],
-                                 past_cache, dev)
+        seq = P.seq_shard(cache["self"]["k"])
+        xseq = P.seq_shard(cache["cross"]["k"])
+        cl, drop = _step_lengths(_lens(rows, cur_len),
+                                 cache["self"]["k"].shape[2], past_cache, dev)
         with G(params, recurse=False):
             h = params.embed[_take(rows, token, dev).long()][:, None, :]
             for i, lp in enumerate(params.dec):
@@ -742,11 +745,12 @@ def build_encdec(cfg: ArchConfig, mesh=None, dp_axes=("data",),
                     a, _ = A.attention_decode(
                         lp.attn, cfg, L.rms_norm(h, lp.n1),
                         {"k": sc["k"][i], "v": sc["v"][i]}, cl,
-                        drop=drop)
+                        drop=drop, seq=seq)
                     h = h + a
                     x, _ = A.attention_decode(
                         lp.xattn, cfg, L.rms_norm(h, lp.nx),
-                        {"k": xc["k"][i], "v": xc["v"][i]}, cl, cross=True)
+                        {"k": xc["k"][i], "v": xc["v"][i]}, cl, cross=True,
+                        seq=xseq)
                     h = h + x
                     h = h + L.mlp(lp.mlp, cfg, L.rms_norm(h, lp.n2))
             h = L.rms_norm(h, params.final_norm)
@@ -792,9 +796,10 @@ def _mla_block(p, cfg, h, rows=None):
     return h + f, aux, kv
 
 
-def _mla_block_decode(p, cfg, h, cache, cur_len, *, drop=False, rows=None):
+def _mla_block_decode(p, cfg, h, cache, cur_len, *, drop=False, rows=None,
+                      seq=None):
     a, _ = MLA.mla_decode(p.attn, cfg, L.rms_norm(h, p.n1), cache, cur_len,
-                          drop=drop)
+                          drop=drop, seq=seq)
     h = h + a
     f, _ = _mla_ffn(p, cfg, h, rows)
     return h + f
@@ -883,21 +888,19 @@ def build_moe(cfg: ArchConfig, mesh=None, dp_axes=("data",),
                 total = total + 0.3 * mtp_ce
         return total, metrics
 
-    def _zeros(batch, max_len):
+    def _latent_zeros(rows, batch, max_len):
         m = cfg.mla
 
         def mk(n):
-            return {"c_kv": torch.zeros((n, batch, max_len, m.kv_lora),
-                                        dtype=CDTYPE, device=dev),
-                    "k_rope": torch.zeros((n, batch, max_len, m.rope_dim),
-                                          dtype=CDTYPE, device=dev)}
+            return {"c_kv": _zeros(rows, (n, batch, max_len, m.kv_lora), dev),
+                    "k_rope": _zeros(rows, (n, batch, max_len, m.rope_dim),
+                                     dev)}
         return {"dense": mk(nd), "moe": mk(nm)}
 
     def init_cache(batch, max_len):
         """Zero latent caches of both stacks: ``{"dense": {"c_kv",
         "k_rope"}, "moe": {...}}``, each (n, B, max_len, ·) bf16."""
-        rows = _rows(mesh, dp_axes, batch)
-        return _place_cache(rows, _zeros(_local_batch(rows, batch), max_len))
+        return _latent_zeros(_rows(mesh, dp_axes, batch), batch, max_len)
 
     def prefill(params, batch):
         """The full forward pass over ``batch["tokens"]`` (B, S): the last
@@ -907,9 +910,7 @@ def build_moe(cfg: ArchConfig, mesh=None, dp_axes=("data",),
         rows = _rows(mesh, dp_axes, batch["tokens"])
         with G(params, recurse=False):
             h = params.embed[_take(rows, batch["tokens"], dev).long()]
-            if rows is not None:
-                rows.check_seq(h.shape[1])
-            cache = _zeros(h.shape[0], h.shape[1])
+            cache = _latent_zeros(None, h.shape[0], h.shape[1])
             for name, layers in (("dense", params.dense_layers),
                                  ("moe", params.moe_layers)):
                 for i, lp in enumerate(layers):
@@ -927,8 +928,10 @@ def build_moe(cfg: ArchConfig, mesh=None, dp_axes=("data",),
         MLA decode writes each layer's latent cache in place."""
         rows = _rows(mesh, dp_axes, token)
         lc = _local(mesh, cache)
+        seq = P.seq_shard(cache["moe"]["c_kv"])
         cl, drop = _step_lengths(_lens(rows, cur_len),
-                                 lc["moe"]["c_kv"].shape[2], past_cache, dev)
+                                 cache["moe"]["c_kv"].shape[2], past_cache,
+                                 dev)
         with G(params, recurse=False):
             h = params.embed[_take(rows, token, dev).long()][:, None, :]
             for name, layers in (("dense", params.dense_layers),
@@ -939,7 +942,7 @@ def build_moe(cfg: ArchConfig, mesh=None, dp_axes=("data",),
                         h = _c(_mla_block_decode(
                             lp, cfg, h, {"c_kv": c["c_kv"][i],
                                          "k_rope": c["k_rope"][i]}, cl,
-                            drop=drop, rows=rows))
+                            drop=drop, rows=rows, seq=seq))
             h = L.rms_norm(h, params.final_norm)
             logits = _head(params, cfg, h)[:, 0]
         return _out(rows, logits), cache
@@ -1107,8 +1110,6 @@ def build_hybrid(cfg: ArchConfig, mesh=None, dp_axes=("data",),
         kvs, hs, convs = [], [], []
         with gather(params, recurse=False):
             h = params.embed[_take(rows, batch["tokens"], dev).long()]
-            if rows is not None:
-                rows.check_seq(h.shape[1])
             for gp in params.groups:
                 states = []
                 with gather(gp):
@@ -1130,12 +1131,13 @@ def build_hybrid(cfg: ArchConfig, mesh=None, dp_axes=("data",),
         n_mamba, B, ...), h f32 and conv bf16."""
         rows = _rows(mesh, dp_axes, batch)
         b = _local_batch(rows, batch)
-        kv = (G, b, max_len, cfg.n_kv_heads, cfg.hd)
+        kv = (G, batch, max_len, cfg.n_kv_heads, cfg.hd)
         h0, c0 = M.init_mamba_state(cfg, b, CDTYPE, device=dev)
-        return _place(rows, {"k": torch.zeros(kv, dtype=CDTYPE, device=dev),
-                             "v": torch.zeros(kv, dtype=CDTYPE, device=dev)},
-                      (h0.expand((G, n_mamba) + h0.shape).clone(),
-                       c0.expand((G, n_mamba) + c0.shape).clone()))
+        return {"kv": {"k": _zeros(rows, kv, dev), "v": _zeros(rows, kv, dev)},
+                "ssm": _place_cache(rows, (
+                    h0.expand((G, n_mamba) + h0.shape).clone(),
+                    c0.expand((G, n_mamba) + c0.shape).clone()),
+                    batch_axis=2, seq_axis=None)}
 
     def decode_step(params, cache, token, cur_len, *, past_cache="refuse"):
         """One token a slot: the attention layers write their K/V in place
@@ -1147,8 +1149,9 @@ def build_hybrid(cfg: ArchConfig, mesh=None, dp_axes=("data",),
         lc = _local(mesh, cache)
         kc, vc = lc["kv"]["k"], lc["kv"]["v"]
         hs, convs = lc["ssm"]
-        cl, drop = _step_lengths(_lens(rows, cur_len), kc.shape[2],
-                                 past_cache, dev)
+        seq = P.seq_shard(cache["kv"]["k"])
+        cl, drop = _step_lengths(_lens(rows, cur_len),
+                                 cache["kv"]["k"].shape[2], past_cache, dev)
         with gather(params, recurse=False):
             h = params.embed[_take(rows, token, dev).long()][:, None, :]
             for g, gp in enumerate(params.groups):
@@ -1157,7 +1160,8 @@ def build_hybrid(cfg: ArchConfig, mesh=None, dp_axes=("data",),
                         if i == off:
                             a, _ = A.attention_decode(
                                 gp.attn.attn, cfg, L.rms_norm(h, gp.attn.n1),
-                                {"k": kc[g], "v": vc[g]}, cl, drop=drop)
+                                {"k": kc[g], "v": vc[g]}, cl, drop=drop,
+                                seq=seq)
                         else:
                             mi = _mamba_index(cfg, i)
                             lp = gp.mamba[mi]

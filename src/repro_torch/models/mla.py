@@ -21,7 +21,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (CDTYPE, _weight, apply_rope,
                                        blockwise_attention, bmm_f32,
-                                       dense_init, rms_norm, rope_table)
+                                       dense_init, rms_norm, rope_table,
+                                       write_index)
 
 
 class MLA(torch.nn.Module):
@@ -96,13 +97,16 @@ def mla_forward(params, cfg, x):
     return out, (c_kv, k_rope)
 
 
-def mla_decode(params, cfg, x, cache, cur_len, *, drop=False):
+def mla_decode(params, cfg, x, cache, cur_len, *, drop=False, seq=None):
     """Absorbed one-token decode of x (B, 1, d).  ``cache`` = {'c_kv' (B,
     Smax, kv_lora), 'k_rope' (B, Smax, rope_dim)}, written in place at
     ``cur_len - 1`` (a scalar or a (B,) tensor on x's device) and returned.
     With ``drop``, a slot whose position lies past Smax writes nothing and
     attends over all Smax positions, as the reference's out-of-range
-    scatter does."""
+    scatter does.  ``seq`` (a ``placement.SeqShard``) says the cache holds
+    this rank's range of the positions only: the rank that holds a
+    slot's position writes it, and the latent context is merged over the
+    ranks before ``wv_b``'s absorption (both are linear)."""
     m, H = cfg.mla, cfg.n_heads
     B = x.shape[0]
     idx = torch.as_tensor(cur_len, device=x.device).long().expand(B) - 1
@@ -112,14 +116,13 @@ def mla_decode(params, cfg, x, cache, cur_len, *, drop=False):
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     rows = torch.arange(B, device=x.device)
     c_new, kr_new = c_new[:, 0].to(c_kv.dtype), kr_new[:, 0].to(k_rope.dtype)
-    if drop:
-        # a slot past the cache writes back what its last position holds,
+    held = c_kv.shape[1]
+    idx, keep = write_index(idx, held, drop, seq)
+    if keep is not None:
+        # a slot that writes nothing here writes back what its row holds,
         # with no host read of the lengths
-        smax = c_kv.shape[1]
-        inside = (idx < smax)[:, None]
-        idx = idx.clamp(max=smax - 1)
-        c_new = torch.where(inside, c_new, c_kv[rows, idx])
-        kr_new = torch.where(inside, kr_new, k_rope[rows, idx])
+        c_new = torch.where(keep[:, None], c_new, c_kv[rows, idx])
+        kr_new = torch.where(keep[:, None], kr_new, k_rope[rows, idx])
     c_kv.index_put_((rows, idx), c_new)
     k_rope.index_put_((rows, idx), kr_new)
     # absorb W_uk into q: q_eff[b, h] = q_nope[b, h] @ wk_b[:, h]^T, a
@@ -129,11 +132,17 @@ def mla_decode(params, cfg, x, cache, cur_len, *, drop=False):
                     wkb.permute(1, 2, 0)).transpose(0, 1)      # (B,H,kv_lora)
     s = (bmm_f32(q_eff.to(CDTYPE), c_kv.transpose(1, 2))
          + bmm_f32(q_rope[:, 0].to(CDTYPE), k_rope.transpose(1, 2)))
-    s = s / np.sqrt(m.nope_dim + m.rope_dim)                   # (B,H,Smax)
+    s = s / np.sqrt(m.nope_dim + m.rope_dim)                   # (B,H,S)
     n = torch.as_tensor(cur_len, device=x.device).reshape(-1, 1).expand(B, 1)
-    valid = torch.arange(c_kv.shape[1], device=x.device)[None, :] < n
-    p = torch.softmax(torch.where(valid[:, None, :], s, -torch.inf), dim=-1)
-    ctx = bmm_f32(p.to(CDTYPE), c_kv)                          # (B,H,kv_lora)
+    pos = torch.arange(held, device=x.device)
+    valid = (pos if seq is None else pos + seq.start)[None, :] < n
+    if seq is None:
+        p = torch.softmax(torch.where(valid[:, None, :], s, -torch.inf),
+                          dim=-1)
+        ctx = bmm_f32(p.to(CDTYPE), c_kv)                      # (B,H,kv_lora)
+    else:
+        ctx = seq.softmax_mix(s, valid[:, None, :],
+                              lambda p: bmm_f32(p.to(CDTYPE), c_kv))
     # absorb W_uv into the output projection
     wvb = params.wv_b.reshape(m.kv_lora, H, m.v_dim)
     o = bmm_f32(ctx.to(CDTYPE).transpose(0, 1),

@@ -12,6 +12,11 @@ models on a mesh (``configs/sharding.py``'s specs applied by
   expert-parallel branch gathers over the DP dims only;
 * activations are plain local tensors holding the rank's DP share of the
   batch rows (``Rows``); ranks along ``"model"`` hold the same rows;
+* a cache whose batch the DP ranks do not divide is split on its
+  sequence axis instead (``cache_specs``): each rank holds a contiguous
+  range of positions (``SeqShard``), attends over it, and the ranks'
+  softmax terms are merged by all-reduces of O(B x H x hd) values
+  (``merge_softmax``, flash-decoding), never by gathering the cache;
 * every collective here is a ``torch.distributed`` call on the group of
   one mesh dim.  A gloo group given CUDA tensors is served through host
   memory: the choice is made by the group's backend, never by catching
@@ -83,16 +88,17 @@ def all_gather(t, mesh, name: str, dim: int, device=None):
     return torch.cat(parts, dim).to(device)
 
 
-def all_reduce(t, mesh, names) -> torch.Tensor:
-    """The sum of ``t`` over the ranks of the mesh dims ``names`` (a new
-    tensor; ``t`` is untouched)."""
+def all_reduce(t, mesh, names, *, op="sum") -> torch.Tensor:
+    """The sum (``op="max"``: the maximum) of ``t`` over the ranks of the
+    mesh dims ``names`` (a new tensor; ``t`` is untouched)."""
     out = t.detach().clone()
+    reduce_op = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     for name in names:
         if _size(mesh, name) == 1:
             continue
         group = mesh.get_group(name)
         buf = out.cpu() if _staged(group, out) else out
-        dist.all_reduce(buf, group=group)
+        dist.all_reduce(buf, op=reduce_op, group=group)
         if buf is not out:
             out.copy_(buf)
     return out
@@ -309,27 +315,20 @@ class Rows:
         if self.split:
             shape[batch_axis] = self.batch
             spec[batch_axis] = self.dp_axes
-        DTensor = _dtensor()
-        return DTensor.from_local(
-            x, self.mesh, Placed(self.mesh, Spec(*spec)).placements,
-            run_check=False, shape=torch.Size(shape),
-            stride=torch.empty(shape, device="meta").stride())
+        return _from_local(x, self.mesh, Spec(*spec), shape)
 
-    def check_seq(self, seq: int):
-        """Refuse a cache that ``cache_specs`` would shard on its sequence
-        axis: a batch that does not split over the DP ranks while ``seq``
-        does (long-context flash-decoding), ROADMAP A9 (e)."""
-        if not self.split and seq % self.dp == 0:
-            raise NotImplementedError(
-                f"a batch of {self.batch} rows does not split over "
-                f"{self.dp} DP ranks, so its cache would be sharded on the "
-                f"sequence axis ({seq} positions): long-context decode on "
-                "a mesh is not ported yet (ROADMAP A9 (e))")
+    def _spec(self, shape, batch_axis, seq_axis):
+        return cache_specs(torch.Size(shape), self.mesh, dp=self.dp_axes,
+                           batch_axis=batch_axis,
+                           seq_axis=len(shape) if seq_axis is None
+                           else seq_axis)
 
     def cache(self, tree, *, batch_axis: int = 1, seq_axis: int = 2):
-        """A local cache (nested dicts, tuples and lists of tensors; other
-        leaves pass as they are) placed by ``cache_specs``: the batch over
-        DP, or replicated; ``seq_axis=None`` for a state without one."""
+        """A cache computed on this rank (nested dicts, tuples and lists of
+        tensors of its rows and every position; other leaves pass as they
+        are) placed by ``cache_specs``: the batch over DP, or the
+        sequence axis over DP (this rank keeps its positions, a copy), or
+        replicated; ``seq_axis=None`` for a state without one."""
         if isinstance(tree, dict):
             return {k: self.cache(v, batch_axis=batch_axis,
                                   seq_axis=seq_axis) for k, v in tree.items()}
@@ -341,13 +340,90 @@ class Rows:
         shape = list(tree.shape)
         if self.split:
             shape[batch_axis] = self.batch
-        spec = cache_specs(torch.Size(shape), self.mesh, dp=self.dp_axes,
-                           batch_axis=batch_axis,
-                           seq_axis=len(shape) if seq_axis is None
-                           else seq_axis)
+        spec = self._spec(shape, batch_axis, seq_axis)
         if seq_axis is not None and spec[seq_axis] is not None:
-            self.check_seq(shape[seq_axis])
-        return self.out(tree, batch_axis)
+            sh = SeqShard(self.mesh, self.dp_axes, shape[seq_axis])
+            tree = tree.narrow(seq_axis, sh.start, sh.size).clone()
+        return _from_local(tree, self.mesh, spec, shape)
+
+    def zeros(self, shape, dtype, device, *, batch_axis: int = 1,
+              seq_axis: int = 2):
+        """A zero cache leaf of the global ``shape`` placed by
+        ``cache_specs``, allocating only this rank's part."""
+        spec = self._spec(shape, batch_axis, seq_axis)
+        local_shape = list(shape)
+        for d, entry in enumerate(spec):
+            if entry is not None:
+                local_shape[d] //= dp_size(self.mesh, _axes(entry))
+        return _from_local(torch.zeros(local_shape, dtype=dtype,
+                                       device=device),
+                           self.mesh, spec, shape)
+
+
+def _from_local(x, mesh, spec, shape):
+    """``x`` as this rank's part of a ``DTensor`` of global ``shape``
+    placed by ``spec``."""
+    DTensor = _dtensor()
+    return DTensor.from_local(
+        x, mesh, Placed(mesh, spec).placements, run_check=False,
+        shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
+# ------------------------------------------------------ sequence shards --
+class SeqShard:
+    """A cache's sequence axis of ``smax`` positions split over the mesh
+    dims ``names`` (rank-major, as ``NamedSharding`` splits
+    ``P(("pod", "data"))``): this rank holds positions ``[start, start +
+    size)``.  ``softmax_mix`` merges the ranks' attention over their
+    positions."""
+
+    def __init__(self, mesh, names, smax: int):
+        idx, n = _index(mesh, tuple(names))
+        self.mesh, self.names, self.smax = mesh, tuple(names), smax
+        self.size = smax // n
+        self.start = idx * self.size
+
+    def softmax_mix(self, s, valid, mix):
+        """The softmax over every rank's positions of this rank's scores
+        ``s`` (..., S_local) under ``valid``, mixed with the values by
+        ``mix`` (``merge_softmax`` by three all-reduces over the DP dims:
+        two of B x H values and one of B x H x hd, whatever the
+        length)."""
+        return merge_softmax(s, valid, mix, lambda x, op: all_reduce(
+            x, self.mesh, self.names, op=op))
+
+
+def merge_softmax(s, valid, mix, reduce):
+    """Flash-decoding over pieces of the positions: the softmax of the
+    scores ``s`` (..., S_piece) under ``valid`` over every piece's
+    positions, mixed with the values: ``mix(p)`` gives the piece's (...,
+    d) f32 sum of its values weighted by p; ``reduce(x, op)`` is the max
+    (``op="max"``) or the sum over the pieces.  The max ``M`` of the
+    pieces' maxima (one reduction of max), the sum ``l`` of ``exp(s -
+    M)`` (one reduction of sum) and the weighted values (one more): the
+    weights are normalised, ``exp(s - M) / l``, before ``mix`` rounds
+    them, as the one-piece softmax's are, so a split of the positions
+    rounds as the whole does (merging unnormalised terms rounds each
+    weight at another scale: at random weights that moves every later
+    bf16 rounding, ~1e-2 of max |logits|).  A piece with no valid
+    position gives weights 0, never NaN."""
+    masked = torch.where(valid, s, -torch.inf)
+    top = reduce(masked.amax(-1), "max")
+    e = torch.exp(masked - top[..., None])
+    l = reduce(e.sum(-1), "sum")
+    return reduce(mix(e / l[..., None]), "sum")
+
+
+def seq_shard(t, seq_axis: int = 2):
+    """The ``SeqShard`` of a placed cache leaf whose ``seq_axis`` is split
+    over mesh dims; None for a plain tensor or another placement."""
+    if not is_placed(t):
+        return None
+    names = [n for n, p in zip(mesh_names(t.device_mesh), t.placements)
+             if p.is_shard(seq_axis)]
+    return SeqShard(t.device_mesh, names, t.shape[seq_axis]) \
+        if names else None
 
 
 def local_tree(tree):

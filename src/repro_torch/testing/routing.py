@@ -15,8 +15,10 @@ side's choices on the other:
 
 The hook replaces ``models.moe._top_k`` for the calls inside: each call
 is a layer's router top-k on the dropless path (T <= 32 tokens), one a
-MoE layer a forward pass or decode step.  The capacity path's expert
-choice also calls it, so impose routing on dropless passes only.
+MoE layer a forward pass or decode step.  The capacity path calls it
+twice a layer, the router's top-k and then each expert's choice of
+tokens: a forced entry of None leaves its call as it is, so a capacity
+pass takes a dropless pass's routing as ``[r0, None, r1, None, ...]``.
 """
 from __future__ import annotations
 
@@ -29,15 +31,17 @@ from repro_torch.models import moe as MOE
 def routing(forced=None):
     """Yields ``{"calls": [...], "moved": n}``: each top-k call's (T, k)
     expert ids, in call order.  With ``forced`` (such a list), the i-th
-    call takes the i-th entry's experts instead of its own, their
-    probabilities renormalised as its own would be, and ``moved`` counts
-    the tokens whose own choice (as a set) differed."""
+    call takes the i-th entry's experts instead of its own (an entry of
+    None: its own), their probabilities renormalised as its own would
+    be, and ``moved`` counts the tokens whose own choice (as a set)
+    differed."""
     inner, rec = MOE._top_k, {"calls": [], "moved": 0}
 
     def top_k(probs, k):
         vals, idx = inner(probs, k)
-        if forced is not None:
-            want = forced[len(rec["calls"])].to(idx.device)
+        want = None if forced is None else forced[len(rec["calls"])]
+        if want is not None:
+            want = want.to(idx.device)
             if want.shape != idx.shape:
                 raise ValueError(f"a forced routing of {tuple(want.shape)} "
                                  f"for a call of {tuple(idx.shape)}")

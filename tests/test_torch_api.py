@@ -288,7 +288,11 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "train/optimizer.py", "train/train_step.py",
                 "train/checkpoint.py", "train/fault.py",
                 "data/pipeline.py", "launch/train.py",
-                "configs/sharding.py", "models/placement.py"):
+                "configs/sharding.py", "models/placement.py",
+                "launch/hlo_cost.py", "launch/roofline.py",
+                "launch/attribution.py", "launch/dryrun.py",
+                "launch/reanalyze.py", "launch/summarize.py",
+                "utils/timing.py"):
         assert ROOT / "src" / "repro_torch" / mod in files
     for f in files:
         hits = bad.findall(f.read_text())
@@ -302,7 +306,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.configs, repro_torch.launch.serve, "
             "repro_torch.train.fault, repro_torch.data, "
             "repro_torch.launch.train, repro_torch.configs.sharding, "
-            "repro_torch.models.placement; "
+            "repro_torch.models.placement, repro_torch.launch.hlo_cost, "
+            "repro_torch.launch.roofline, repro_torch.launch.attribution, "
+            "repro_torch.launch.dryrun, repro_torch.launch.reanalyze, "
+            "repro_torch.launch.summarize, repro_torch.utils.timing; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -1,19 +1,21 @@
-"""The placements on a mesh against the reference's (ROADMAP A9 (d)).
+"""The placements on a mesh against the reference's (ROADMAP A9 (d), (e)).
 
 ``configs.sharding``, ``models.placement``, ``moe_forward``'s
 expert-parallel branch, every family's ``loss``, ``prefill`` and
-``decode_step`` on a ``DeviceMesh``, the train step on placed state and
+``decode_step`` on a ``DeviceMesh`` (long-context decode too: a batch
+the DP ranks do not divide, its cache split on the sequence axis), the
+train step on placed state and
 checkpoints across meshes, run as gloo ranks on the CPU (one process a
 rank, a file rendezvous), against the reference on 4 fake CPU devices
 (``XLA_FLAGS=--xla_force_host_platform_device_count=4``), whose routed
 cases are compiled with ``xla_allow_excess_precision`` off (ROADMAP C11).
 
 The parameters are seeded numpy draws on the reference's trees
-(``fill``).  The reference runs in two module-scoped subprocesses side
+(``fill``).  The reference runs in three module-scoped subprocesses side
 by side: one first writes every input (the parameter trees, the
 batches, the reference's own shards of two placed models) to
-``inputs.npz``, then computes the MoE cases and the losses; the other
-the serving and train cases.  The port's ranks start as soon as the
+``inputs.npz``, then computes the MoE cases and the losses; the second
+the serving and train cases; the third the long-context cases.  The port's ranks start as soon as the
 inputs exist, once for world 2 and once for world 4, and run while the
 reference computes; each rank writes its npz and the assertions are
 made here.  Every process started here runs under a deadline.
@@ -65,9 +67,21 @@ SHARD_MESHES = {"2x2": ((2, 2), ("data", "model"), ("data",)),
                         ("pod", "data"))}
 SHARD_ARCHS = ("deepseek-v2-236b", "jamba-v0.1-52b")
 B, S, SMAX, S_ENC, DECODE_STEPS = 4, 16, 24, 10, 2
+#: long-context decode (A9 (e)): every family with a KV cache, and the
+#: SSM, whose state has no sequence axis
+LC_ARCHS = ("qwen3-4b", "paligemma-3b", "seamless-m4t-large-v2",
+            "deepseek-v2-236b", "jamba-v0.1-52b")
+LC_SSM = "mamba2-130m"
+#: case -> (mesh shape, batch): batches the DP ranks do not divide, so
+#: ``cache_specs`` splits the SMAX positions (and the 12 encoder
+#: positions of the cross cache) over "data": 6 a rank on (4, 1), 12 on
+#: (2, 2), where the prefill's 16 are 4 and 8 a rank
+LC_CASES = {"4x1": ((4, 1), 1), "2x2": ((2, 2), 3)}
+LC_S_ENC, LC_WIDE = 12, 96
+DROP_ARCH = "qwen3-4b"
 
 
-def make_batch(cfg, seed, b=B, s=S):
+def make_batch(cfg, seed, b=B, s=S, s_enc=S_ENC):
     rng = np.random.default_rng(seed)
     batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
     if cfg.prefix_len:
@@ -75,13 +89,43 @@ def make_batch(cfg, seed, b=B, s=S):
             (b, cfg.prefix_len, cfg.d_model)).astype(np.float32)
     if cfg.family == "encdec":
         batch["src_embeds"] = rng.standard_normal(
-            (b, S_ENC, cfg.d_model)).astype(np.float32)
+            (b, s_enc, cfg.d_model)).astype(np.float32)
     return batch
 
 
-def decode_tokens(cfg):
+def decode_tokens(cfg, b=B):
     rng = np.random.default_rng(5)
-    return rng.integers(0, cfg.vocab, (DECODE_STEPS, B)).astype(np.int32)
+    return rng.integers(0, cfg.vocab, (DECODE_STEPS, b)).astype(np.int32)
+
+
+def lc_batch(cfg, b):
+    """A long-context case's prefill batch: S positions in all (the
+    VLM's prefix among them)."""
+    return make_batch(cfg, 7, b=b, s=S - cfg.prefix_len, s_enc=LC_S_ENC)
+
+
+def lc_init_kw(cfg) -> dict:
+    return {"enc_len": LC_S_ENC} if cfg.family == "encdec" else {}
+
+
+def kv_paths(cache, prefix="") -> list:
+    """The paths (``a/b``) of a cache's leaves that have a sequence axis:
+    every dict leaf but the hybrid's ``ssm`` states and ``len``."""
+    out = []
+    for k, v in cache.items():
+        if k in ("ssm", "len"):
+            continue
+        if isinstance(v, dict):
+            out += kv_paths(v, f"{prefix}{k}/")
+        else:
+            out.append(prefix + k)
+    return out
+
+
+def at_path(cache, path):
+    for k in path.split("/"):
+        cache = cache[k]
+    return cache
 
 
 #: leaves drawn as gains, 1 + N(0, 0.1) (the rest N(0, 1) / sqrt(fan-in))
@@ -226,7 +270,7 @@ if part == "inputs":
                  T.make_batch(smoke_config(arch), 1).items()}
         loss, _ = exact_jit(api.loss)(as_jax(params[arch]), batch)
         out[f"loss/{arch}"] = np.asarray(loss, np.float32)
-else:
+elif part == "steps":
     mesh = make_host_mesh(2, 2)
     for arch in T.SERVE_ARCHS:
         c = smoke_config(arch)
@@ -265,23 +309,84 @@ else:
                       / max(float(np.abs(np.asarray(a)).max()), 1e-30))
                 for a, b in zip(jax.tree.leaves(new.opt["m"]),
                                 jax.tree.leaves(other.opt["m"]))))
+elif part == "long":
+    from jax.sharding import PartitionSpec
+    devs = jax.devices()
+
+    def specs(cache, mesh):
+        """The port's cache placements: ``cache_specs`` on the K/V leaves,
+        the SSM states replicated."""
+        if isinstance(cache, tuple):
+            return jax.tree.map(lambda x: PartitionSpec(), cache)
+        return {k: specs(v, mesh) if k == "ssm" else
+                SH.cache_specs(v, mesh) for k, v in cache.items()}
+
+    def placed(cache, mesh):
+        return jax.device_put(cache, SH.named(mesh, specs(cache, mesh)))
+
+    def grown(arch, api, pc, b, smax):
+        """The prefill's cache copied into an ``smax``-position one."""
+        c = smoke_config(arch)
+        if c.family == "ssm":
+            return pc
+        z = api.init_cache(b, smax, **T.lc_init_kw(c))
+        pc = {k: v for k, v in pc.items() if k != "len"}
+        return jax.tree.map(
+            lambda a, p: p if a.shape == p.shape else
+            a.at[:, :, :p.shape[2]].set(p), z, pc)
+
+    for arch in T.LC_ARCHS + (T.LC_SSM,):
+        c = smoke_config(arch)
+        p = as_jax(params[arch])
+        for case, (shape, b) in T.LC_CASES.items():
+            if arch == T.LC_SSM and case != "4x1":
+                continue
+            mesh = make_host_mesh(*shape)
+            api = build_model(c, mesh=mesh)
+            batch = {k: jnp.asarray(v) for k, v in T.lc_batch(c, b).items()}
+            key = f"lc/{arch}/{case}"
+            logits, pc = exact_jit(api.prefill)(p, batch)
+            out[f"{key}/prefill"] = np.asarray(logits, np.float32)
+            cache = placed(grown(arch, api, pc, b, T.SMAX), mesh)
+            start = cache
+            step = exact_jit(api.decode_step)
+            for t, tok in enumerate(T.decode_tokens(c, b)):
+                logits, cache = step(p, cache, jnp.asarray(tok),
+                                     jnp.asarray(T.S + 1 + t, jnp.int32))
+                out[f"{key}/decode{t}"] = np.asarray(logits, np.float32)
+            if c.family != "ssm":
+                cache = placed(cache, mesh)
+                for path in T.kv_paths(cache):
+                    leaf = T.at_path(cache, path)
+                    for r in range(4):
+                        out[f"{key}/shard/{r}/{path}"] = np.asarray(next(
+                            s.data for s in leaf.addressable_shards
+                            if s.device == devs[r]), np.float32)
+            if arch == T.DROP_ARCH and case == "4x1":
+                # a step past the cache: the reference's scatter drops
+                logits, after = step(p, start, jnp.asarray(
+                    T.decode_tokens(c, b)[0]), jnp.asarray(T.SMAX + 2,
+                                                           jnp.int32))
+                out[f"{key}/drop"] = np.asarray(logits, np.float32)
+                out[f"{key}/drop_cache"] = np.asarray(after["k"], np.float32)
 np.savez(sys.argv[2], **out)
 '''
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """(reference outputs, inputs, world 2's ranks, world 4's ranks): two
-    reference subprocesses started first (the one that writes the inputs,
-    then the MoE cases and the losses; the serving and train cases), the
-    ranks on the inputs while they compute."""
+    """(reference outputs, inputs, world 2's ranks, world 4's ranks):
+    three reference subprocesses started first (the one that writes the
+    inputs, then the MoE cases and the losses; the serving and train
+    cases; the long-context cases), the ranks on the inputs while they
+    compute."""
     from repro_torch.launch.ranks import run_ranks
 
     tmp = tmp_path_factory.mktemp("placement")
     inputs = tmp / "inputs.npz"
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
     procs = []
-    for part in ("inputs", "steps"):
+    for part in ("inputs", "steps", "long"):
         err = open(tmp / f"reference_{part}.err", "w+")
         procs.append((subprocess.Popen(
             [sys.executable, "-c", REFERENCE, str(inputs),
@@ -315,7 +420,8 @@ def runs(tmp_path_factory):
             err.close()
     with np.load(inputs) as z:
         ins = dict(z)
-    ref = {**_load(tmp / "ref_inputs.npz"), **_load(tmp / "ref_steps.npz")}
+    ref = {**_load(tmp / "ref_inputs.npz"), **_load(tmp / "ref_steps.npz"),
+           **_load(tmp / "ref_long.npz")}
     return ref, ins, worlds[2], worlds[4]
 
 
@@ -513,6 +619,90 @@ def _copy_prefix(dst, src):
         dst[:, :, :src.shape[2]].copy_(src)
 
 
+def _grown(api, cfg, pc, b, smax):
+    """The prefill's cache copied into an ``smax``-position one, each
+    placed by ``cache_specs`` (``testing.long_context.copy_prefix``: the
+    two lengths split their positions differently); the SSM's states as
+    they are."""
+    from repro_torch.models import placement as P
+    from repro_torch.testing.long_context import copy_prefix
+    if cfg.family == "ssm":
+        return pc
+    cache = api.init_cache(b, smax, **lc_init_kw(cfg))
+    for path in kv_paths(cache):
+        copy_prefix(at_path(cache, path), at_path(pc, path))
+    if "ssm" in cache:
+        for dst, src in zip(cache["ssm"], pc["ssm"]):
+            P.local(dst).copy_(P.local(src))
+    return cache
+
+
+def _exchange(api, params, cfg, smax) -> dict:
+    """The collective bytes by kind of one decode step at batch 1 over an
+    ``smax``-position cache (``launch.hlo_cost``'s counter)."""
+    import torch
+    from repro_torch.launch.hlo_cost import CostCounter
+    cache = api.init_cache(1, smax, **lc_init_kw(cfg))
+    with torch.no_grad(), CostCounter() as c:
+        api.decode_step(params, cache, decode_tokens(cfg, 1)[0], S + 1)
+    return c.totals()["collectives"]
+
+
+def _long_context(z, meshes, out, errors):
+    """A9 (e): every KV family (and the SSM) at a batch the DP ranks do
+    not divide, prefill then decode on its sequence-sharded cache."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import smoke_config
+    from repro_torch.convert import params_from_reference
+    from repro_torch.models import build_model
+    from repro_torch.models import placement as P
+    rank = dist.get_rank()
+    for arch in LC_ARCHS + (LC_SSM,):
+        cfg = smoke_config(arch)
+        ref_params = nest(z, f"arch/{arch}/params")
+        for case, (shape, b) in LC_CASES.items():
+            if arch == LC_SSM and case != "4x1":
+                continue
+            mesh, key = meshes[shape], f"lc/{arch}/{case}"
+            api = build_model(cfg, mesh=mesh, device="cpu")
+            params = params_from_reference(cfg, ref_params, device="cpu",
+                                           mesh=mesh)
+            with torch.no_grad():
+                logits, pc = api.prefill(params, lc_batch(cfg, b))
+                out[f"{key}/prefill"] = _gather(logits)
+                cache = _grown(api, cfg, pc, b, SMAX)
+                for t, tok in enumerate(decode_tokens(cfg, b)):
+                    logits, cache = api.decode_step(params, cache, tok,
+                                                    S + 1 + t)
+                    out[f"{key}/decode{t}"] = _gather(logits)
+                if cfg.family == "ssm":
+                    errors[f"{key}/state"] = [_kinds(t.placements)
+                                              for t in cache]
+                    continue
+                errors[f"{key}/placements"] = {
+                    path: _kinds(at_path(cache, path).placements)
+                    for path in kv_paths(cache)}
+                for path in kv_paths(cache):
+                    out[f"{key}/shard/{rank}/{path}"] = _np(
+                        P.local(at_path(cache, path)))
+                if arch == DROP_ARCH and case == "4x1":
+                    fresh = _grown(api, cfg, pc, b, SMAX)
+                    logits, after = api.decode_step(
+                        params, fresh, decode_tokens(cfg, b)[0], SMAX + 2,
+                        past_cache="drop")
+                    out[f"{key}/drop"] = _gather(logits)
+                    out[f"{key}/drop_cache"] = _gather(after["k"])
+            if case == "4x1" and cfg.family != "ssm":
+                errors[f"{key}/exchange"] = [
+                    _exchange(api, params, cfg, n) for n in (SMAX, LC_WIDE)]
+    api = build_model(smoke_config("qwen3-4b"), mesh=meshes[(2, 2)],
+                      device="cpu")
+    errors["long_context_ok"] = [
+        _refuse(lambda: api.init_cache(1, 7)),
+        _kinds(api.init_cache(1, 7)["k"].placements)]
+
+
 def _zeros(tree):
     return {k: _zeros(v) if isinstance(v, dict) else np.zeros_like(v)
             for k, v in tree.items()}
@@ -586,10 +776,8 @@ def _rank_main(tmp: str, world: int) -> None:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     from torch.distributed.tensor import DTensor, Replicate
-    from repro_torch.configs import smoke_config
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.ranks import join
-    from repro_torch.models import build_model
     from repro_torch.models.layers import make_constrainer
 
     rank, world = join("gloo")
@@ -610,10 +798,8 @@ def _rank_main(tmp: str, world: int) -> None:
         _losses(z, meshes[(2, 2)], out)
         _serve(z, meshes[(2, 2)], out)
         _train(z, meshes, outdir, out, errors)
+        _long_context(z, meshes, out, errors)
         mesh = meshes[(2, 2)]
-        api = build_model(smoke_config("qwen3-4b"), mesh=mesh, device="cpu")
-        errors["long_context"] = _refuse(lambda: api.init_cache(1, SMAX))
-        errors["long_context_ok"] = _refuse(lambda: api.init_cache(1, 7))
         # the activation pin on a DTensor: rows over "data"
         x = DTensor.from_local(torch.arange(8.0).reshape(4, 2), mesh,
                                [Replicate(), Replicate()])
@@ -771,15 +957,170 @@ def test_checkpoint_restores_across_meshes(arch, runs):
     assert step == 1 and bad == []
 
 
-def test_a_long_context_cache_names_its_item(runs):
-    """A batch of 1 on dp 2 would shard the cache's sequence axis
-    (``cache_specs``): ROADMAP A9 (e); at a length dp does not divide
-    the cache replicates, as ``cache_specs`` places it."""
+@pytest.mark.parametrize("case", list(LC_CASES))
+@pytest.mark.parametrize("arch", LC_ARCHS)
+def test_long_context_decode_matches_reference(arch, case, runs):
+    """A9 (e): a batch the DP ranks do not divide (1 on (4, 1), 3 on (2,
+    2)), its cache split on the sequence axis by ``cache_specs``: the
+    prefill of 16 positions and ``DECODE_STEPS`` decode steps on a
+    24-position cache grown from it, every rank's global logits within
+    TOL of the reference's max (its jitted steps on a cache placed by
+    its ``cache_specs``), the K/V split on the sequence axis over
+    "data"."""
+    ref, _, _, w4 = runs
+    key = f"lc/{arch}/{case}"
+    for out in w4:
+        for step in ["prefill"] + [f"decode{t}" for t in
+                                   range(DECODE_STEPS)]:
+            assert _rel(ref[f"{key}/{step}"], out[f"{key}/{step}"]) < TOL, \
+                step
+        for path, kinds in out["errors"][f"{key}/placements"].items():
+            if not path.startswith("cross"):
+                assert kinds[0] == ["shard", 2], (path, kinds)
+
+
+@pytest.mark.parametrize("case", list(LC_CASES))
+@pytest.mark.parametrize("arch", LC_ARCHS)
+def test_long_context_cache_shards_equal_the_reference_devices(arch, case,
+                                                               runs):
+    """After the decode steps, each rank's local K/V (or latent) cache
+    equals the reference's shard on the device at its mesh coordinates
+    within TOL of the leaf's max: the same positions on the same rank,
+    the new tokens' rows written by the rank that holds them."""
+    ref, _, _, w4 = runs
+    key = f"lc/{arch}/{case}"
+    for r, out in enumerate(w4):
+        paths = list(out["errors"][f"{key}/placements"])
+        assert paths
+        for path in paths:
+            want = ref[f"{key}/shard/{r}/{path}"]
+            got = out[f"{key}/shard/{r}/{path}"]
+            assert _rel(want, got) < TOL, (r, path)
+
+
+def test_long_context_ssm_state_replicates(runs):
+    """mamba2-130m at batch 1 on (4, 1): its state has no sequence axis,
+    so it replicates; the logits match the reference's."""
+    ref, _, _, w4 = runs
+    key = f"lc/{LC_SSM}/4x1"
+    for out in w4:
+        for step in ["prefill"] + [f"decode{t}" for t in
+                                   range(DECODE_STEPS)]:
+            assert _rel(ref[f"{key}/{step}"], out[f"{key}/{step}"]) < TOL
+        for kinds in out["errors"][f"{key}/state"]:
+            assert kinds == [["replicate"], ["replicate"]], kinds
+
+
+def test_long_context_step_past_the_cache_drops_its_write(runs):
+    """``past_cache="drop"`` at ``cur_len`` SMAX + 2 on the
+    sequence-sharded cache: no rank writes, every rank attends over all
+    of its positions (C8), as the reference's out-of-range scatter."""
+    ref, _, _, w4 = runs
+    key = f"lc/{DROP_ARCH}/4x1"
+    for out in w4:
+        assert _rel(ref[f"{key}/drop"], out[f"{key}/drop"]) < TOL
+        assert _rel(ref[f"{key}/drop_cache"], out[f"{key}/drop_cache"]) \
+            < TOL
+
+
+@pytest.mark.parametrize("arch", LC_ARCHS)
+def test_long_context_exchange_does_not_grow_with_the_cache(arch, runs):
+    """No fallback gathers the cache: a decode step's collective bytes by
+    kind (the weights' all-gathers, the attention's all-reduces of its
+    softmax terms, the only all-reduces of a step at batch 1) are the
+    same at SMAX 24 and 96, and the attention's are nonzero."""
     _, _, _, w4 = runs
     for out in w4:
-        exc, msg = out["errors"]["long_context"]
-        assert exc == "NotImplementedError" and "A9 (e)" in msg
-        assert out["errors"]["long_context_ok"] == ["", ""]
+        small, wide = out["errors"][f"lc/{arch}/4x1/exchange"]
+        assert small == wide, (small, wide)
+        assert small["all-reduce"] > 0
+
+
+def test_long_context_ok_at_a_length_dp_does_not_divide(runs):
+    """At 7 positions, which dp 2 does not divide, the cache of a batch
+    of 1 replicates, as ``cache_specs`` places it."""
+    _, _, _, w4 = runs
+    for out in w4:
+        refused, kinds = out["errors"]["long_context_ok"]
+        assert refused == ["", ""]
+        assert kinds == [["replicate"], ["replicate"]]
+
+
+@pytest.mark.parametrize("slices", [1, 2, 3, 4])
+def test_combine_merges_slices_into_one_softmax(slices):
+    """``placement.merge_softmax`` over random scores split into
+    ``slices`` pieces (one fully masked when there are several) equals
+    the one-piece softmax-weighted sum within 1e-6, with no NaN."""
+    import torch
+    from repro_torch.models import placement as P
+    gen = torch.Generator().manual_seed(slices)
+    n, d = 24, 8
+    s = torch.randn(3, 4, n, generator=gen, dtype=torch.float64) * 4
+    v = torch.randn(3, n, d, generator=gen, dtype=torch.float64)
+    valid = torch.ones(3, 4, n, dtype=torch.bool)
+    if slices > 1:
+        valid[..., n // slices:2 * n // slices] = False   # a masked slice
+    want = torch.einsum("bhs,bsd->bhd", torch.softmax(
+        torch.where(valid, s, -torch.inf), -1), v)
+
+    def pieces(x, dim):
+        return torch.stack(x.chunk(slices, dim))         # slices first
+    vs = pieces(v, 1)
+
+    def reduce(x, op):
+        return x.amax(0, keepdim=True) if op == "max" \
+            else x.sum(0, keepdim=True)
+
+    got = P.merge_softmax(pieces(s, -1), pieces(valid, -1),
+                          lambda p: torch.einsum("kbhs,kbsd->kbhd", p, vs),
+                          reduce)[0]
+    assert not torch.isnan(got).any()
+    assert float((got - want).abs().max()) < 1e-6
+
+
+def test_attention_outputs_read_each_attention_and_plant_the_fault():
+    """``testing.long_context.attention_outputs`` reads a whole cache's
+    decode attention in f32 (its bf16 cast is the call's output) and a
+    merge's result; with ``zero_terms`` the merge's sums get zeros from
+    this rank and its max its own value."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import placement as P
+    from repro_torch.testing.long_context import attention_outputs
+    gen = torch.Generator().manual_seed(3)
+    B, S, H, Hkv, hd = 2, 12, 4, 2, 8
+    q = torch.randn(B, 1, H, hd, generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn(B, S, Hkv, hd, generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    with attention_outputs() as rec:
+        out = L.decode_attention(q, k, v, 9)
+    assert len(rec) == 1 and rec[0].dtype == torch.float32
+    assert torch.equal(rec[0].reshape(out.shape).to(out.dtype), out)
+
+    s = torch.randn(B, H, S, generator=gen)
+    valid = torch.ones(B, H, S, dtype=torch.bool)
+    vals = torch.randn(B, S, hd, generator=gen)
+    seen = []
+
+    def reduce(x, op):
+        seen.append((op, x.clone()))
+        return x
+
+    def mix(p):
+        return torch.einsum("bhs,bsd->bhd", p, vals)
+
+    with attention_outputs() as rec:
+        got = P.merge_softmax(s, valid, mix, reduce)
+    assert len(rec) == 1 and torch.equal(rec[0], got)
+    seen.clear()
+    with attention_outputs(zero_terms=True):
+        P.merge_softmax(s, valid, mix, reduce)
+    assert [op for op, _ in seen] == ["max", "sum", "sum"]
+    assert torch.equal(seen[0][1], s.amax(-1))
+    assert all(not x.any() for op, x in seen if op == "sum")
+    # both hooks are taken out again
+    assert P.merge_softmax.__name__ == "merge_softmax"
+    assert L.grouped_mix.__name__ == "grouped_mix"
 
 
 def test_constrainer_pins_rows_over_data(runs):
