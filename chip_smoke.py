@@ -1001,14 +1001,25 @@ def time_dco_scan_grouped(sess, Q, res, dev):
                           got):
         check(torch.equal(o, g), f"the earlier grouped design differs in "
               f"{name} at the PDX path's inputs")
+    # the product only, not the function: each group's (N, Q) contrib as
+    # one fp32 torch.baddbmm over the G groups, no gating, no running sum
+    base = ((xg * xg).sum(2)[:, :, None]
+            + (qg * qg).sum(2)[:, None, :]).contiguous()
+    qgt = qg.transpose(1, 2)
+
+    def product():
+        return torch.baddbmm(base, xg, qgt, beta=1.0, alpha=-2.0)
+
     ms = cuda_ms(grouped)
     earlier = cuda_ms(tiled)
     flat_ms = cuda_ms(flat)
+    product_ms = cuda_ms(product)
     plain = cuda_ms(lambda: dco_scan_grouped_plain(
         xg, qg, tau, sc, widths, nr, block_n=256))
     call = eager_ms(grouped)
     log("kernel_timing", kernel="dco_scan_grouped", shape=[G, n, nq, dg],
         ms=ms, earlier_design_ms=earlier,
+        product_only_baddbmm_ms=product_ms,
         flat_dco_scan_same_inputs_ms=flat_ms, plain_ms=plain,
         eager_call_ms=call, bound_ms=bms, bound_by=by, bytes=nbytes,
         flops=flops, max_abs_err=err, dims_entered=entered,
@@ -1017,7 +1028,8 @@ def time_dco_scan_grouped(sess, Q, res, dev):
         keep_pairs=int(got[1].sum()))
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "redesigned": True, "earlier_ms": earlier}
+            "redesigned": True, "earlier_ms": earlier,
+            "product_only_baddbmm_ms": product_ms}
 
 
 def time_pq_lookup(sess, Q, dev):
@@ -2712,6 +2724,9 @@ def phase_persist(Xr, Q, d2, dev):
 MESH_ADD_ROWS = 1024             # rows a mesh session's add() appends
 MESH_TIMEOUT_S = 420             # the ranks of one group are killed past it
 MESH_BATCHES = 3
+#: a served mesh step must stay this far under the group's 60 s timeout,
+#: which a rank waiting for a failed rank's part would take whole
+MESH_STEP_LIMIT_S = 10.0
 
 
 def _mesh_session(X, Q, method, mesh, *, engine="stream", fitted=None):
@@ -2738,6 +2753,116 @@ def _one_card(method, Q, *, engine="stream", row_block=4096):
     res = SearchSession(method, SchedulePolicy(
         engine=engine, row_block=row_block)).search(Q, K)
     return res.ids, res.dists
+
+
+def serve_mesh_1m(sess, Q, rank: int, fn):
+    """The 1M served arm: the mesh session behind its SearchService.
+    Rank 0 calibrates the service's capacity on its own steps
+    (:func:`calibrate`), then submits the 100 queries as a Poisson stream
+    at LAMBDA_FRACTION of it in simulated time; rank 1 follows.  Returns
+    (record, rank 0's tickets' ids, dists and certificates in query
+    order)."""
+    import numpy as np
+    from repro_torch.kernels import dco_scan as dco_mod
+
+    t0 = time.perf_counter()
+    svc = sess.serve(slots=SERVE_SLOTS, k=K)
+    be = sess.backend
+    graphs0 = len(be._graphs)
+    if rank:
+        return {"follow": svc.follow(),
+                "seconds": time.perf_counter() - t0}, {}
+    steady, _, cal = calibrate(svc, Q)
+    lam = LAMBDA_FRACTION * SERVE_SLOTS / steady
+    rng = np.random.default_rng(SERVE_SEED + 3)
+    arrivals = np.cumsum(rng.exponential(1.0 / lam, Q.shape[0]))
+    walls, local, exchange = [], [], []
+
+    def on_step(batch):
+        walls.append(max(r.service_s for r in batch))
+        local.append(fn.local_s)
+        exchange.append(fn.exchange_s)
+
+    dco_mod.launches = 0
+    served, rid_to_q, _ = simulate(svc, Q, list(range(Q.shape[0])),
+                                   arrivals, [], on_step=on_step)
+    launches = dco_mod.launches
+    svc.close()
+    done = sorted(served_only(served), key=lambda r: rid_to_q[r.rid])
+    rec = {"slots": SERVE_SLOTS, "n_requests": int(Q.shape[0]),
+           "calibration": dict(cal, steady_step_s=steady),
+           "offered_qps": lam, "n_done": len(done), "steps": svc.steps,
+           "run_steps": len(walls), "step_walls_s": walls,
+           "step_wall_p50_ms": float(1e3 * np.median(walls)),
+           "step_wall_p99_ms": float(1e3 * np.quantile(walls, 0.99)),
+           "sustained_qps": len(done) / (max(r.t_done for r in done)
+                                         - min(r.t_submit for r in done)),
+           **percentiles_ms(r.latency_s for r in done),
+           "local_s": local, "exchange_s": exchange,
+           "local_share": float(np.median(local) / np.median(walls)),
+           "exchange_share": float(np.median(exchange) / np.median(walls)),
+           "dco_scan_launches": launches,
+           "new_graphs": len(be._graphs) - graphs0,
+           "seconds": time.perf_counter() - t0}
+    arrays = {}
+    if done:
+        arrays = {"served_1m/ids": np.stack([r.ids for r in done]),
+                  "served_1m/dists": np.stack([r.dists for r in done]),
+                  "served_1m/certified": np.array([r.certified is True
+                                                   for r in done])}
+    return rec, arrays
+
+
+def serve_mesh_100k(sess, Q, rows, rank: int, before_ids):
+    """The 100k serve case on the add arm's session: one step whose
+    tickets must carry the session's own ids (``before_ids``), an add of
+    ``rows`` through the service (the first SERVE_SLOTS of them beside
+    the queries, so the next tickets must find them), a request with a
+    budget (the reference's ValueError on every rank), a step that fails
+    on rank 1 alone (a fault plan armed in its process) and a step
+    after it.  Rank 1 follows."""
+    import numpy as np
+    from repro_torch.testing import faults
+
+    t0 = time.perf_counter()
+    svc = sess.serve(slots=SERVE_SLOTS, k=K)
+    if rank:
+        with faults.inject(fail_search_after=3):    # its 4th search fails
+            return {"follow": svc.follow(),
+                    "seconds": time.perf_counter() - t0}
+    n_before = sess.n
+
+    def batch(qs, **kw):
+        reqs = [svc.submit(q, **kw) for q in qs]
+        svc.drain()
+        return reqs
+
+    first = batch(Q[:SERVE_SLOTS])
+    info = svc.add(rows)
+    after = batch(Q[:SERVE_SLOTS])
+    budget = batch(Q[:1], deadline_s=60.0)
+    fault = batch(Q[:SERVE_SLOTS])
+    again = batch(Q[:SERVE_SLOTS])
+    svc.close()
+    tickets = first + after + budget + fault + again
+    return {
+        "steps": svc.steps, "add_mode": info["mode"],
+        "add_wall_s": info["wall_s"],
+        "first_same_ids": all(r.done for r in first) and bool(
+            np.array_equal(np.stack([r.ids for r in first]), before_ids)),
+        "after_done": all(r.done and r.certified for r in after),
+        "after_finds_new_rows": all(
+            r.done and int(r.ids[0]) == n_before + j
+            for j, r in enumerate(after)),
+        "budget": [budget[0].status, budget[0].error],
+        "fault": sorted({(r.status, r.error) for r in fault}),
+        "again_same_ids": all(r.done for r in again) and bool(
+            np.array_equal(np.stack([r.ids for r in again]),
+                           np.stack([r.ids for r in after]))),
+        "step_walls_s": sorted({r.service_s for r in tickets}),
+        "health": {key: svc.health()[key] for key in (
+            "submitted", "completed", "failures", "steps")},
+        "seconds": time.perf_counter() - t0}
 
 
 def mesh_rank(outdir: str, backend: str) -> int:
@@ -2769,7 +2894,13 @@ def mesh_rank(outdir: str, backend: str) -> int:
     with np.load(Path(outdir).parent / "rows.npz") as z:
         Q, opq_snapshot = z["queries"], str(z["opq_snapshot"])
     corpus = np.load(Path(outdir).parent / "corpus.npy", mmap_mode="r")
-    Xr = np.array(corpus[:N_RULES + MESH_ADD_ROWS])
+    # the add arm's rows, then the rows the serve case adds through the
+    # service: the first SERVE_SLOTS of them each a step off a query
+    Xr = np.array(corpus[:N_RULES + 2 * MESH_ADD_ROWS])
+    off = np.random.default_rng(SERVE_SEED + 4).standard_normal(
+        (SERVE_SLOTS, Q.shape[1])).astype(np.float32)
+    Xr[N_RULES + MESH_ADD_ROWS:][:SERVE_SLOTS] = (
+        Q[:SERVE_SLOTS] + 1e-3 * float(Xr.std()) * off)
     if backend == "gloo":
         # the 1M arm: PDScanning+, each rank's shard of 500,000 rows
         sess, res, fit_s, first_s = _mesh_session(corpus, Q, "PDScanning+",
@@ -2802,6 +2933,9 @@ def mesh_rank(outdir: str, backend: str) -> int:
             "layout_bytes": sum(v.nbytes for v in be._state.values()),
             "device_bytes_held": torch.cuda.memory_allocated(dev)}
         arrays["flat_1m/ids"], arrays["flat_1m/dists"] = res.ids, res.dists
+        # the same session behind the mesh service (A19)
+        rec["served_1m"], served = serve_mesh_1m(sess, Q, rank, fn)
+        arrays.update(served)
         del sess, res, be, fn
         gc.collect()
         torch.cuda.empty_cache()
@@ -2839,7 +2973,7 @@ def mesh_rank(outdir: str, backend: str) -> int:
                "uncertified_queries":
                    res.stats.extra.get("uncertified_queries")}
         if case == "add":       # last: the add grows the shared method
-            sess.add(Xr[N_RULES:])
+            sess.add(Xr[N_RULES:N_RULES + MESH_ADD_ROWS])
             arm["add_mode"] = sess.last_write_mode
             res = sess.search(Q, K)
             arm["row_block_after_add"] = sess.backend._mesh_row_block
@@ -2852,14 +2986,27 @@ def mesh_rank(outdir: str, backend: str) -> int:
             arm["one_card_same_ids"] = bool(np.array_equal(res.ids, ids))
             arm["one_card_max_rel_err"] = float(np.max(
                 np.abs(res.dists - dists) / np.maximum(dists, 1e-30)))
+        if backend == "nccl" and case == "PDScanning+":
+            # a world of one behind the service: no follower, no broadcast
+            svc = sess.serve(slots=SERVE_SLOTS, k=K)
+            reqs = [svc.submit(q) for q in Q[:nq]]
+            svc.drain()
+            arm["served_one_card_same_ids"] = all(r.done for r in reqs) \
+                and bool(np.array_equal(np.stack([r.ids for r in reqs]),
+                                        ids))
         if rank == 0:
             want = fd[:nq]
             if case == "add":
-                want = open_index(Xr, method="FDScanning").search(Q, K).ids
+                want = open_index(Xr[:N_RULES + MESH_ADD_ROWS],
+                                  method="FDScanning").search(Q, K).ids
                 arm["add_sees_new_rows"] = int((res.ids >= N_RULES).sum())
             arm["recall_vs_fdscanning"] = recall_at_k(res.ids, want)
             arm["fdscanning_same_ids"] = bool(np.array_equal(res.ids, want))
         rec["arms"][case] = arm
+        if case == "add":       # the service over the grown session
+            rec["serve_100k"] = serve_mesh_100k(
+                sess, Q, Xr[N_RULES + MESH_ADD_ROWS:], rank,
+                res.ids[:SERVE_SLOTS])
         del sess, res, fn
         gc.collect()
         torch.cuda.empty_cache()
@@ -2923,12 +3070,14 @@ def phase_mesh(X, Q, opq_snapshot, flat_ids, flat_dists, flat_rec, dev):
         rec["nccl_group_s"] = time.perf_counter() - t0
     r0, r1 = gloo[0], gloo[1]
     flat = [g["rec"]["flat_1m"] for g in gloo]
+    served = [g["rec"]["served_1m"] for g in gloo]
+    serve_100k = [g["rec"]["serve_100k"] for g in gloo]
     rec.update(gloo_1m=flat, gloo_100k=r0["rec"]["arms"],
-               nccl_100k=nccl[0]["rec"]["arms"],
-               phase_s=time.perf_counter() - t_phase)
+               nccl_100k=nccl[0]["rec"]["arms"], served_1m=served,
+               serve_100k=serve_100k, phase_s=time.perf_counter() - t_phase)
     log("mesh", **rec)
     for key in r0:
-        if key != "rec":
+        if key != "rec" and not key.startswith("served_1m/"):
             check(np.array_equal(r0[key], r1[key]),
                   f"mesh: the two ranks' {key} differ")
     check(np.array_equal(r0["flat_1m/ids"], flat_ids),
@@ -2972,6 +3121,47 @@ def phase_mesh(X, Q, opq_snapshot, flat_ids, flat_dists, flat_rec, dev):
         check(arm["one_card_same_ids"] and arm["one_card_max_rel_err"]
               <= 1e-4, f"mesh: nccl {case} differs from the one-card "
               "session")
+    # the mesh service (A19): rank 0 serves, rank 1 follows
+    s0, s1 = served
+    check(s0["n_done"] == Q.shape[0]
+          and bool(r0["served_1m/certified"].all()),
+          "mesh: a served 1M ticket was not done and certified")
+    check(np.array_equal(r0["served_1m/ids"], flat_ids),
+          "mesh: the served 1M ids differ from the flat session's")
+    check(np.allclose(r0["served_1m/dists"], flat_dists, rtol=1e-4),
+          "mesh: the served 1M distances differ from the flat session's")
+    check(s1["follow"] == {"searches": s0["steps"], "adds": 0,
+                           "failures": 0},
+          f"mesh: rank 1 did not search once per rank-0 step: "
+          f"{s1['follow']}, {s0['steps']} steps")
+    check(s0["new_graphs"] <= 1, "mesh: the served (16, D) walk was "
+          f"captured {s0['new_graphs']} times")
+    check(s0["dco_scan_launches"] > 0,
+          "mesh: the served 1M arm launched no dco_scan")
+    v0, v1 = serve_100k
+    check(v0["first_same_ids"], "mesh: the 100k service's tickets differ "
+          "from the session's ids")
+    check(v0["add_mode"] == "rebuild" and v0["after_done"]
+          and v0["after_finds_new_rows"], "mesh: the service's add did "
+          "not rebuild or the next tickets missed its rows")
+    check(v0["budget"][0] == "failed" and v0["budget"][1].startswith(
+        "ValueError: anytime deadlines are single-device"),
+        f"mesh: the budget batch did not fail as the reference's: "
+        f"{v0['budget']}")
+    check(len(v0["fault"]) == 1 and v0["fault"][0][0] == "failed"
+          and v0["fault"][0][1].startswith(
+              "MeshSearchError: the mesh search failed on rank 1: "
+              "FaultError"),
+          f"mesh: rank 1's fault did not fail its batch: {v0['fault']}")
+    check(v0["again_same_ids"], "mesh: the step after the fault differs")
+    check(max(v0["step_walls_s"]) < MESH_STEP_LIMIT_S,
+          "mesh: a served step waited for the group's timeout")
+    check(v0["steps"] == 5 and v1["follow"] == {
+        "searches": 5, "adds": 1, "failures": 2},
+        f"mesh: rank 1 did not follow the 100k service: {v1['follow']}")
+    check(nccl[0]["rec"]["arms"]["PDScanning+"]["served_one_card_same_ids"],
+          "mesh: the nccl world of one's service differs from the "
+          "one-card session")
     return rec
 
 

@@ -56,6 +56,7 @@ from repro_torch.core.stream_engine import (append_stream_blocks,
 from repro_torch.core.torch_engine import (DcoEngineConfig,
                                            _aligned_row_block,
                                            build_device_state,
+                                           exchange_failure,
                                            make_distributed_topk,
                                            rule_scalars, shard_of,
                                            two_stage_topk)
@@ -272,6 +273,7 @@ class TorchBackend:
         # mesh path: cfg -> DistributedTopK, the shard-aligned row_block
         self._mesh_fns: dict = {}
         self._mesh_row_block = None
+        self._mesh_joined = False   # this search reached the exchange
         # ---- LSM-style delta segment ----
         self._n_main = 0            # rows in the materialized main layout
         self._delta_parts = np.empty(0, np.int32)   # IVF parts of delta rows
@@ -615,7 +617,14 @@ class TorchBackend:
         serves the whole batch through it.  Deadline calls bypass it.
 
         On a mesh every rank calls this with the same queries and gets the
-        same result; deadlines raise there (``ValueError``)."""
+        same result or the same failure: deadlines raise there on every
+        rank (``ValueError``, before any collective), and a rank that
+        fails alone (a fault plan armed in its process, an error in its
+        walk) still joins the exchange with its part marked failed, so
+        every rank raises (``torch_engine.exchange_failure``)."""
+        if self.mesh is not None:
+            return self._mesh_search(Q, k, nprobe=nprobe,
+                                     deadline_s=deadline_s)
         faults.check_search(faults.active(self.policy))
         g = self.guardrail
         if g is not None and deadline_s is None:
@@ -626,6 +635,25 @@ class TorchBackend:
                                                  demoted=True),
                 plan=faults.active(self.policy))
         return self._search(Q, k, nprobe=nprobe, deadline_s=deadline_s)
+
+    def _mesh_search(self, Q, k: int, *, nprobe: int,
+                     deadline_s: float | None):
+        """:meth:`search` on a mesh (no IVF probe, no guardrail).  The
+        fault hook counts the call first, as on one device; a deadline
+        then raises on every rank alike (``_search``, after the layout, as
+        the reference), and any other error before this rank reaches the
+        exchange joins it marked failed."""
+        if deadline_s is not None:
+            faults.check_search(faults.active(self.policy))
+            return self._search(Q, k, nprobe=nprobe, deadline_s=deadline_s)
+        self._mesh_joined = False
+        try:
+            faults.check_search(faults.active(self.policy))
+            return self._search(Q, k, nprobe=nprobe)
+        except Exception as exc:        # noqa: BLE001 - joined, then raised
+            if self._mesh_joined:
+                raise
+            exchange_failure(np.atleast_2d(Q).shape[0], k, self.device, exc)
 
     def _search(self, Q, k: int, *, nprobe: int,
                 deadline_s: float | None = None, demoted: bool = False):
@@ -675,6 +703,7 @@ class TorchBackend:
                     self.mesh, cfg, tuple(self.mesh.mesh_dim_names),
                     extra_state=self._mesh_extra_state, engine=engine,
                     n_rows=self._n_main)
+            self._mesh_joined = True    # it joins the exchange, come what may
             out = self._mesh_fns[cfg](self._state, ql_t, qt_t, qe_t,
                                       blocks=self._blocks,
                                       graphs=self._graphs)

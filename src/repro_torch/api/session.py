@@ -31,11 +31,17 @@ backend over a flat, IVF or HNSW index:
     sess = open_index(path="idx.bin", device="cpu")  # ... or on the CPU
     mesh = make_host_mesh(2, 1, device_type="cuda")  # on each of 2 ranks
     shd = open_index(X, method="PDScanning+", mesh=mesh)   # one shard a rank
+    svc = shd.serve(slots=16, k=10)                  # on every rank, then
+    svc.submit(Q[0]); svc.drain(); svc.close()       # rank 0 drives it
+    svc.follow()                                     # the others follow
 
 A mesh session is collective: every rank of the mesh calls ``open_index``,
 ``search``, ``add`` and ``save`` with the same arguments and gets the same
-result; snapshots and the WAL are written by rank 0.  A mesh session is not
-served by ``SearchService`` yet (ROADMAP A19).
+result; snapshots and the WAL are written by rank 0.  Its serving front
+has one clock, rank 0's: rank 0's ``SearchService`` admits, sheds,
+expires and batches requests and broadcasts each device step, and the
+other ranks' ``follow()`` makes the same search or add until rank 0
+calls ``close()``.
 """
 from __future__ import annotations
 
@@ -208,11 +214,11 @@ class SearchSession:
     def serve(self, **kwargs) -> "SearchService":
         """Wrap this session in a continuous-batching serving front
         (``repro_torch.serving.SearchService``); kwargs are its knobs
-        (slots/k/nprobe/...).  A mesh session raises
-        ``NotImplementedError``: each rank's clock would batch, shed and
-        expire requests differently (ROADMAP A19)."""
-        if self.mesh is not None:
-            raise NotImplementedError(_MESH_SERVICE)
+        (slots/k/nprobe/...).  On a mesh every rank calls it: rank 0's
+        service serves (``submit``/``step``/``drain``/``add``/``health``,
+        then ``close()``), and every other rank calls its ``follow()``,
+        which makes the searches and adds rank 0 broadcasts until rank 0
+        closes."""
         from repro_torch.serving.search_service import SearchService
         return SearchService(self, **kwargs)
 
@@ -236,14 +242,6 @@ class SearchSession:
         ``api.IndexLoadError`` on an unreadable snapshot."""
         from repro_torch.api.persistence import load_session
         return load_session(path, backend=backend, device=device, mesh=mesh)
-
-
-#: why a mesh session has no serving front yet
-_MESH_SERVICE = (
-    "a mesh session is not served by SearchService yet: each rank's clock "
-    "would batch, shed and expire requests differently; serve it from a "
-    "service that rank 0 drives and the other ranks follow by broadcast "
-    "(ROADMAP A19)")
 
 
 def _mesh_barrier(session) -> None:
@@ -281,8 +279,8 @@ def open_index(X=None, *, index: str = "flat", method: str = "DADE",
     shards the corpus over the mesh's ranks: every rank calls
     ``open_index`` with the same arguments, fits the same method, and lays
     out only its own rows, on ``device`` (default: the card ``rank %
-    cards``).  Not with ``serving=True`` (``NotImplementedError``, ROADMAP
-    A19).
+    cards``).  With ``serving=True`` every rank gets its service: rank 0
+    drives it, the others ``follow()`` it (``SearchSession.serve``).
 
     ``path`` ties the session to a snapshot file (DESIGN.md §7).  With
     ``X=None`` the session is *loaded* from ``path`` — snapshot plus a
@@ -291,8 +289,6 @@ def open_index(X=None, *, index: str = "flat", method: str = "DADE",
     ``backend`` then overrides the saved one.  With both given, the fresh
     index is saved to ``path`` at once, arming the WAL for every later
     ``add()``."""
-    if mesh is not None and serving:
-        raise NotImplementedError(_MESH_SERVICE)
     if backend is not None and backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (expected one of "
                          f"{BACKENDS})")

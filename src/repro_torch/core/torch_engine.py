@@ -295,9 +295,10 @@ class DistributedTopK:
     graphs (``stream_topk``), built once by the caller.
 
     The exchange: each rank packs its (Q, k) distances and globalised
-    ids, its survivors and its ``dropped_min_est`` into one (Q, 2k + 2)
-    int32 buffer (the floats' bits), and one ``all_gather`` over the
-    process group gives every rank every shard's buffer; the ranks of
+    ids, its survivors, its ``dropped_min_est`` and a failure word into
+    one (Q, 2k + 3) int32 buffer (the floats' bits), and one
+    ``all_gather`` over the process group gives every rank every shard's
+    buffer; the ranks of
     this rank's replica group (same coordinates off ``shard_axes``) are
     taken in shard order, the lists merged into (Q, S * k) with column
     ``s * k + j`` and the k smallest kept in ``lax.top_k``'s order
@@ -307,6 +308,13 @@ class DistributedTopK:
     gloo group they are copied to the CPU for the exchange (gloo's CUDA
     support is partial), and the merged result is on the CPU.  A failed
     collective raises.
+
+    The ranks agree on failure: a rank whose local walk raises still
+    joins the exchange, its part marked failed by the failure word (the
+    error's text in the part's other words, see :func:`exchange_failure`),
+    and then every rank raises: the failed rank its own error, the others
+    :class:`MeshSearchError` with that text.  No rank waits for a part
+    that will not come.
 
     ``local_s`` and ``exchange_s`` are the last call's host walls: the
     local engine up to its results on the device (a synchronize), and
@@ -346,33 +354,35 @@ class DistributedTopK:
                  blocks=None, graphs=None):
         from repro_torch.core.stream_engine import _smallest, stream_topk
 
-        if state is not self._src:      # one dict, so cached graphs match
-            self._src, self._state = state, {**state, **self.extra_state}
-        st, cfg = self._state, self.cfg
         t0 = time.perf_counter()
-        if self.engine == "stream":
-            d, i, surv, _, dmin, _ = stream_topk(st, q_lead, q_tail, cfg,
-                                                 q_extra, blocks=blocks,
-                                                 graphs=graphs)
-        else:
-            d, i, surv = two_stage_topk(st, q_lead, q_tail, cfg, q_extra)
-            dmin = torch.full((d.shape[0],), float("inf"), device=d.device)
-        index, _ = shard_of(self.mesh, self.shard_axes)
-        i = i + index * state["x_lead"].shape[0]
-        k = d.shape[1]
-        packed = torch.cat([d.contiguous().view(torch.int32),
-                            i.to(torch.int32),
-                            surv.to(torch.int32)[:, None],
-                            dmin.contiguous().view(torch.int32)[:, None]], 1)
-        on_device = packed.is_cuda and "nccl" in str(dist.get_backend())
-        if packed.is_cuda:
-            torch.cuda.synchronize(packed.device)
+        try:
+            if state is not self._src:   # one dict, so cached graphs match
+                self._src, self._state = state, {**state, **self.extra_state}
+            st, cfg = self._state, self.cfg
+            if self.engine == "stream":
+                d, i, surv, _, dmin, _ = stream_topk(
+                    st, q_lead, q_tail, cfg, q_extra, blocks=blocks,
+                    graphs=graphs)
+            else:
+                d, i, surv = two_stage_topk(st, q_lead, q_tail, cfg, q_extra)
+                dmin = torch.full((d.shape[0],), float("inf"),
+                                  device=d.device)
+            index, _ = shard_of(self.mesh, self.shard_axes)
+            i = i + index * state["x_lead"].shape[0]
+            packed = torch.cat([d.contiguous().view(torch.int32),
+                                i.to(torch.int32),
+                                surv.to(torch.int32)[:, None],
+                                dmin.contiguous().view(torch.int32)[:, None],
+                                torch.zeros_like(i[:, :1], dtype=torch.int32)],
+                               1)
+            if packed.is_cuda:
+                torch.cuda.synchronize(packed.device)
+        except Exception as exc:        # noqa: BLE001 - joined, then raised
+            exchange_failure(q_lead.shape[0], self.cfg.k, q_lead.device, exc)
+        k = self.cfg.k
         t1 = time.perf_counter()
-        if packed.is_cuda and not on_device:
-            packed = packed.cpu()
-        parts = [torch.empty_like(packed)
-                 for _ in range(dist.get_world_size())]
-        dist.all_gather(parts, packed)
+        parts, on_device = _all_gather(packed)
+        _raise_failed(parts, k)
         got = torch.stack([parts[r] for r in self._replica_ranks()])
         nq = got.shape[1]
         dg = got[..., :k].view(torch.float32).permute(1, 0, 2).reshape(nq, -1)
@@ -386,3 +396,52 @@ class DistributedTopK:
         self.local_s, self.exchange_s = t1 - t0, time.perf_counter() - t1
         self.on_device = on_device
         return out
+
+
+class MeshSearchError(RuntimeError):
+    """Raised on every rank of a mesh search whose exchange carried a
+    part marked failed by another rank; the message names that rank and
+    gives its error's text."""
+
+
+def _all_gather(packed):
+    """Every rank's (Q, 2k + 3) buffer, in rank order, and whether they
+    were exchanged on the device (an nccl group; gloo gets host copies)."""
+    on_device = packed.is_cuda and "nccl" in str(dist.get_backend())
+    if packed.is_cuda and not on_device:
+        packed = packed.cpu()
+    parts = [torch.empty_like(packed) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, packed)
+    return parts, on_device
+
+
+def _raise_failed(parts, k: int) -> None:
+    """Raise :class:`MeshSearchError` when a part is marked failed."""
+    words = torch.stack([part[0, 2 * k + 2] for part in parts]).tolist()
+    for r, n in enumerate(words):
+        if n:
+            text = bytes(parts[r][:, :2 * k + 2].contiguous()
+                         .view(torch.uint8).cpu().reshape(-1)[:n - 1]
+                         .tolist())
+            raise MeshSearchError(
+                f"the mesh search failed on rank {r}: "
+                f"{text.decode('utf-8', 'replace')}")
+
+
+def exchange_failure(nq: int, k: int, device, exc: BaseException):
+    """Join a mesh search's exchange with this rank's part marked failed,
+    then raise ``exc``: a rank that fails before or during its local walk
+    calls this, so the other ranks, which reach the same ``all_gather``,
+    learn of it there and raise too, instead of waiting for the part.
+    The part is the (nq, 2k + 3) buffer of :class:`DistributedTopK`: its
+    failure word (the last column) holds 1 + the length of the error's
+    text, which fills the part's other words as UTF-8 (cut to fit)."""
+    room = nq * (2 * k + 2) * 4
+    text = f"{type(exc).__name__}: {exc}".encode()[:room]
+    body = torch.zeros(room, dtype=torch.uint8)
+    body[:len(text)] = torch.tensor(list(text), dtype=torch.uint8)
+    packed = torch.cat([body.view(torch.int32).reshape(nq, 2 * k + 2),
+                        torch.full((nq, 1), len(text) + 1,
+                                   dtype=torch.int32)], 1)
+    _all_gather(packed.to(device))
+    raise exc

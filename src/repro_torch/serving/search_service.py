@@ -57,6 +57,22 @@ Poisson arrivals against measured service times without sleeping through
 the arrival process.  A step's measured wall includes the device time:
 the torch backend's search ends in the device-to-host copy of its
 result.
+
+A mesh session (one process a rank, ``launch.mesh``) is served by one
+service a rank with one clock: rank 0's.  Every rank calls
+``session.serve(...)`` (or ``open_index(..., mesh=, serving=True)``);
+rank 0 then drives it (``submit``/``step``/``drain``/``add``/``health``,
+and ``close()`` at the end) and makes every host decision alone —
+admission, shedding, expiry, packing and the batch's budget — while the
+other ranks call ``follow()``, which returns when rank 0 closes.  Each
+device step is one broadcast from rank 0 (a fixed-size header, then the
+padded batch or the new rows: host tensors on a gloo group, device
+tensors on an nccl one), after which every rank makes the same
+``session.search`` or ``session.add`` call.  A step fails on every rank
+or on none (``backends.TorchBackend.search``), so rank 0 fails the
+batch and the followers go on to the next command.  Followers keep no
+queue and no counters and never read a clock; a world of one serves
+with no broadcast.
 """
 from __future__ import annotations
 
@@ -72,6 +88,56 @@ from repro_torch.core.engine import EXTRA_COVERAGE, EXTRA_UNCERTIFIED_MASK
 #: non-terminal one.  Exactly one terminal state per submitted request.
 REQUEST_STATUSES = ("pending", "done", "timeout", "shed", "failed")
 ADMISSION_POLICIES = ("reject", "shed_oldest")
+
+
+class _MeshChannel:
+    """Rank 0's step commands to the other ranks of a mesh session: a
+    (6,) float64 header ``[command, rows, dim, k, nprobe, budget or
+    NaN]`` and, for a search or an add, the (rows, dim) float32 payload,
+    each one broadcast from rank 0 — on the session's device for an nccl
+    group, on the host for gloo."""
+
+    STOP, SEARCH, ADD = 0, 1, 2
+
+    def __init__(self, session):
+        import torch
+        import torch.distributed as dist
+        nccl = "nccl" in str(dist.get_backend())
+        self.device = (session.backend.device if nccl
+                       else torch.device("cpu"))
+
+    def send(self, cmd: int, rows=None, *, k: int = 0, nprobe: int = 0,
+             deadline_s: float | None = None) -> None:
+        import torch
+        import torch.distributed as dist
+        n, dim = (0, 0) if rows is None else rows.shape
+        head = torch.tensor(
+            [cmd, n, dim, k, nprobe,
+             float("nan") if deadline_s is None else deadline_s],
+            dtype=torch.float64, device=self.device)
+        dist.broadcast(head, 0)
+        if rows is not None:
+            # the raw buffer goes out: a padded batch may be laid out
+            # column-major (np.concatenate keeps a broadcast's order)
+            rows = np.ascontiguousarray(rows, np.float32)
+            dist.broadcast(torch.from_numpy(rows).to(self.device), 0)
+
+    def recv(self):
+        """The next command: (command, rows or None, k, nprobe,
+        budget or None)."""
+        import torch
+        import torch.distributed as dist
+        head = torch.empty(6, dtype=torch.float64, device=self.device)
+        dist.broadcast(head, 0)
+        cmd, n, dim, k, nprobe, budget = head.tolist()
+        rows = None
+        if cmd != self.STOP:
+            buf = torch.empty((int(n), int(dim)), dtype=torch.float32,
+                              device=self.device)
+            dist.broadcast(buf, 0)
+            rows = buf.cpu().numpy()
+        return (int(cmd), rows, int(k), int(nprobe),
+                None if np.isnan(budget) else budget)
 
 
 @dataclass
@@ -126,6 +192,10 @@ class SearchService:
     queue policy (``"reject"`` the newcomer or ``"shed_oldest"`` victim),
     and ``deadline_s`` is the default per-request budget — queued past it
     resolves ``timeout``, served near it runs as an anytime partial scan.
+
+    Over a mesh session of several ranks, rank 0's service is the one
+    that serves (and ``close()``s it); every other rank's only call is
+    ``follow()`` (see the module docstring).
     """
 
     def __init__(self, session, *, slots: int = 16, k: int = 10,
@@ -167,6 +237,24 @@ class SearchService:
         self.failures = 0            # requests lost to a device-step error
         self._lat_window: deque[float] = deque(maxlen=128)
         self._p99_ewma: float | None = None
+        # a mesh session: rank 0 leads, the other ranks follow
+        self.rank, self._channel, self._closed = 0, None, False
+        if getattr(session, "mesh", None) is not None:
+            import torch.distributed as dist
+            self.rank = dist.get_rank()
+            if dist.get_world_size() > 1:
+                self._channel = _MeshChannel(session)
+
+    def _lead(self, op: str) -> None:
+        """Refuse ``op`` on a follower, and (``health`` aside) on a
+        closed service."""
+        if self.rank != 0:
+            raise RuntimeError(
+                f"{op}() on rank {self.rank}: a mesh session's service is "
+                "driven by rank 0 alone; call follow() on this rank")
+        if self._closed and op != "health":
+            raise RuntimeError(f"{op}() after close(): the other ranks "
+                               "have stopped following")
 
     # -- admission -----------------------------------------------------------
     @property
@@ -183,6 +271,7 @@ class SearchService:
         ``admission="reject"`` it resolves immediately as ``shed`` — check
         ``req.resolved``.  ``deadline_s`` overrides the service default
         budget for this request."""
+        self._lead("submit")
         q = np.asarray(q, np.float32).reshape(-1)
         if q.shape[0] != self.session.dim:
             raise ValueError(
@@ -216,8 +305,15 @@ class SearchService:
 
     def add(self, Xnew, *, now: float | None = None) -> dict:
         """Insert rows through the session's delta write path; returns
-        ``{"rows", "mode", "wall_s"}`` (mode per backends.notify_append)."""
+        ``{"rows", "mode", "wall_s"}`` (mode per backends.notify_append).
+        On a mesh the rows go to every rank first; each rank's ``add``
+        then raises alike on rows it refuses."""
+        self._lead("add")
         t0 = time.perf_counter()
+        if self._channel is not None:
+            rows = np.atleast_2d(np.asarray(Xnew))
+            if rows.ndim == 2 and rows.dtype.kind in "fiu":
+                self._channel.send(_MeshChannel.ADD, rows)
         self.session.add(Xnew)
         wall = time.perf_counter() - t0
         mode = self.session.last_write_mode
@@ -267,6 +363,9 @@ class SearchService:
         fails the batch; raisers may attach ``wall_s`` to the exception to
         charge the time the failure consumed."""
         t0 = time.perf_counter()
+        if self._channel is not None:
+            self._channel.send(_MeshChannel.SEARCH, Q, k=self.k,
+                               nprobe=self.nprobe, deadline_s=deadline_s)
         res = self.session.search(Q, self.k, nprobe=self.nprobe,
                                   deadline_s=deadline_s)
         return res, time.perf_counter() - t0
@@ -287,6 +386,7 @@ class SearchService:
         ``now + measured_service_wall``; otherwise the real clock is used.
         Returns every request *resolved* by this step — served ones plus
         any that timed out in the queue ([] when nothing was pending)."""
+        self._lead("step")
         t_now = self._clock() if now is None else now
         resolved = self._expire_queued(t_now)
         if not self._queue:
@@ -357,6 +457,7 @@ class SearchService:
         finished).  Budget-expired requests resolve ``timeout`` instead of
         being served, so drain always terminates even mid-overload.
         Returns all resolved requests in resolution order."""
+        self._lead("drain")
         served: list[SearchRequest] = []
         t = now
         while self._queue:
@@ -365,6 +466,40 @@ class SearchService:
                 t = max(r.t_done for r in batch)
             served.extend(batch)
         return served
+
+    # -- the mesh's other ranks -----------------------------------------------
+    def follow(self) -> dict:
+        """On a mesh rank other than 0: make every search and add that
+        rank 0's service broadcasts, until rank 0 calls ``close()``.  A
+        command that raises here raised on rank 0 too (the step failed
+        on every rank), so the loop goes on to the next; a failed
+        broadcast raises.  Returns ``{"searches", "adds", "failures"}``:
+        the commands made and how many of them raised."""
+        if self.rank == 0:
+            raise RuntimeError("follow() is for the mesh's ranks other than "
+                               "0; rank 0 drives the service")
+        done = {"searches": 0, "adds": 0, "failures": 0}
+        while True:
+            cmd, rows, k, nprobe, budget = self._channel.recv()
+            if cmd == _MeshChannel.STOP:
+                return done
+            try:
+                if cmd == _MeshChannel.SEARCH:
+                    done["searches"] += 1
+                    self.session.search(rows, k, nprobe=nprobe,
+                                        deadline_s=budget)
+                else:
+                    done["adds"] += 1
+                    self.session.add(rows)
+            except Exception:           # noqa: BLE001 - rank 0 failed it too
+                done["failures"] += 1
+
+    def close(self) -> None:
+        """On rank 0 of a mesh: tell the followers to stop (their
+        ``follow()`` returns); a no-op elsewhere and when called again."""
+        if self.rank == 0 and self._channel is not None and not self._closed:
+            self._channel.send(_MeshChannel.STOP)
+            self._closed = True
 
     # -- observability --------------------------------------------------------
     def health(self) -> dict:
@@ -380,6 +515,7 @@ class SearchService:
         ...)``, DESIGN.md §9), the snapshot also reports its breaker state
         and sentinel/audit EWMAs under ``breaker_state`` / ``drift_score``
         / ``audit_recall`` / ``demoted_batches``."""
+        self._lead("health")
         h = {
             "queue_depth": len(self._queue),
             "p99_ewma_s": self._p99_ewma,

@@ -876,6 +876,38 @@ def test_nccl_world_one_mesh_equals_one_device(cuda_device, method):
 
 
 @pytest.mark.cuda
+def test_nccl_world_one_mesh_service_equals_one_device(cuda_device):
+    """The service over a 1 x 1 mesh of a one-rank NCCL group serves with
+    no follower and no broadcast: its tickets carry the single-device
+    session's ids, and ``follow()`` on rank 0 refuses."""
+    import torch.distributed as dist
+    from repro_torch.api import SchedulePolicy, open_index
+    from repro_torch.launch import make_host_mesh
+    rng = np.random.default_rng(_seed("cuda-nccl-service"))
+    X = rng.normal(size=(3000, 64)).astype(np.float32)
+    Q = rng.normal(size=(13, 64)).astype(np.float32)
+    pol = SchedulePolicy(d1=32, query_chunk=8)
+    want = open_index(X, method="PDScanning+", schedule=pol).search(Q, 10)
+    mesh = make_host_mesh(1, 1, device_type="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        svc = open_index(X, method="PDScanning+", schedule=pol, mesh=mesh,
+                         serving=True, serving_params={"slots": 8, "k": 10})
+        reqs = [svc.submit(q) for q in Q]
+        svc.drain()
+        with pytest.raises(RuntimeError, match="rank 0 drives"):
+            svc.follow()
+        svc.close()
+    finally:
+        dist.destroy_process_group()
+    assert [r.status for r in reqs] == ["done"] * len(Q)
+    assert svc.health()["steps"] == 2
+    np.testing.assert_array_equal(np.stack([r.ids for r in reqs]), want.ids)
+    np.testing.assert_allclose(np.stack([r.dists for r in reqs]), want.dists,
+                               rtol=1e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dco_attention_on_the_card_matches_cpu(cuda_device, dtype):
     """The screened and the exact decode attention on the card against

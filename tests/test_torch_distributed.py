@@ -228,10 +228,6 @@ def _rank_main(outdir: str, world: int) -> None:
                                                  deadline_s=1.0)),
             host=_refuse(lambda: open_index(ds.X, method="PDScanning+",
                                             backend="host", mesh=mesh)),
-            serving=_refuse(lambda: open_index(
-                ds.X, method="PDScanning+", mesh=mesh, device="cpu",
-                serving=True)),
-            serve=_refuse(lambda: sess.serve(slots=4, k=K)),
             world=_refuse(lambda: make_host_mesh(4, 1, device_type="cpu")),
             device=_refuse(lambda: open_index(
                 ds.X, method="PDScanning+", mesh=mesh, device="meta")),
@@ -453,15 +449,12 @@ def test_ranks_load_neither_jax_nor_the_reference(world, world2, world4):
 
 
 @pytest.mark.parametrize("case,exc,match", [
-    ("serving", "NotImplementedError", "ROADMAP A19"),
-    ("serve", "NotImplementedError", "ROADMAP A19"),
     ("world", "RuntimeError", "needs 4 ranks, have 2"),
     ("device", "ValueError", "'cpu' mesh cannot serve"),
     ("card", "RuntimeError", "runs on a CUDA device"),
 ])
 def test_mesh_port_refusals(case, exc, match, world2):
-    """What the port refuses on a mesh besides the reference's: a serving
-    front (each rank's clock would batch differently; ROADMAP A19), a mesh
+    """What the port refuses on a mesh besides the reference's: a mesh
     larger than the world, and a device of another type than the mesh's;
     without ``device=`` a mesh session asks for the card, which this
     machine lacks."""

@@ -121,13 +121,20 @@ def check_step(arch, cfg, ref_new, ref_m, new, m):
 
 
 # ------------------------------------------------------------ one step ---
-@pytest.mark.parametrize("arch", FAMILY_ARCHS)
-def test_one_step_matches_reference(arch):
+def one_step_case(arch):
     """One step with ``remat="block"`` on both sides, from one state."""
     batch = make_batch(smoke_config(arch))
     state, ref_new, ref_m = ref_step(arch, batch)
     cfg, _, new, m = port_step(arch, state, batch)
     check_step(arch, cfg, ref_new, ref_m, new, m)
+
+
+@pytest.mark.parametrize("arch", [a for a in FAMILY_ARCHS
+                                  if a not in ROUTED_ARCHS])
+def test_one_step_matches_reference(arch):
+    """One step with ``remat="block"`` on both sides, from one state
+    (the routed families': ``tests/test_torch_train_step_routed.py``)."""
+    one_step_case(arch)
 
 
 @pytest.mark.parametrize("microbatches", [1, 4])
