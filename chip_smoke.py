@@ -213,7 +213,17 @@ Phases, one JSON line each:
               one NCCL rank at 100k (PDScanning+, DDCres, DADE) with the
               exchange on device tensors; every arm held against the same
               method on one card at the shard's row block, the exact rules
-              against FDScanning's ids;
+              against FDScanning's ids; then the mesh behind the serving
+              front (rank 0 drives SearchService, rank 1 follows): the 1M
+              session under 100 Poisson requests, at 100k an add, a
+              budget and a fault on rank 1 alone; then the replica tier
+              over mesh sessions: replicate mode over two 1M sessions (a
+              slow replica hedged, replica 0 killed, ejected, revived and
+              readmitted; every done ticket the flat session's ids, rank
+              1 searching once per rank-0 device dispatch, 125 dco_scan
+              launches a rank and dispatch), shard mode over 3 mesh
+              sessions at 100k (healthy, shard 1 dead, revived, an add to
+              the tail shard), and a tier on the NCCL world of one;
  28. attention DCO-screened decode attention at Qwen3-4B's decode shapes
               (B 8, 32 heads, 8 KV heads, head_dim 128, a 32,768-position
               bf16 cache, ragged cur_len): cap = S against exact
@@ -259,7 +269,8 @@ Phases, one JSON line each:
               unprofiled step, top ops).
 Then the kernel table (with each kernel's launches a batch on the main,
 IVF, adaptive and anytime paths, a 16-query step of the serving arm and,
-for dco_scan, a rank's batch on the 2-rank mesh),
+for dco_scan, a rank's batch on the 2-rank mesh and a rank's 16-query
+dispatch of the replica tier over it),
 the nvidia-smi line and the result line.  Every
 check raises on failure, so the script exits nonzero; without a CUDA card,
 or without the repo beside it, it prints no result and exits nonzero.
@@ -411,6 +422,21 @@ def nearest(d2, k: int = K):
     return np.take_along_axis(part, order, 1)
 
 
+def _near_a_gate(x, q, tau, sc, block_d: int, partial):
+    """Pairs whose estimate lies within rounding of tau (1e-4 of it) at
+    some gate of the staged scan: after each dim block the gate decides
+    whether the pair's next block is summed at all, so a pair within
+    rounding of tau at an early gate may end on either side of the last
+    one.  ``partial`` (the plain version's) gives the last gate."""
+    import torch
+    tol = 1e-4 * tau.abs()[None, :]
+    near = (partial * sc[-1] - tau[None, :]).abs() <= tol
+    for di, hi in enumerate(range(block_d, x.shape[1], block_d)):
+        prefix = torch.cdist(x[:, :hi], q[:, :hi]) ** 2
+        near |= (prefix * sc[di] - tau[None, :]).abs() <= tol
+    return near
+
+
 def phase_parity(dev):
     """Each kernel against its plain version on the card."""
     import numpy as np
@@ -460,8 +486,7 @@ def phase_parity(dev):
                                                block_n=256, block_d=block_d)
                 wp, wk, _, _ = dco_scan_plain(x, q, tau, sc, widths, nr,
                                               block_n=256, block_d=block_d)
-                est = wp * sc[-1]
-                near = (est - tau[None, :]).abs() <= 1e-4 * tau.abs()[None, :]
+                near = _near_a_gate(x, q, tau, sc, block_d, wp)
                 check(not bool(((gk != wk) & ~near).any()),
                       f"dco_scan keep differs away from tau (d1={d1} {kind})")
                 both = (gk == 1) & (wk == 1)
@@ -2865,6 +2890,195 @@ def serve_mesh_100k(sess, Q, rows, rank: int, before_ids):
         "seconds": time.perf_counter() - t0}
 
 
+#: the 1M tier's slow replica stalls this many calibrated steps (virtual)
+TIER_SLOW_STEPS = 10.0
+#: passes of one step each that the tier may take to readmit a replica
+TIER_PROBE_PASSES = 16
+
+
+def tier_mesh_1m(sess, Q, rank: int, mesh):
+    """The replica tier over mesh sessions (A29) at 1M: replica 0 is the
+    served arm's session, replica 1 a second session of the same fitted
+    method.  Rank 0 calibrates the tier's capacity on its own steps, then
+    submits the queries as a Poisson stream at LAMBDA_FRACTION of it in
+    simulated time: replica 1 stalls TIER_SLOW_STEPS steps (virtual) for
+    two steps, so a hedge fires, then replica 0 is killed until the tier
+    ejects it and revived; one-step passes then probe it until it is
+    readmitted.  Rank 1 follows.  Returns (record, rank 0's done
+    tickets' ids and query indices)."""
+    import gc
+
+    import torch
+    from repro_torch.kernels import dco_scan as dco_mod
+    from repro_torch.serving import ReplicatedService
+
+    t0 = time.perf_counter()
+    second, _, _, first_s = _mesh_session(None, Q[:SERVE_SLOTS],
+                                          "PDScanning+", mesh,
+                                          fitted=sess.method)
+    build_s = time.perf_counter() - t0
+    dco_mod.launches = 0
+    svc = ReplicatedService([sess, second], slots=SERVE_SLOTS, k=K)
+    if rank:
+        rec = {"follow": svc.follow(), "dco_scan_launches": dco_mod.launches}
+    else:
+        rec = _tier_1m_stream(svc, Q)
+        rec["second_first_search_s"] = first_s
+    rec.update(build_s=build_s, seconds=time.perf_counter() - t0)
+    arrays = rec.pop("arrays", {})
+    del svc, second
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, arrays
+
+
+def _tier_1m_stream(svc, Q) -> dict:
+    """Rank 0's side of :func:`tier_mesh_1m`."""
+    import numpy as np
+    from repro_torch.kernels import dco_scan as dco_mod
+    from repro_torch.testing import FaultPlan, faults
+
+    steady, _, cal = calibrate(svc, Q)
+    lam = LAMBDA_FRACTION * SERVE_SLOTS / steady
+    rng = np.random.default_rng(SERVE_SEED + 5)
+    arrivals = np.cumsum(rng.exponential(1.0 / lam, Q.shape[0]))
+    r0, walls, events = svc.replicas[0], [], []
+    slow = FaultPlan(slow_replica=1, slow_replica_s=TIER_SLOW_STEPS * steady)
+    kill = FaultPlan(dead_replica=0, fail_replica_after=1)
+
+    def revive(n):
+        if faults.active() is kill and r0.state == "open":
+            faults.install(None)    # ejected: revive it
+            events.append((n, "revive"))
+
+    def on_step(batch):
+        walls.append(max(r.service_s for r in batch))
+        n = len(walls)
+        if n in (2, 4):             # slow for steps 3-4, then the kill
+            faults.install(slow if n == 2 else kill)
+            events.append((n, "slow" if n == 2 else "kill"))
+        revive(n)
+
+    prev = faults.install(None)
+    try:
+        served, rid_to_q, _ = simulate(svc, Q, list(range(Q.shape[0])),
+                                       arrivals, [], on_step=on_step)
+        done = served_only(served)
+        qidx = [rid_to_q[r.rid] for r in done]
+        t, passes = arrivals[-1] + 10.0, []
+        for p in range(TIER_PROBE_PASSES):   # eject, then readmit it
+            if faults.active() is None and r0.state == "closed":
+                break
+            qs = [(SERVE_SLOTS * p + j) % Q.shape[0]
+                  for j in range(SERVE_SLOTS)]
+            reqs, real, _ = serve_pass(svc, Q[qs], t + p)
+            passes.append({"real_s": real, "state": r0.state})
+            done += served_only(reqs)
+            qidx += qs
+            revive(len(walls) + len(passes))
+    finally:
+        faults.install(prev)
+    svc.close()
+    tier = tier_record(svc)
+    searched = [rs["dispatches"] - rs["failures"] for rs in tier["replicas"]]
+    t_done = [r.t_done for r in served if r.status == "done"]
+    t_sub = [r.t_submit for r in served if r.status == "done"]
+    return {
+        "slots": SERVE_SLOTS, "n_requests": int(Q.shape[0]),
+        "calibration": dict(cal, steady_step_s=steady), "offered_qps": lam,
+        "n_stream_done": len(t_done),
+        "stream_statuses": sorted({r.status for r in served}),
+        "events": events, "probe_passes": passes, "steps": svc.steps,
+        "step_walls_s": walls,
+        "step_wall_p50_ms": float(1e3 * np.median(walls)),
+        "step_wall_p99_ms": float(1e3 * np.quantile(walls, 0.99)),
+        "sustained_qps": len(t_done) / (max(t_done) - min(t_sub)),
+        **percentiles_ms(r.latency_s for r in served if r.status == "done"),
+        "tier": tier, "device_searches": searched,
+        "dco_scan_launches": dco_mod.launches,
+        "dco_scan_launches_per_dispatch": dco_mod.launches / sum(searched),
+        "arrays": {"tier_1m/ids": np.stack([r.ids for r in done]),
+                   "tier_1m/qidx": np.asarray(qidx)}}
+
+
+def tier_mesh_100k(X, Q, rows, rank: int, mesh, dev):
+    """The replica tier over mesh sessions (A29) in shard mode: the
+    N_RULES rows in REPLICAS contiguous mesh sessions; a pass healthy,
+    one with shard 1 dead, passes until it is readmitted, then an add of
+    ``rows`` (the first SERVE_SLOTS of them each a step off a query) to
+    the tail shard and a pass over the first SERVE_SLOTS queries.  Rank
+    1 follows.  Returns the record."""
+    import numpy as np
+    from repro_torch.serving import ReplicatedService
+    from repro_torch.testing import FaultPlan, faults
+
+    t0 = time.perf_counter()
+    # each shard's rows a multiple of the world: a mesh shards evenly
+    world = mesh.size()
+    bounds = world * np.linspace(0, X.shape[0] // world,
+                                 REPLICAS + 1).astype(int)
+    shards = [_mesh_session(X[lo:hi], Q[:SERVE_SLOTS], "PDScanning+",
+                            mesh)[0] for lo, hi in zip(bounds, bounds[1:])]
+    svc = ReplicatedService(shards, mode="shard", slots=SERVE_SLOTS, k=K)
+    build_s = time.perf_counter() - t0
+    if rank:
+        return {"follow": svc.follow(), "build_s": build_s,
+                "seconds": time.perf_counter() - t0}
+    d2 = distances64(X, Q, dev)
+    full = nearest(d2)
+    d2[:, bounds[1]:bounds[2]] = np.inf
+    live = nearest(d2)
+    del d2
+    rec = {"build_s": build_s, "rows": [rs.rows for rs in svc.replicas],
+           "id_offsets": [rs.id_offset for rs in svc.replicas]}
+
+    def record(reqs, real, want):
+        ids = np.stack([r.ids for r in reqs])
+        return {"real_s": real,
+                "statuses": sorted({r.status for r in reqs}),
+                "coverage": sorted({float(r.coverage) for r in reqs}),
+                # the shards' fractions sum in float32, as the reference's
+                "full_coverage": int(sum(abs(r.coverage - 1.0) < 1e-6
+                                         for r in reqs)),
+                "certified": int(sum(r.certified is True for r in reqs)),
+                "degraded": int(sum(r.stats.get("degraded") == 1.0
+                                    for r in reqs)),
+                "same_sets": int(same_sets(ids, want).sum()),
+                "same_in_order": int((ids == want).all(1).sum())}
+
+    reqs, real, _ = serve_pass(svc, Q, 0.0)
+    rec["healthy"] = record(reqs, real, full)
+    prev = faults.install(FaultPlan(dead_replica=1))
+    try:
+        reqs, real, _ = serve_pass(svc, Q, 10.0)
+    finally:
+        faults.install(prev)
+    rec["dead_1"] = record(reqs, real, live)
+    rec["coverage_expected"] = float(
+        (X.shape[0] - svc.replicas[1].rows) / X.shape[0])
+    rec["revived"] = []
+    for p in range(4):
+        reqs, real, _ = serve_pass(svc, Q, 20.0 + 10 * p)
+        rec["revived"].append(dict(record(reqs, real, full),
+                                   state=svc.replicas[1].state))
+        if svc.replicas[1].state == "closed" \
+                and rec["revived"][-1]["full_coverage"] == Q.shape[0]:
+            break
+    info = svc.add(rows)
+    reqs, real, _ = serve_pass(svc, Q[:SERVE_SLOTS], 100.0)
+    rec["add"] = {"mode": info["mode"], "wall_s": info["wall_s"],
+                  "tail_rows": svc.replicas[-1].rows, "real_s": real,
+                  "statuses": sorted({r.status for r in reqs}),
+                  "first_ids": [int(r.ids[0]) for r in reqs],
+                  "certified": int(sum(r.certified is True for r in reqs))}
+    svc.close()
+    rec["tier"] = tier_record(svc)
+    rec["device_searches"] = [rs["dispatches"] - rs["failures"]
+                              for rs in rec["tier"]["replicas"]]
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
 def mesh_rank(outdir: str, backend: str) -> int:
     """One rank of the ``mesh`` phase, started by :func:`phase_mesh` as
     ``chip_smoke.py --mesh-rank OUTDIR BACKEND``: with gloo (two ranks on
@@ -2884,6 +3098,7 @@ def mesh_rank(outdir: str, backend: str) -> int:
     from repro_torch.kernels import dco_scan as dco_mod
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.ranks import join
+    from repro_torch.serving import ReplicatedService
     from repro_torch.vecdata import recall_at_k
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2936,6 +3151,9 @@ def mesh_rank(outdir: str, backend: str) -> int:
         # the same session behind the mesh service (A19)
         rec["served_1m"], served = serve_mesh_1m(sess, Q, rank, fn)
         arrays.update(served)
+        # and as replica 0 of a tier over two mesh sessions (A29)
+        rec["tier_1m"], tier = tier_mesh_1m(sess, Q, rank, mesh)
+        arrays.update(tier)
         del sess, res, be, fn
         gc.collect()
         torch.cuda.empty_cache()
@@ -2994,6 +3212,18 @@ def mesh_rank(outdir: str, backend: str) -> int:
             arm["served_one_card_same_ids"] = all(r.done for r in reqs) \
                 and bool(np.array_equal(np.stack([r.ids for r in reqs]),
                                         ids))
+            # a tier over two sessions of the world of one: no channel
+            tier = ReplicatedService(
+                [sess, SearchSession(sess.method, sess.policy, mesh=mesh)],
+                slots=SERVE_SLOTS, k=K)
+            reqs = [tier.submit(q) for q in Q[:nq]]
+            tier.drain()
+            arm["tier_one_rank"] = {
+                "channel": tier._channel is not None,
+                "replicas": sorted({r.stats["replica"] for r in reqs}),
+                "same_ids": all(r.done for r in reqs) and bool(
+                    np.array_equal(np.stack([r.ids for r in reqs]), ids))}
+            del tier
         if rank == 0:
             want = fd[:nq]
             if case == "add":
@@ -3010,6 +3240,9 @@ def mesh_rank(outdir: str, backend: str) -> int:
         del sess, res, fn
         gc.collect()
         torch.cuda.empty_cache()
+    if backend == "gloo":       # the replica tier in shard mode (A29)
+        rec["tier_100k"] = tier_mesh_100k(
+            X, Q, Xr[N_RULES + MESH_ADD_ROWS:], rank, mesh, dev)
     arrays["rec"] = np.asarray(json.dumps(rec))
     np.savez(Path(outdir) / f"rank{rank}.npz", **arrays)
     dist.destroy_process_group()
@@ -3074,10 +3307,13 @@ def phase_mesh(X, Q, opq_snapshot, flat_ids, flat_dists, flat_rec, dev):
     serve_100k = [g["rec"]["serve_100k"] for g in gloo]
     rec.update(gloo_1m=flat, gloo_100k=r0["rec"]["arms"],
                nccl_100k=nccl[0]["rec"]["arms"], served_1m=served,
-               serve_100k=serve_100k, phase_s=time.perf_counter() - t_phase)
+               serve_100k=serve_100k,
+               tier_1m=[g["rec"]["tier_1m"] for g in gloo],
+               tier_100k=[g["rec"]["tier_100k"] for g in gloo],
+               phase_s=time.perf_counter() - t_phase)
     log("mesh", **rec)
     for key in r0:
-        if key != "rec" and not key.startswith("served_1m/"):
+        if key != "rec" and not key.startswith(("served_1m/", "tier_1m/")):
             check(np.array_equal(r0[key], r1[key]),
                   f"mesh: the two ranks' {key} differ")
     check(np.array_equal(r0["flat_1m/ids"], flat_ids),
@@ -3162,7 +3398,62 @@ def phase_mesh(X, Q, opq_snapshot, flat_ids, flat_dists, flat_rec, dev):
     check(nccl[0]["rec"]["arms"]["PDScanning+"]["served_one_card_same_ids"],
           "mesh: the nccl world of one's service differs from the "
           "one-card session")
+    check_mesh_tiers(r0, r1, nccl[0], flat_ids, Q.shape[0])
     return rec
+
+
+def check_mesh_tiers(r0, r1, one, flat_ids, nq: int) -> None:
+    """The replica tier over mesh sessions (A29): the gloo pair's 1M
+    replicate arm and 100k shard arm, and the NCCL world of one."""
+    import numpy as np
+    t0, t1 = r0["rec"]["tier_1m"], r1["rec"]["tier_1m"]
+    tier, rep0 = t0["tier"], t0["tier"]["replicas"][0]
+    check(t0["stream_statuses"] == ["done"] and tier["failures"] == 0,
+          f"mesh tier: a 1M ticket was not done: {t0['stream_statuses']}")
+    check(np.array_equal(r0["tier_1m/ids"], flat_ids[r0["tier_1m/qidx"]]),
+          "mesh tier: a 1M ticket's ids differ from the flat session's")
+    check(tier["hedges"] >= 1 and tier["hedge_wins"] >= 1,
+          f"mesh tier: the slow replica was not hedged: {t0['events']}")
+    moves = [(m["from"], m["to"]) for m in rep0["transitions"]]
+    check(("closed", "open") in moves and ("half_open", "closed") in moves
+          and rep0["state"] == "closed" and tier["retries"] >= 1,
+          f"mesh tier: replica 0 was not ejected and readmitted: {moves}")
+    follow = t1["follow"]
+    check([f["searches"] for f in follow["replicas"]]
+          == t0["device_searches"] and follow["failures"] == 0
+          and follow["adds"] == 0,
+          f"mesh tier: rank 1 did not search once per rank-0 device "
+          f"dispatch: {follow}, {t0['device_searches']}")
+    check(t0["dco_scan_launches_per_dispatch"] == 125
+          and t1["dco_scan_launches"] == 125 * sum(t0["device_searches"]),
+          "mesh tier: not 125 dco_scan launches a rank and dispatch: "
+          f"{t0['dco_scan_launches']}, {t1['dco_scan_launches']}")
+    v, f = r0["rec"]["tier_100k"], r1["rec"]["tier_100k"]
+    healthy, dead, last = v["healthy"], v["dead_1"], v["revived"][-1]
+    check(healthy["statuses"] == ["done"] and healthy["same_sets"] == nq
+          and healthy["certified"] == nq and healthy["full_coverage"] == nq,
+          f"mesh shard tier: healthy answers differ: {healthy}")
+    check(dead["statuses"] == ["done"] and dead["degraded"] == nq
+          and dead["certified"] == 0 and dead["same_sets"] == nq
+          and all(abs(c - v["coverage_expected"]) < 1e-6
+                  for c in dead["coverage"]),
+          f"mesh shard tier: a dead shard's batches are wrong: {dead}")
+    check(last["state"] == "closed" and last["full_coverage"] == nq
+          and last["same_sets"] == nq and last["certified"] == nq,
+          f"mesh shard tier: revival did not restore full answers: {last}")
+    add = v["add"]
+    check(add["mode"] == "rebuild" and add["statuses"] == ["done"]
+          and add["first_ids"] == [N_RULES + j for j in range(SERVE_SLOTS)],
+          f"mesh shard tier: the add's rows were not found: {add}")
+    check([x["searches"] for x in f["follow"]["replicas"]]
+          == v["device_searches"]
+          and [x["adds"] for x in f["follow"]["replicas"]] == [0, 0, 1]
+          and f["follow"]["failures"] == 0 and v["tier"]["failures"] == 0,
+          f"mesh shard tier: rank 1 did not follow: {f['follow']}")
+    one = one["rec"]["arms"]["PDScanning+"]["tier_one_rank"]
+    check(not one["channel"] and one["same_ids"]
+          and one["replicas"] == [0.0, 1.0],
+          f"mesh tier: the nccl world of one's tier is wrong: {one}")
 
 
 # ------------------------------------------------------------- attention ---
@@ -5871,6 +6162,9 @@ def main() -> int:
     # each rank's launches on a 100-query batch of the 2-rank 1M mesh
     rows["dco_scan"]["launches_mesh_per_rank"] = \
         mesh_rec["gloo_1m"][0]["dco_scan_launches_per_batch"]
+    # ... and on each 16-query dispatch of the replica tier over it
+    rows["dco_scan"]["launches_mesh_tier_per_dispatch"] = \
+        mesh_rec["tier_1m"][0]["dco_scan_launches_per_dispatch"]
     # a 16-query step of the fixed serving arm (the median over its steps)
     for kernel in rows:
         rows[kernel]["launches_serving"] = \

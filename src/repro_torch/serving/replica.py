@@ -9,6 +9,19 @@ race's winner), while each replica's own dispatch ends in its search's
 device-to-host copy, so its measured wall includes its device time.  On
 one card every replica holds its own layout, graphs and pools.
 
+A replica may be a mesh session (``launch.mesh``, one process a rank).
+Every rank then builds the same sessions in the same order and the same
+``ReplicatedService``; rank 0 drives it and every other rank calls
+``follow()`` (``serving.search_service``).  Routing, retries, hedges,
+breakers, the timer and the fault hooks of the tier run on rank 0
+alone; each dispatch that reaches a mesh replica's device, and each
+add it applies, is first broadcast with the replica's index, so the
+followers make the same sequence of mesh walks.  A replica that the
+fault plan kills fails before the broadcast, and a search that fails on
+any rank fails on all (``torch_engine.MeshSearchError``), which rank 0
+counts as that replica's failure.  A one-card replica in the same tier
+is searched on rank 0 alone.
+
 The paper's verdict — DCO performance is unstable across hardware and
 workloads — lands hardest in the deployment the "Bang for the Buck"
 follow-up measures: noisy multi-tenant cloud hosts, where slow and dead
@@ -78,7 +91,9 @@ from repro_torch.core.engine import (EXTRA_COVERAGE, EXTRA_DEGRADED,
                                      EXTRA_UNCERTIFIED_MASK,
                                      EXTRA_UNCERTIFIED_QUERIES, ScanStats)
 from repro_torch.core.guardrails import BreakerCore
-from repro_torch.serving.search_service import SearchService
+from repro_torch.serving.search_service import (FOLLOW_COUNTS, SearchService,
+                                                _mesh_roles, _MeshChannel,
+                                                spans_ranks)
 from repro_torch.testing import faults
 
 REPLICA_MODES = ("replicate", "shard")
@@ -145,6 +160,7 @@ class ReplicaState:
         self.session = session
         self.id_offset = int(id_offset)   # global id of the shard's row 0
         self.rows = int(session.n)        # rows this replica serves
+        self.on_mesh = spans_ranks(session)   # its calls are broadcast
         self.breaker = BreakerCore()
         self.consecutive_failures = 0
         self.promote_streak = 0           # successes while half_open
@@ -219,6 +235,8 @@ class ReplicatedService(SearchService):
             raise ValueError(
                 f"replica sessions disagree on D: {sorted(dims)}")
         super().__init__(sessions[0], **kwargs)
+        # any replica on the mesh opens the channel, not only the first
+        self.rank, self._channel = _mesh_roles(sessions)
         self.mode = mode
         self.rpolicy = replica_policy or ReplicaPolicy()
         self._rng = rng if rng is not None \
@@ -310,15 +328,20 @@ class ReplicatedService(SearchService):
     def _replica_search(self, rs: ReplicaState, Q, deadline_s):
         """One dispatch against one replica: fault hooks first (a dead
         replica fails before touching the device, like a broken
-        connection), then the real search.  Returns ``(result, wall)``;
-        raisers carry ``wall_s``.  The wall is measured, then overridden
-        by the injected ``timer`` (determinism), then charged the
-        slow-replica fault stall (virtual, never slept)."""
+        connection), then the real search — on a mesh replica, after the
+        broadcast that makes the other ranks join it.  Returns ``(result,
+        wall)``; raisers carry ``wall_s``.  The wall is measured, then
+        overridden by the injected ``timer`` (determinism), then charged
+        the slow-replica fault stall (virtual, never slept)."""
         plan = faults.active(rs.session.policy)
         rs.dispatches += 1
         t0 = time.perf_counter()
         try:
             faults.check_replica(plan, rs.idx)
+            if rs.on_mesh:
+                self._channel.send(_MeshChannel.SEARCH, Q, replica=rs.idx,
+                                   k=self.k, nprobe=self.nprobe,
+                                   deadline_s=deadline_s)
             res = rs.session.search(Q, self.k, nprobe=self.nprobe,
                                     deadline_s=deadline_s)
         except Exception as exc:
@@ -532,13 +555,16 @@ class ReplicatedService(SearchService):
         (replicas stay identical).  ``shard``: the rows append to the
         *last* shard — the one holding the tail of the global id range —
         so global ids stay contiguous and merge re-basing stays a plain
-        offset add."""
+        offset add.  A mesh replica's rows go to every rank first."""
+        self._lead("add")
         t0 = time.perf_counter()
         if self.mode == "shard":
             targets = [max(self.replicas, key=lambda rs: rs.id_offset)]
         else:
             targets = self.replicas
         for rs in targets:
+            if rs.on_mesh:
+                self._send_add(Xnew, rs.idx)
             rs.session.add(Xnew)
             rs.rows = int(rs.session.n)
         wall = time.perf_counter() - t0
@@ -548,6 +574,15 @@ class ReplicatedService(SearchService):
         self.insert_s += wall
         self.write_modes[mode] = self.write_modes.get(mode, 0) + 1
         return {"rows": rows, "mode": mode, "wall_s": wall}
+
+    def _target(self, replica: int):
+        return self.replicas[replica].session
+
+    def _follow_counts(self, counts: dict) -> dict:
+        zero = dict.fromkeys(FOLLOW_COUNTS, 0)
+        per = [counts.get(rs.idx, zero) for rs in self.replicas]
+        return {**{key: sum(c[key] for c in per) for key in FOLLOW_COUNTS},
+                "replicas": per}
 
     def health(self) -> dict:
         """The base snapshot (accounting invariant unchanged) plus the

@@ -72,7 +72,10 @@ tensors on an nccl one), after which every rank makes the same
 or on none (``backends.TorchBackend.search``), so rank 0 fails the
 batch and the followers go on to the next command.  Followers keep no
 queue and no counters and never read a clock; a world of one serves
-with no broadcast.
+with no broadcast.  The replica tier (``serving.replica``) serves mesh
+sessions the same way: every rank builds the same replicas in the same
+order, the header names the replica a command is for, and rank 0
+broadcasts each dispatch that reaches a mesh replica.
 """
 from __future__ import annotations
 
@@ -88,14 +91,18 @@ from repro_torch.core.engine import EXTRA_COVERAGE, EXTRA_UNCERTIFIED_MASK
 #: non-terminal one.  Exactly one terminal state per submitted request.
 REQUEST_STATUSES = ("pending", "done", "timeout", "shed", "failed")
 ADMISSION_POLICIES = ("reject", "shed_oldest")
+#: what a mesh follower counts (``SearchService.follow``)
+FOLLOW_COUNTS = ("searches", "adds", "failures")
 
 
 class _MeshChannel:
     """Rank 0's step commands to the other ranks of a mesh session: a
-    (6,) float64 header ``[command, rows, dim, k, nprobe, budget or
-    NaN]`` and, for a search or an add, the (rows, dim) float32 payload,
-    each one broadcast from rank 0 — on the session's device for an nccl
-    group, on the host for gloo."""
+    (7,) float64 header ``[command, replica, rows, dim, k, nprobe, budget
+    or NaN]`` and, for a search or an add, the (rows, dim) float32
+    payload, each one broadcast from rank 0 — on the session's device for
+    an nccl group, on the host for gloo.  ``replica`` is the index of the
+    tier's replica the command is for, -1 for a plain service's
+    session."""
 
     STOP, SEARCH, ADD = 0, 1, 2
 
@@ -106,13 +113,13 @@ class _MeshChannel:
         self.device = (session.backend.device if nccl
                        else torch.device("cpu"))
 
-    def send(self, cmd: int, rows=None, *, k: int = 0, nprobe: int = 0,
-             deadline_s: float | None = None) -> None:
+    def send(self, cmd: int, rows=None, *, replica: int = -1, k: int = 0,
+             nprobe: int = 0, deadline_s: float | None = None) -> None:
         import torch
         import torch.distributed as dist
         n, dim = (0, 0) if rows is None else rows.shape
         head = torch.tensor(
-            [cmd, n, dim, k, nprobe,
+            [cmd, replica, n, dim, k, nprobe,
              float("nan") if deadline_s is None else deadline_s],
             dtype=torch.float64, device=self.device)
         dist.broadcast(head, 0)
@@ -123,21 +130,42 @@ class _MeshChannel:
             dist.broadcast(torch.from_numpy(rows).to(self.device), 0)
 
     def recv(self):
-        """The next command: (command, rows or None, k, nprobe,
+        """The next command: (command, replica, rows or None, k, nprobe,
         budget or None)."""
         import torch
         import torch.distributed as dist
-        head = torch.empty(6, dtype=torch.float64, device=self.device)
+        head = torch.empty(7, dtype=torch.float64, device=self.device)
         dist.broadcast(head, 0)
-        cmd, n, dim, k, nprobe, budget = head.tolist()
+        cmd, replica, n, dim, k, nprobe, budget = head.tolist()
         rows = None
         if cmd != self.STOP:
             buf = torch.empty((int(n), int(dim)), dtype=torch.float32,
                               device=self.device)
             dist.broadcast(buf, 0)
             rows = buf.cpu().numpy()
-        return (int(cmd), rows, int(k), int(nprobe),
+        return (int(cmd), int(replica), rows, int(k), int(nprobe),
                 None if np.isnan(budget) else budget)
+
+
+def spans_ranks(session) -> bool:
+    """True for a mesh session of several ranks: its searches and adds
+    are collective, so rank 0 broadcasts each one to the other ranks."""
+    if getattr(session, "mesh", None) is None:
+        return False
+    import torch.distributed as dist
+    return dist.get_world_size() > 1
+
+
+def _mesh_roles(sessions) -> tuple:
+    """(this rank, the channel or None) of a service over ``sessions``:
+    rank 0 leads every mesh session's commands, and the channel opens
+    when any of them spans several ranks (the port's one mesh group)."""
+    meshed = [s for s in sessions if getattr(s, "mesh", None) is not None]
+    if not meshed:
+        return 0, None
+    import torch.distributed as dist
+    spans = [s for s in meshed if spans_ranks(s)]
+    return dist.get_rank(), _MeshChannel(spans[0]) if spans else None
 
 
 @dataclass
@@ -238,12 +266,8 @@ class SearchService:
         self._lat_window: deque[float] = deque(maxlen=128)
         self._p99_ewma: float | None = None
         # a mesh session: rank 0 leads, the other ranks follow
-        self.rank, self._channel, self._closed = 0, None, False
-        if getattr(session, "mesh", None) is not None:
-            import torch.distributed as dist
-            self.rank = dist.get_rank()
-            if dist.get_world_size() > 1:
-                self._channel = _MeshChannel(session)
+        self.rank, self._channel = _mesh_roles([session])
+        self._closed = False
 
     def _lead(self, op: str) -> None:
         """Refuse ``op`` on a follower, and (``health`` aside) on a
@@ -311,9 +335,7 @@ class SearchService:
         self._lead("add")
         t0 = time.perf_counter()
         if self._channel is not None:
-            rows = np.atleast_2d(np.asarray(Xnew))
-            if rows.ndim == 2 and rows.dtype.kind in "fiu":
-                self._channel.send(_MeshChannel.ADD, rows)
+            self._send_add(Xnew)
         self.session.add(Xnew)
         wall = time.perf_counter() - t0
         mode = self.session.last_write_mode
@@ -322,6 +344,14 @@ class SearchService:
         self.insert_s += wall
         self.write_modes[mode] = self.write_modes.get(mode, 0) + 1
         return {"rows": rows, "mode": mode, "wall_s": wall}
+
+    def _send_add(self, Xnew, replica: int = -1) -> None:
+        """Broadcast an add's rows to the other ranks; rows that every
+        rank's ``add`` refuses alike (not a numeric 2-D array) stay
+        here."""
+        rows = np.atleast_2d(np.asarray(Xnew))
+        if rows.ndim == 2 and rows.dtype.kind in "fiu":
+            self._channel.send(_MeshChannel.ADD, rows, replica=replica)
 
     # -- serving -------------------------------------------------------------
     def _expire_queued(self, t: float) -> list[SearchRequest]:
@@ -468,29 +498,41 @@ class SearchService:
         return served
 
     # -- the mesh's other ranks -----------------------------------------------
+    def _target(self, replica: int):
+        """The session a broadcast command is for (``replica`` is -1 on
+        a plain service)."""
+        return self.session
+
+    def _follow_counts(self, counts: dict) -> dict:
+        """What :meth:`follow` returns from its per-replica counts."""
+        return counts.get(-1, dict.fromkeys(FOLLOW_COUNTS, 0))
+
     def follow(self) -> dict:
         """On a mesh rank other than 0: make every search and add that
         rank 0's service broadcasts, until rank 0 calls ``close()``.  A
         command that raises here raised on rank 0 too (the step failed
         on every rank), so the loop goes on to the next; a failed
         broadcast raises.  Returns ``{"searches", "adds", "failures"}``:
-        the commands made and how many of them raised."""
+        the commands made and how many of them raised (a tier adds them
+        per replica under ``"replicas"``)."""
         if self.rank == 0:
             raise RuntimeError("follow() is for the mesh's ranks other than "
                                "0; rank 0 drives the service")
-        done = {"searches": 0, "adds": 0, "failures": 0}
+        counts: dict = {}
         while True:
-            cmd, rows, k, nprobe, budget = self._channel.recv()
+            cmd, replica, rows, k, nprobe, budget = self._channel.recv()
             if cmd == _MeshChannel.STOP:
-                return done
+                return self._follow_counts(counts)
+            done = counts.setdefault(replica,
+                                     dict.fromkeys(FOLLOW_COUNTS, 0))
+            session = self._target(replica)
             try:
                 if cmd == _MeshChannel.SEARCH:
                     done["searches"] += 1
-                    self.session.search(rows, k, nprobe=nprobe,
-                                        deadline_s=budget)
+                    session.search(rows, k, nprobe=nprobe, deadline_s=budget)
                 else:
                     done["adds"] += 1
-                    self.session.add(rows)
+                    session.add(rows)
             except Exception:           # noqa: BLE001 - rank 0 failed it too
                 done["failures"] += 1
 
