@@ -851,9 +851,25 @@ def graph_pool_bytes(graph):
                if tuple(seg["segment_pool_id"]) == pool)
 
 
+def span_seconds(name: str, since_ns: int = 0, **attrs) -> list:
+    """Durations (s) of the program's recorded spans named ``name``
+    (``repro_torch.utils.trace``) that started at or after ``since_ns``
+    (a ``time.time_ns()`` mark) with the given attributes, oldest first."""
+    from repro_torch.utils import trace
+    return [sp.duration_ns / 1e9 for sp in trace.spans()
+            if sp.name == name and sp.start_ns >= since_ns
+            and all(sp.attrs.get(key) == v for key, v in attrs.items())]
+
+
+def graph_seconds(g, name: str) -> float:
+    """A captured walk's ``engine.warmup`` or ``engine.capture`` span."""
+    return span_seconds(name, graph=id(g))[-1]
+
+
 def graph_record(g) -> dict:
     """What one captured block walk (stream_engine._ChunkGraph) holds."""
-    return {"warmup_s": g.warmup_s, "capture_s": g.capture_s,
+    return {"warmup_s": graph_seconds(g, "engine.warmup"),
+            "capture_s": graph_seconds(g, "engine.capture"),
             "nodes": graph_nodes(g.graph),
             "pool_bytes": graph_pool_bytes(g.graph),
             "launches_per_replay": list(g.launches), "replays": g.replays,
@@ -2155,15 +2171,15 @@ def calibrate(svc, pool, chunk=None):
     steady = min(rec["steady_steps_s"])
     if chunk is None:
         return steady, 0.0, rec
-    n_builds = len(be.delta_build_s)
+    mark = time.time_ns()
     info = svc.add(chunk)
     post = full_step()
     fresh = new_graphs(be, seen)
     rec.update(add_rows=info["rows"], add_mode=info["mode"],
                add_wall_s=info["wall_s"], post_add_step_s=post,
-               delta_build_s=be.delta_build_s[n_builds:],
-               warmup_s=[g.warmup_s for g in fresh],
-               capture_s=[g.capture_s for g in fresh],
+               delta_build_s=span_seconds("backend.delta_build", mark),
+               warmup_s=[graph_seconds(g, "engine.warmup") for g in fresh],
+               capture_s=[graph_seconds(g, "engine.capture") for g in fresh],
                graphs_captured_after_add=len(fresh))
     return steady, max(post - steady, 0.0), rec
 
@@ -2223,15 +2239,15 @@ def phase_serving(X, Q, d2, pdsp, dev):
     qidx = [i % Q.shape[0] for i in range(SERVE_REQUESTS)]
     seen = weakref.WeakSet(be._graphs.values())
     captures, warmups, step_launches, last = [], [], [], [(0, 0, 0)]
-    n_builds, n_mats = len(be.delta_build_s), len(be.materialize_s)
+    mark = time.time_ns()
 
     def on_step(batch):
         now = (dco_mod.launches, dco_mod.grouped_launches, pq_mod.launches)
         step_launches.append([a - b for a, b in zip(now, last[0])])
         last[0] = now
         for g in new_graphs(be, seen):
-            warmups.append(g.warmup_s)
-            captures.append(g.capture_s)
+            warmups.append(graph_seconds(g, "engine.warmup"))
+            captures.append(graph_seconds(g, "engine.capture"))
 
     sync(dev)
     dco_mod.launches = dco_mod.grouped_launches = pq_mod.launches = 0
@@ -2275,8 +2291,8 @@ def phase_serving(X, Q, d2, pdsp, dev):
         "writes_before_a_step": sum(a.get("next_step_s") is not None
                                     for a in adds),
         "write_modes": dict(svc.write_modes), "merges": be.merges,
-        "delta_build_s": be.delta_build_s[n_builds:],
-        "materialize_s": be.materialize_s[n_mats:],
+        "delta_build_s": span_seconds("backend.delta_build", mark),
+        "materialize_s": span_seconds("backend.layout", mark),
         "graphs_captured_in_run": len(captures),
         "graphs_captured": cal["graphs_first_step"]
         + cal["graphs_steady_steps"] + cal["graphs_captured_after_add"]
@@ -2780,7 +2796,7 @@ def _one_card(method, Q, *, engine="stream", row_block=4096):
     return res.ids, res.dists
 
 
-def serve_mesh_1m(sess, Q, rank: int, fn):
+def serve_mesh_1m(sess, Q, rank: int):
     """The 1M served arm: the mesh session behind its SearchService.
     Rank 0 calibrates the service's capacity on its own steps
     (:func:`calibrate`), then submits the 100 queries as a Poisson stream
@@ -2789,6 +2805,7 @@ def serve_mesh_1m(sess, Q, rank: int, fn):
     order)."""
     import numpy as np
     from repro_torch.kernels import dco_scan as dco_mod
+    from repro_torch.utils import trace
 
     t0 = time.perf_counter()
     svc = sess.serve(slots=SERVE_SLOTS, k=K)
@@ -2801,17 +2818,20 @@ def serve_mesh_1m(sess, Q, rank: int, fn):
     lam = LAMBDA_FRACTION * SERVE_SLOTS / steady
     rng = np.random.default_rng(SERVE_SEED + 3)
     arrivals = np.cumsum(rng.exponential(1.0 / lam, Q.shape[0]))
-    walls, local, exchange = [], [], []
+    walls = []
 
     def on_step(batch):
         walls.append(max(r.service_s for r in batch))
-        local.append(fn.local_s)
-        exchange.append(fn.exchange_s)
 
     dco_mod.launches = 0
-    served, rid_to_q, _ = simulate(svc, Q, list(range(Q.shape[0])),
-                                   arrivals, [], on_step=on_step)
+    mark = time.time_ns()
+    with trace.recording():
+        served, rid_to_q, _ = simulate(svc, Q, list(range(Q.shape[0])),
+                                       arrivals, [], on_step=on_step)
     launches = dco_mod.launches
+    # one local walk and one exchange a step, in step order
+    local = span_seconds("mesh.local", mark)
+    exchange = span_seconds("mesh.exchange", mark)
     svc.close()
     done = sorted(served_only(served), key=lambda r: rid_to_q[r.rid])
     rec = {"slots": SERVE_SLOTS, "n_requests": int(Q.shape[0]),
@@ -3099,6 +3119,7 @@ def mesh_rank(outdir: str, backend: str) -> int:
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.ranks import join
     from repro_torch.serving import ReplicatedService
+    from repro_torch.utils import trace
     from repro_torch.vecdata import recall_at_k
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3118,25 +3139,28 @@ def mesh_rank(outdir: str, backend: str) -> int:
         Q[:SERVE_SLOTS] + 1e-3 * float(Xr.std()) * off)
     if backend == "gloo":
         # the 1M arm: PDScanning+, each rank's shard of 500,000 rows
+        opened = time.time_ns()
         sess, res, fit_s, first_s = _mesh_session(corpus, Q, "PDScanning+",
                                                   mesh)
         be = sess.backend
-        fn = next(iter(be._mesh_fns.values()))
-        walls, exchange, local = [], [], []
-        for j in range(MESH_BATCHES):
-            dist.barrier()
-            dco_mod.launches = 0
-            t0 = time.perf_counter()
-            res = sess.search(Q, K)          # the merged result on the host
-            walls.append(time.perf_counter() - t0)
-            if j == 0:
-                launches = dco_mod.launches
-            exchange.append(fn.exchange_s)
-            local.append(fn.local_s)
+        walls = []
+        mark = time.time_ns()
+        with trace.recording():
+            for j in range(MESH_BATCHES):
+                dist.barrier()
+                dco_mod.launches = 0
+                t0 = time.perf_counter()
+                res = sess.search(Q, K)      # the merged result on the host
+                walls.append(time.perf_counter() - t0)
+                if j == 0:
+                    launches = dco_mod.launches
+        exchange = span_seconds("mesh.exchange", mark)
+        local = span_seconds("mesh.local", mark)
         rec["flat_1m"] = {
             "fit_s": fit_s, "first_search_s": first_s,
-            "materialize_s": be.materialize_s[0],
-            "capture_s": sum(g.capture_s for g in be._graphs.values()),
+            "materialize_s": span_seconds("backend.layout", opened)[0],
+            "capture_s": sum(graph_seconds(g, "engine.capture")
+                             for g in be._graphs.values()),
             "row_block": be._mesh_row_block,
             "search_walls_s": walls, "local_s": local,
             "exchange_s": exchange,
@@ -3149,12 +3173,12 @@ def mesh_rank(outdir: str, backend: str) -> int:
             "device_bytes_held": torch.cuda.memory_allocated(dev)}
         arrays["flat_1m/ids"], arrays["flat_1m/dists"] = res.ids, res.dists
         # the same session behind the mesh service (A19)
-        rec["served_1m"], served = serve_mesh_1m(sess, Q, rank, fn)
+        rec["served_1m"], served = serve_mesh_1m(sess, Q, rank)
         arrays.update(served)
         # and as replica 0 of a tier over two mesh sessions (A29)
         rec["tier_1m"], tier = tier_mesh_1m(sess, Q, rank, mesh)
         arrays.update(tier)
-        del sess, res, be, fn
+        del sess, res, be
         gc.collect()
         torch.cuda.empty_cache()
     # the 100k arms: the rule scalars and per-query extras (DDCres, DADE),

@@ -61,6 +61,7 @@ from repro_torch.core.torch_engine import (DcoEngineConfig,
                                            rule_scalars, shard_of,
                                            two_stage_topk)
 from repro_torch.testing import faults
+from repro_torch.utils import trace
 
 
 #: per-row device tensors that build_stream_blocks turns into the blocks
@@ -284,10 +285,6 @@ class TorchBackend:
         self.rows_inserted = 0      # rows arriving through notify_append
         self.rows_written = 0       # rows laid out on the device (main + delta)
         self.merges = 0             # threshold-triggered re-materializations
-        # host walls of each layout build a search triggered (no synchronize
-        # added: device work still queued ends in the next graph's warm-up)
-        self.materialize_s: list = []
-        self.delta_build_s: list = []
 
     # -- state management ---------------------------------------------------
     def invalidate(self):
@@ -660,15 +657,17 @@ class TorchBackend:
         """The engine dispatch itself; ``demoted=True`` swaps in the
         forced-fallback config (every chunk runs the full-scan body: the
         guardrail's certified path)."""
+        # the layout builds a search triggers are set-up spans (no
+        # synchronize: device work still queued ends in the next graph's
+        # warm-up)
         if self._dstate is None:
-            t0 = time.perf_counter()
-            self._materialize()
-            self.materialize_s.append(time.perf_counter() - t0)
+            with trace.setup_span("backend.layout"):
+                self._materialize()
         if self.delta_rows and (self._delta_dirty
                                 or self._delta_blocks is None):
-            t0 = time.perf_counter()
-            self._build_delta()
-            self.delta_build_s.append(time.perf_counter() - t0)
+            with trace.setup_span("backend.delta_build",
+                                  rows=self.delta_rows):
+                self._build_delta()
         t_end = None
         if deadline_s is not None:
             if self.mesh is not None:
@@ -685,15 +684,16 @@ class TorchBackend:
             # a two-stage session's deadline call: lay the blocks out once
             self._blocks = build_stream_blocks(self._state,
                                                self.policy.row_block)
-        ql, qt, qe = self._prep_queries(Q)
-        nq, N, D = ql.shape[0], self.method.state["N"], self.method.state["D"]
 
         def dev(a, dtype=np.float32):
             return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
                 self.device)
 
-        ql_t, qt_t = dev(ql), dev(qt)
-        qe_t = {key: dev(v) for key, v in qe.items()}
+        with trace.span("backend.prep"):
+            ql, qt, qe = self._prep_queries(Q)
+            ql_t, qt_t = dev(ql), dev(qt)
+            qe_t = {key: dev(v) for key, v in qe.items()}
+        nq, N, D = ql.shape[0], self.method.state["N"], self.method.state["D"]
         cand_per_q = np.full(nq, N, np.float64)
         passed = dmin = dims_read = report = coverage = None
         n_anchor = 0                # two_stage completes k anchors per query
@@ -704,16 +704,20 @@ class TorchBackend:
                     extra_state=self._mesh_extra_state, engine=engine,
                     n_rows=self._n_main)
             self._mesh_joined = True    # it joins the exchange, come what may
-            out = self._mesh_fns[cfg](self._state, ql_t, qt_t, qe_t,
-                                      blocks=self._blocks,
-                                      graphs=self._graphs)
-            d, i, surv, dmin = (o.cpu().numpy() for o in out)
+            with trace.span("backend.walk"):
+                out = self._mesh_fns[cfg](self._state, ql_t, qt_t, qe_t,
+                                          blocks=self._blocks,
+                                          graphs=self._graphs)
+            with trace.span("backend.readback"):
+                d, i, surv, dmin = (o.cpu().numpy() for o in out)
             if engine == "two_stage":
                 n_anchor = nq * k * shard_of(self.mesh)[1]
         elif engine == "two_stage":
-            out = two_stage_topk(self._state, ql_t, qt_t, cfg, qe_t)
+            with trace.span("backend.walk"):
+                out = two_stage_topk(self._state, ql_t, qt_t, cfg, qe_t)
             # one transfer back per output, after the whole batch is queued
-            d, i, surv = (o.cpu().numpy() for o in out)
+            with trace.span("backend.readback"):
+                d, i, surv = (o.cpu().numpy() for o in out)
             n_anchor = nq * k
         else:
             blocks, st = self._blocks, self._state
@@ -721,8 +725,9 @@ class TorchBackend:
                 blocks, st = self._delta_blocks, self._delta_state
             probe = None
             if self.index_kind == "ivf":
-                probed, cand_per_q = self._probe(Q, nprobe)
-                probe = dev(probed, np.int32)
+                with trace.span("backend.prep"):
+                    probed, cand_per_q = self._probe(Q, nprobe)
+                    probe = dev(probed, np.int32)
                 nd = self.delta_rows
                 if nd:
                     # delta rows are probe candidates too when their
@@ -730,62 +735,65 @@ class TorchBackend:
                     cand_per_q = cand_per_q + (
                         self._delta_parts[None, :nd, None]
                         == probed[:, None, :]).any(-1).sum(1)
-            out = stream_topk(st, ql_t, qt_t, cfg, qe_t, probe, blocks=blocks,
-                              deadline_ts=t_end,
-                              block_group=self.policy.anytime_block_group,
-                              graphs=self._graphs)
-            if cfg.policy is not None:
-                out, report = out[:6], {key: v.cpu().numpy()
-                                        for key, v in out[6].items()}
-            elif t_end is not None:
-                out, coverage = out[:6], out[6]
-                # a partial scan touched only this share of the corpus:
-                # charge candidate work pro rata
-                cand_per_q = cand_per_q * coverage
-            d, i, surv, passed, dmin, dims_read = (o.cpu().numpy()
-                                                   for o in out)
-        stats = ScanStats(n_dco=int(cand_per_q.sum()),
-                          dims_total=float((cand_per_q * D).sum()))
-        if cfg.kind == "fdscan":
-            stats.dims_scanned = stats.dims_total
-        else:
-            # stage 1 streams d1 dims for every candidate row; stage 2
-            # (plus the two-stage engine's k anchor completions) streams
-            # the tail for the actual survivors
-            stats.dims_scanned = (float((cand_per_q * self._d1).sum())
-                                  + float(surv.sum() + n_anchor)
-                                  * (D - self._d1))
-            stats.extra[EXTRA_SURVIVORS_MEAN] = float(surv.mean())
-            if passed is not None:  # the mesh path does not count passes
-                stats.extra[EXTRA_SCREEN_PASS_MEAN] = float(passed.mean())
-            if dmin is not None:    # one device's two-stage: no certificate
-                self._certify(stats, d, dmin)
-        if dims_read is not None:
-            # the streaming scan measured its own reads (screen dims
-            # entered plus completed tails; full rows in fallback blocks)
-            stats.dims_scanned = float(np.asarray(dims_read,
-                                                  np.float64).sum())
-        stats.extra[EXTRA_DIMS_READ_MEAN] = (
-            stats.dims_scanned / max(stats.n_dco, 1))
-        if report is not None:
-            stats.extra[EXTRA_FALLBACK_BLOCKS] = float(
-                report["fallback_blocks"].mean())
-            stats.extra[EXTRA_EST_SAVED_FLOPS] = float(
-                report["est_saved_flops"].sum())
-            stats.extra[EXTRA_RULE_TIMELINE] = [
-                float(v) for v in report["rule_timeline"]]
-        # anytime coverage: the whole batch advances together, so every
-        # query shares the scanned fraction; a partial scan is uncertified
-        # even where the certificate held over the scanned prefix
-        cov_arr = np.full(nq, 1.0 if coverage is None else coverage,
-                          np.float32)
-        stats.extra[EXTRA_COVERAGE] = cov_arr
-        mask = stats.extra.get(EXTRA_UNCERTIFIED_MASK)
-        if mask is not None and coverage is not None and coverage < 1.0:
-            stats.extra[EXTRA_UNCERTIFIED_MASK] = mask | (cov_arr < 1.0)
-            stats.extra[EXTRA_UNCERTIFIED_QUERIES] = float(
-                stats.extra[EXTRA_UNCERTIFIED_MASK].mean())
-        return (np.asarray(d, np.float32), np.asarray(i, np.int64), stats)
+            with trace.span("backend.walk"):
+                out = stream_topk(st, ql_t, qt_t, cfg, qe_t, probe,
+                                  blocks=blocks, deadline_ts=t_end,
+                                  block_group=self.policy.anytime_block_group,
+                                  graphs=self._graphs)
+            with trace.span("backend.readback"):
+                if cfg.policy is not None:
+                    out, report = out[:6], {key: v.cpu().numpy()
+                                            for key, v in out[6].items()}
+                elif t_end is not None:
+                    out, coverage = out[:6], out[6]
+                    # a partial scan touched only this share of the
+                    # corpus: charge candidate work pro rata
+                    cand_per_q = cand_per_q * coverage
+                d, i, surv, passed, dmin, dims_read = (o.cpu().numpy()
+                                                       for o in out)
+        with trace.span("backend.stats"):
+            stats = ScanStats(n_dco=int(cand_per_q.sum()),
+                              dims_total=float((cand_per_q * D).sum()))
+            if cfg.kind == "fdscan":
+                stats.dims_scanned = stats.dims_total
+            else:
+                # stage 1 streams d1 dims for every candidate row; stage 2
+                # (plus the two-stage engine's k anchor completions) streams
+                # the tail for the actual survivors
+                stats.dims_scanned = (float((cand_per_q * self._d1).sum())
+                                      + float(surv.sum() + n_anchor)
+                                      * (D - self._d1))
+                stats.extra[EXTRA_SURVIVORS_MEAN] = float(surv.mean())
+                if passed is not None:  # the mesh path does not count passes
+                    stats.extra[EXTRA_SCREEN_PASS_MEAN] = float(passed.mean())
+                if dmin is not None:    # one device's two-stage: no certificate
+                    self._certify(stats, d, dmin)
+            if dims_read is not None:
+                # the streaming scan measured its own reads (screen dims
+                # entered plus completed tails; full rows in fallback blocks)
+                stats.dims_scanned = float(np.asarray(dims_read,
+                                                      np.float64).sum())
+            stats.extra[EXTRA_DIMS_READ_MEAN] = (
+                stats.dims_scanned / max(stats.n_dco, 1))
+            if report is not None:
+                stats.extra[EXTRA_FALLBACK_BLOCKS] = float(
+                    report["fallback_blocks"].mean())
+                stats.extra[EXTRA_EST_SAVED_FLOPS] = float(
+                    report["est_saved_flops"].sum())
+                stats.extra[EXTRA_RULE_TIMELINE] = [
+                    float(v) for v in report["rule_timeline"]]
+            # anytime coverage: the whole batch advances together, so every
+            # query shares the scanned fraction; a partial scan is uncertified
+            # even where the certificate held over the scanned prefix
+            cov_arr = np.full(nq, 1.0 if coverage is None else coverage,
+                              np.float32)
+            stats.extra[EXTRA_COVERAGE] = cov_arr
+            mask = stats.extra.get(EXTRA_UNCERTIFIED_MASK)
+            if mask is not None and coverage is not None and coverage < 1.0:
+                stats.extra[EXTRA_UNCERTIFIED_MASK] = mask | (cov_arr < 1.0)
+                stats.extra[EXTRA_UNCERTIFIED_QUERIES] = float(
+                    stats.extra[EXTRA_UNCERTIFIED_MASK].mean())
+            return (np.asarray(d, np.float32), np.asarray(i, np.int64), stats)
 
     @staticmethod
     def _certify(stats, d, dmin):

@@ -55,6 +55,7 @@ from repro_torch.core.methods import ALL_METHODS, make_method
 from repro_torch.search.hnsw import HNSWIndex
 from repro_torch.search.ivf import IVFIndex
 from repro_torch.testing import faults
+from repro_torch.utils import trace
 
 INDEX_KINDS = ("flat", "ivf", "hnsw")
 BACKENDS = ("torch", "host")
@@ -123,27 +124,30 @@ class SearchSession:
         a set ``uncertified_mask`` bit in ``result.stats.extra``; with a
         generous deadline the result equals the non-deadline path's bit
         for bit.  Flat/IVF only (HNSW walks reject it)."""
-        Q = np.atleast_2d(np.asarray(Q))
-        if Q.dtype.kind not in "fiu":
-            raise ValueError(
-                f"search(): expected a numeric query array, got dtype {Q.dtype}")
-        Q = np.ascontiguousarray(Q, np.float32)
-        if not np.isfinite(Q).all():
-            bad = int((~np.isfinite(Q).all(axis=1)).sum())
-            raise ValueError(
-                f"search(): {bad} of {Q.shape[0]} queries contain NaN/Inf "
-                "values; distances to non-finite queries are meaningless "
-                "and would poison the running top-k threshold")
-        if deadline_s is not None and deadline_s <= 0.0:
-            raise ValueError(
-                f"search(): deadline_s must be > 0 (got {deadline_s}); the "
-                "engines always finish at least one block group, so a "
-                "non-positive budget cannot mean 'return nothing'")
-        t0 = time.perf_counter()
-        dists, ids, stats = self.backend.search(Q, k, nprobe=nprobe, ef=ef,
-                                                deadline_s=deadline_s)
-        return SearchResult(dists, ids, stats, time.perf_counter() - t0,
-                            self.backend.name)
+        with trace.span("session.search") as sp:
+            Q = np.atleast_2d(np.asarray(Q))
+            if Q.dtype.kind not in "fiu":
+                raise ValueError(
+                    f"search(): expected a numeric query array, got dtype {Q.dtype}")
+            Q = np.ascontiguousarray(Q, np.float32)
+            if not np.isfinite(Q).all():
+                bad = int((~np.isfinite(Q).all(axis=1)).sum())
+                raise ValueError(
+                    f"search(): {bad} of {Q.shape[0]} queries contain NaN/Inf "
+                    "values; distances to non-finite queries are meaningless "
+                    "and would poison the running top-k threshold")
+            if deadline_s is not None and deadline_s <= 0.0:
+                raise ValueError(
+                    f"search(): deadline_s must be > 0 (got {deadline_s}); the "
+                    "engines always finish at least one block group, so a "
+                    "non-positive budget cannot mean 'return nothing'")
+            t0 = time.perf_counter()
+            dists, ids, stats = self.backend.search(Q, k, nprobe=nprobe, ef=ef,
+                                                    deadline_s=deadline_s)
+            if sp:
+                _count_stats(stats)
+            return SearchResult(dists, ids, stats, time.perf_counter() - t0,
+                                self.backend.name)
 
     def add(self, Xnew) -> "SearchSession":
         """Dynamic inserts (paper §V-E): extend the fitted method state
@@ -244,6 +248,14 @@ class SearchSession:
         return load_session(path, backend=backend, device=device, mesh=mesh)
 
 
+def _count_stats(stats) -> None:
+    """The screen's counters of one search, from its ``ScanStats``, on
+    the innermost span: the dims it read and the dims a full scan reads
+    (``dims_read_share.batch`` reads their ratio)."""
+    trace.count("dims_read", float(stats.dims_scanned))
+    trace.count("dims_total", float(stats.dims_total))
+
+
 def _mesh_barrier(session) -> None:
     """On a mesh, wait until every rank gets here (rank 0's file writes
     are then on disk for all of them)."""
@@ -321,7 +333,8 @@ def open_index(X=None, *, index: str = "flat", method: str = "DADE",
         device = resolve_device(device, mesh)   # fail before the fit
     X = np.ascontiguousarray(np.atleast_2d(X), np.float32)
     m = make_method(method, **{"seed": seed, **(method_params or {})})
-    m.fit(X)
+    with trace.setup_span("open.fit", method=method, rows=X.shape[0]):
+        m.fit(X)
     if m.needs_training:
         if train_queries is None:
             rng = np.random.default_rng(seed)

@@ -88,6 +88,7 @@ from repro_torch.kernels import pq_lookup as _pq_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels.ops import (_widths, dco_scan_grouped_op,
                                      dco_scan_op, pq_lookup_op)
+from repro_torch.utils import trace
 
 _INF = float("inf")
 
@@ -813,35 +814,34 @@ class _ChunkGraph:
     ``torch.cuda.graph``'s rule: one eager walk of the chunk on the
     capture's side stream first (it builds the kernel library, fills the
     wrappers' caches and the cuBLAS workspaces), then the capture on that
-    stream.  ``warmup_s`` is the warm-up walk's wall up to its end on the
-    card (device work queued before it ends there too), ``capture_s`` the
-    capture's and instantiation's.  The wrappers count a kernel where
-    Python calls them, which
-    during capture launches nothing, so the counts a capture took are
-    taken back and added on every replay.  A failed capture or replay
-    raises."""
+    stream.  The set-up spans ``engine.warmup`` (the warm-up walk up to
+    its end on the card; device work queued before it ends there too) and
+    ``engine.capture`` (the capture and instantiation) carry the graph's
+    ``id`` as ``graph``; each replay is the hot-path span
+    ``engine.replay``.  The wrappers count a kernel where Python calls
+    them, which during capture launches nothing, so the counts a capture
+    took are taken back and added on every replay.  A failed capture or
+    replay raises."""
 
     def __init__(self, cfg, state, xs, chunk: dict, n_part: int,
                  forced: bool = False, span=None):
         dev = chunk["ql"].device
         walk = _span(xs, span)
         self.inputs = {key: v.clone() for key, v in chunk.items()}
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            _walk_chunk(cfg, state, walk, self.inputs, n_part, forced)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)     # as torch.cuda.graph does on entry
-        self.warmup_s = time.perf_counter() - t0
+        with trace.setup_span("engine.warmup", graph=id(self)):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                _walk_chunk(cfg, state, walk, self.inputs, n_part, forced)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)  # as torch.cuda.graph does on entry
         before = _launch_counts()
-        t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(self.graph, stream=side):
-            self.outputs = _walk_chunk(cfg, state, walk, self.inputs, n_part,
-                                       forced)
-        self.graph.instantiate()
-        self.capture_s = time.perf_counter() - t0
+        with trace.setup_span("engine.capture", graph=id(self)):
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(self.graph, stream=side):
+                self.outputs = _walk_chunk(cfg, state, walk, self.inputs,
+                                           n_part, forced)
+            self.graph.instantiate()
         self.launches = tuple(a - b for a, b in zip(_launch_counts(), before))
         _add_launches(-n for n in self.launches)
         self.keep = (state, xs)
@@ -851,7 +851,8 @@ class _ChunkGraph:
         """Replay on ``chunk``; returns copies of the outputs."""
         for key, v in chunk.items():
             self.inputs[key].copy_(v)
-        self.graph.replay()
+        with trace.span("engine.replay"):
+            self.graph.replay()
         self.replays += 1
         _add_launches(self.launches)
         return tuple(o.clone() for o in self.outputs)

@@ -26,11 +26,12 @@ ties keep the lower index first.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -316,10 +317,11 @@ class DistributedTopK:
     :class:`MeshSearchError` with that text.  No rank waits for a part
     that will not come.
 
-    ``local_s`` and ``exchange_s`` are the last call's host walls: the
-    local engine up to its results on the device (a synchronize), and
-    the exchange with the merge (it includes waiting for the slowest
-    rank); ``on_device`` says whether it exchanged device tensors."""
+    Each call records two hot-path spans (``utils.trace``): ``mesh.local``,
+    the local engine up to its results on the device (a synchronize), and
+    ``mesh.exchange``, the exchange with the merge (it includes waiting
+    for the slowest rank); ``on_device`` says whether it exchanged device
+    tensors."""
 
     def __init__(self, mesh, cfg: DcoEngineConfig, shard_axes: tuple,
                  extra_state: dict, engine: str):
@@ -327,7 +329,6 @@ class DistributedTopK:
         self.shard_axes, self.extra_state = shard_axes, extra_state
         self._src = self._state = None
         self._order = None
-        self.local_s = self.exchange_s = 0.0
         self.on_device = None
 
     def _replica_ranks(self) -> list:
@@ -354,46 +355,45 @@ class DistributedTopK:
                  blocks=None, graphs=None):
         from repro_torch.core.stream_engine import _smallest, stream_topk
 
-        t0 = time.perf_counter()
-        try:
-            if state is not self._src:   # one dict, so cached graphs match
-                self._src, self._state = state, {**state, **self.extra_state}
-            st, cfg = self._state, self.cfg
-            if self.engine == "stream":
-                d, i, surv, _, dmin, _ = stream_topk(
-                    st, q_lead, q_tail, cfg, q_extra, blocks=blocks,
-                    graphs=graphs)
-            else:
-                d, i, surv = two_stage_topk(st, q_lead, q_tail, cfg, q_extra)
-                dmin = torch.full((d.shape[0],), float("inf"),
-                                  device=d.device)
-            index, _ = shard_of(self.mesh, self.shard_axes)
-            i = i + index * state["x_lead"].shape[0]
-            packed = torch.cat([d.contiguous().view(torch.int32),
-                                i.to(torch.int32),
-                                surv.to(torch.int32)[:, None],
-                                dmin.contiguous().view(torch.int32)[:, None],
-                                torch.zeros_like(i[:, :1], dtype=torch.int32)],
-                               1)
-            if packed.is_cuda:
-                torch.cuda.synchronize(packed.device)
-        except Exception as exc:        # noqa: BLE001 - joined, then raised
-            exchange_failure(q_lead.shape[0], self.cfg.k, q_lead.device, exc)
+        with trace.span("mesh.local"):
+            try:
+                if state is not self._src:   # one dict, so cached graphs match
+                    self._src, self._state = state, {**state, **self.extra_state}
+                st, cfg = self._state, self.cfg
+                if self.engine == "stream":
+                    d, i, surv, _, dmin, _ = stream_topk(
+                        st, q_lead, q_tail, cfg, q_extra, blocks=blocks,
+                        graphs=graphs)
+                else:
+                    d, i, surv = two_stage_topk(st, q_lead, q_tail, cfg, q_extra)
+                    dmin = torch.full((d.shape[0],), float("inf"),
+                                      device=d.device)
+                index, _ = shard_of(self.mesh, self.shard_axes)
+                i = i + index * state["x_lead"].shape[0]
+                packed = torch.cat([d.contiguous().view(torch.int32),
+                                    i.to(torch.int32),
+                                    surv.to(torch.int32)[:, None],
+                                    dmin.contiguous().view(torch.int32)[:, None],
+                                    torch.zeros_like(i[:, :1], dtype=torch.int32)],
+                                   1)
+                if packed.is_cuda:
+                    torch.cuda.synchronize(packed.device)
+            except Exception as exc:        # noqa: BLE001 - joined, then raised
+                exchange_failure(q_lead.shape[0], self.cfg.k, q_lead.device, exc)
         k = self.cfg.k
-        t1 = time.perf_counter()
-        parts, on_device = _all_gather(packed)
-        _raise_failed(parts, k)
-        got = torch.stack([parts[r] for r in self._replica_ranks()])
-        nq = got.shape[1]
-        dg = got[..., :k].view(torch.float32).permute(1, 0, 2).reshape(nq, -1)
-        ig = got[..., k:2 * k].permute(1, 0, 2).reshape(nq, -1)
-        best, pos = _smallest(dg, k)
-        out = (best, torch.gather(ig, 1, pos),
-               got[..., 2 * k].sum(0, dtype=torch.int32),
-               got[..., 2 * k + 1].view(torch.float32).amin(0))
-        if on_device:
-            torch.cuda.synchronize(packed.device)
-        self.local_s, self.exchange_s = t1 - t0, time.perf_counter() - t1
+        with trace.span("mesh.exchange"):
+            parts, on_device = _all_gather(packed)
+            _raise_failed(parts, k)
+            got = torch.stack([parts[r] for r in self._replica_ranks()])
+            nq = got.shape[1]
+            dg = got[..., :k].view(torch.float32).permute(1, 0, 2).reshape(nq, -1)
+            ig = got[..., k:2 * k].permute(1, 0, 2).reshape(nq, -1)
+            best, pos = _smallest(dg, k)
+            out = (best, torch.gather(ig, 1, pos),
+                   got[..., 2 * k].sum(0, dtype=torch.int32),
+                   got[..., 2 * k + 1].view(torch.float32).amin(0))
+            if on_device:
+                torch.cuda.synchronize(packed.device)
         self.on_device = on_device
         return out
 

@@ -20,6 +20,8 @@ import tempfile
 import threading
 from pathlib import Path
 
+from repro_torch.utils import trace
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -97,15 +99,19 @@ def _bind(lib):
 
 
 def load_library():
-    """The loaded kernel library, built from ``csrc/`` on first use."""
+    """The loaded kernel library, built from ``csrc/`` on first use (the
+    set-up span ``kernels.build``: the build, or the load of a library
+    already on disk)."""
     global _lib, build_log
     with _lock:
         if _lib is None:
             sources = sorted(CSRC.glob("*.cu"))
             path = _library_path(sources)
-            if not path.exists():
-                build_log = _compile(sources, path)
-            _lib = _bind(ctypes.CDLL(str(path)))
+            with trace.setup_span("kernels.build",
+                                  compiled=not path.exists()):
+                if not path.exists():
+                    build_log = _compile(sources, path)
+                _lib = _bind(ctypes.CDLL(str(path)))
         return _lib
 
 

@@ -86,6 +86,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from repro_torch.core.engine import EXTRA_COVERAGE, EXTRA_UNCERTIFIED_MASK
+from repro_torch.utils import trace
 
 #: Terminal ticket states (``SearchRequest.status``); "pending" is the only
 #: non-terminal one.  Exactly one terminal state per submitted request.
@@ -421,65 +422,69 @@ class SearchService:
         resolved = self._expire_queued(t_now)
         if not self._queue:
             return resolved
-        batch = [self._queue.popleft()
-                 for _ in range(min(self.slots, len(self._queue)))]
-        Q = np.stack([r.q for r in batch])
-        if len(batch) < self.slots:
-            # pad with a replay of the last real query: static (slots, D)
-            # shape -> one captured block walk serves every step
-            Q = np.concatenate(
-                [Q, np.broadcast_to(Q[-1], (self.slots - len(batch),
-                                            Q.shape[1]))])
-        # the batch scans together, so its anytime budget is the tightest
-        # member's remaining budget (members with no budget impose none)
-        budgets = [r.t_deadline - t_now for r in batch
-                   if r.t_deadline is not None]
-        deadline = max(min(budgets), 1e-4) if budgets else None
-        t0 = time.perf_counter()
-        try:
-            res, wall = self._dispatch(Q, deadline)
-        except Exception as exc:          # noqa: BLE001 — fail the batch,
-            wall = getattr(exc, "wall_s", None)  # not the service (§7)
-            if wall is None:
-                wall = time.perf_counter() - t0
+        with trace.span("service.step") as sp:
+            batch = [self._queue.popleft()
+                     for _ in range(min(self.slots, len(self._queue)))]
+            if sp:
+                sp.attrs.update(step=self.steps, batch_size=len(batch),
+                                rids=[r.rid for r in batch])
+            Q = np.stack([r.q for r in batch])
+            if len(batch) < self.slots:
+                # pad with a replay of the last real query: static (slots, D)
+                # shape -> one captured block walk serves every step
+                Q = np.concatenate(
+                    [Q, np.broadcast_to(Q[-1], (self.slots - len(batch),
+                                                Q.shape[1]))])
+            # the batch scans together, so its anytime budget is the tightest
+            # member's remaining budget (members with no budget impose none)
+            budgets = [r.t_deadline - t_now for r in batch
+                       if r.t_deadline is not None]
+            deadline = max(min(budgets), 1e-4) if budgets else None
+            t0 = time.perf_counter()
+            try:
+                res, wall = self._dispatch(Q, deadline)
+            except Exception as exc:          # noqa: BLE001 — fail the batch,
+                wall = getattr(exc, "wall_s", None)  # not the service (§7)
+                if wall is None:
+                    wall = time.perf_counter() - t0
+                t_done = (now + wall) if now is not None else self._clock()
+                for req in batch:
+                    req.status = "failed"
+                    req.error = f"{type(exc).__name__}: {exc}"
+                    req.t_done = t_done
+                    req.service_s = wall
+                    req.batch_size = len(batch)
+                    self._observe_latency(req)
+                self.failures += len(batch)
+                self.steps += 1
+                self.busy_s += wall
+                return resolved + batch
             t_done = (now + wall) if now is not None else self._clock()
-            for req in batch:
-                req.status = "failed"
-                req.error = f"{type(exc).__name__}: {exc}"
+            mask = res.stats.extra.get(EXTRA_UNCERTIFIED_MASK)
+            cov = res.stats.extra.get(EXTRA_COVERAGE)
+            stats = {key: v for key, v in res.stats.extra.items()
+                     if np.isscalar(v)}
+            n_visible = self._visible_rows()
+            for j, req in enumerate(batch):
+                req.ids = res.ids[j]
+                req.dists = res.dists[j]
+                req.certified = None if mask is None else bool(~mask[j])
+                if req.certified is False:
+                    self.uncertified += 1
+                req.coverage = None if cov is None else float(cov[j])
+                if req.coverage is not None and req.coverage < 1.0:
+                    self.partials += 1
+                req.stats = stats
+                req.status = "done"
                 req.t_done = t_done
                 req.service_s = wall
                 req.batch_size = len(batch)
+                req.n_visible = n_visible
                 self._observe_latency(req)
-            self.failures += len(batch)
             self.steps += 1
+            self.completed += len(batch)
             self.busy_s += wall
             return resolved + batch
-        t_done = (now + wall) if now is not None else self._clock()
-        mask = res.stats.extra.get(EXTRA_UNCERTIFIED_MASK)
-        cov = res.stats.extra.get(EXTRA_COVERAGE)
-        stats = {key: v for key, v in res.stats.extra.items()
-                 if np.isscalar(v)}
-        n_visible = self._visible_rows()
-        for j, req in enumerate(batch):
-            req.ids = res.ids[j]
-            req.dists = res.dists[j]
-            req.certified = None if mask is None else bool(~mask[j])
-            if req.certified is False:
-                self.uncertified += 1
-            req.coverage = None if cov is None else float(cov[j])
-            if req.coverage is not None and req.coverage < 1.0:
-                self.partials += 1
-            req.stats = stats
-            req.status = "done"
-            req.t_done = t_done
-            req.service_s = wall
-            req.batch_size = len(batch)
-            req.n_visible = n_visible
-            self._observe_latency(req)
-        self.steps += 1
-        self.completed += len(batch)
-        self.busy_s += wall
-        return resolved + batch
 
     def drain(self, *, now: float | None = None) -> list[SearchRequest]:
         """Serve until the queue is empty; in simulated time consecutive

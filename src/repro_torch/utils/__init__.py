@@ -1,2 +1,1 @@
-"""``repro_torch.utils`` — host wall-clock helpers (``timing``)."""
-from repro_torch.utils.timing import Timer, bench_call  # noqa: F401
+"""``repro_torch.utils`` — the program's spans and counters (``trace``)."""

@@ -292,7 +292,7 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "launch/hlo_cost.py", "launch/roofline.py",
                 "launch/attribution.py", "launch/dryrun.py",
                 "launch/reanalyze.py", "launch/summarize.py",
-                "utils/timing.py"):
+                "utils/trace.py"):
         assert ROOT / "src" / "repro_torch" / mod in files
     for f in files:
         hits = bad.findall(f.read_text())
@@ -309,7 +309,7 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.placement, repro_torch.launch.hlo_cost, "
             "repro_torch.launch.roofline, repro_torch.launch.attribution, "
             "repro_torch.launch.dryrun, repro_torch.launch.reanalyze, "
-            "repro_torch.launch.summarize, repro_torch.utils.timing; "
+            "repro_torch.launch.summarize, repro_torch.utils.trace; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -1,4 +1,4 @@
-"""The port's analysis tools and timer against the reference's (A10).
+"""The port's analysis tools against the reference's (A10).
 
 ``repro_torch.launch.roofline``'s arithmetic against the reference's for
 every arch and shape; ``launch.hlo_cost``'s counted matmul flops against
@@ -7,8 +7,7 @@ compiled HLO, at every family's smoke-config prefill; the counter's
 counterpart of the reference's ``MINI`` case; ``attribution``'s source
 lines; one ``dryrun`` cell on a fake (2, 2) group against the reference's
 ``lower_cell`` on 4 fake devices (each side a subprocess under a
-deadline); ``reanalyze`` and ``summarize`` over a saved record; and
-``utils.timing`` against the reference's.
+deadline); ``reanalyze`` and ``summarize`` over a saved record.
 """
 from __future__ import annotations
 
@@ -30,7 +29,6 @@ from repro_torch.launch import reanalyze as TRE
 from repro_torch.launch import roofline as TRL
 from repro_torch.launch import summarize as TSU
 from repro_torch.models import build_model
-from repro_torch.utils import timing as TT
 
 ROOT = Path(__file__).resolve().parents[1]
 TIMEOUT_S = 300
@@ -234,21 +232,3 @@ def test_summarize_renders_the_records(cell, capsys):
     assert "### Mesh `pod` (1 cells OK)" in text
     assert "| mamba2-130m | decode_32k |" in text
     assert "long_500k" in text          # the skipped cells
-
-
-def test_timing_behaves_as_the_reference():
-    """``Timer`` and ``bench_call`` with the reference's API: the same
-    counts, the same calls of ``fn``, the last result returned."""
-    from repro.utils import timing as RT
-    for mod in (TT, RT):
-        calls = []
-        t = mod.Timer()
-        for _ in range(3):
-            with t("a"):
-                calls.append(1)
-        assert t.counts == {"a": 3} and t.totals["a"] >= 0
-        assert t.mean_us("a") == 1e6 * t.totals["a"] / 3
-        assert t.mean_us("b") == 0.0
-        secs, last = mod.bench_call(lambda x: calls.append(x) or len(calls),
-                                    7, warmup=1, iters=4)
-        assert secs >= 0 and last == 8 and calls.count(7) == 5
